@@ -1,0 +1,69 @@
+"""The Video_Mamba_seq projector (StreamMind's default) and its gate LM.
+
+Per frame: spatial mean-pool 576→1 token, PreNet linear + leaky-relu,
+a VideoMamba step with carried state, PostNet leaky-relu + linear; the
+gate (ClsNet) is a small Mistral with a 2-token vocabulary, run on the
+newest memory token alone.  Only the ``"mamba"`` projector type is ported.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..config import StreamMindConfig
+from ..utils.params import linear, torch_linear_init
+from . import mistral as lm
+from .mamba import MambaState, init_video_mamba_params, video_mamba_forward, video_mamba_step
+
+
+def init_projector_params(g: torch.Generator, cfg: StreamMindConfig, device="cuda",
+                          dtype=torch.float32):
+    if cfg.mm_projector_type != "mamba":
+        raise NotImplementedError(f"projector type {cfg.mm_projector_type!r} is not ported")
+    d_in, d_out = cfg.mm_hidden_size, cfg.text.hidden_size
+    kw = dict(device=device, dtype=dtype)
+    return {
+        "pre_net": torch_linear_init(g, d_out, d_in, **kw),
+        "mamba": init_video_mamba_params(g, cfg.mamba, **kw),
+        "post_net": torch_linear_init(g, d_out, d_out, **kw),
+        "cls_net": lm.init_text_params(g, cfg.gate, **kw),
+    }
+
+
+def mamba_project(params, cfg: StreamMindConfig,
+                  frames_features: torch.Tensor) -> Tuple[torch.Tensor, MambaState]:
+    """(B, T, N, H) frame features → per-frame memory tokens (B, T, hidden)
+    and the final Mamba state."""
+    x = frames_features.mean(dim=2)
+    x = F.leaky_relu(linear(x, params["pre_net"]), negative_slope=0.01)
+    x, state = video_mamba_forward(params["mamba"], cfg.mamba, x)
+    x = linear(F.leaky_relu(x, negative_slope=0.01), params["post_net"])
+    return x, state
+
+
+def mamba_project_step(params, cfg: StreamMindConfig, frame_features: torch.Tensor,
+                       state: MambaState) -> Tuple[torch.Tensor, MambaState]:
+    """O(1) streaming projection of one frame (B, N, H) → one memory token
+    (B, hidden)."""
+    x = frame_features.mean(dim=1)
+    x = F.leaky_relu(linear(x, params["pre_net"]), negative_slope=0.01)
+    x, state = video_mamba_step(params["mamba"], cfg.mamba, x, state)
+    x = linear(F.leaky_relu(x, negative_slope=0.01), params["post_net"])
+    return x, state
+
+
+def gate_logits(params, cfg: StreamMindConfig, memory_tokens: torch.Tensor,
+                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The gate LM over an embedded sequence (B, S, hidden) → (B, S, 2)."""
+    logits, _ = lm.text_forward(params["cls_net"], cfg.gate, inputs_embeds=memory_tokens,
+                                attn_mask=attn_mask)
+    return logits
+
+
+def gate_decision_step(params, cfg: StreamMindConfig,
+                       memory_token: torch.Tensor) -> torch.Tensor:
+    """Streaming gate: the newest memory token (B, hidden) alone through the
+    gate LM, logits at the last position → (B, 2)."""
+    return gate_logits(params, cfg, memory_token[:, None, :])[:, -1, :]

@@ -1,0 +1,302 @@
+"""Attention ops: the plain softmax attention, and two hand-written CUDA kernels.
+
+  * ``mha_reference``    — fp32 logits, the scale applied after the dot,
+                           probs cast to v's dtype (GQA-aware).
+  * ``flash_attention``  — blockwise online-softmax forward with per-row
+                           ``kv_len``/``q_offset`` (cached prefill); kernel
+                           ``csrc/flash_attention.cu``, plain version
+                           ``flash_attention_ref``.
+  * ``exact_attention``  — non-causal whole-row fp32-softmax attention (the
+                           ViT under ``attn_impl="exact"``); kernel
+                           ``csrc/exact_attention.cu``, plain version
+                           ``exact_attention_ref``.
+  * ``decode_attention`` — one query token against a fixed-capacity cache,
+                           a plain torch op (left to XLA in JAX too).
+
+Each kernel wrapper takes its plain version only for tensors on the CPU;
+for CUDA tensors it launches the kernel or raises.  ``<wrapper>.launches``
+counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+_EXACT_MAX_KEYS = 4096     # the logits rows of a query tile live in shared memory
+_EXACT_MAX_QUERIES = 4096  # as the TPU kernel, which holds all query rows resident
+_KERNEL_HEAD_DIMS = (64, 128)
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, Hkv, D) -> (B, S, Hkv*n_rep, D) by head repetition."""
+    if n_rep == 1:
+        return x
+    return x.repeat_interleave(n_rep, dim=2)
+
+
+def mha_reference(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, Hkv, D)
+    v: torch.Tensor,
+    causal: bool = False,
+    kv_mask: Optional[torch.Tensor] = None,  # (B, Sk) bool, True == valid
+    q_offset=0,
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Softmax attention with fp32 logits and softmax.  GQA groups the query
+    heads of each kv head (head h reads kv head h // (H / Hkv), as
+    ``_repeat_kv`` maps them), so k and v are never repeated across heads:
+    decode reads the whole cache through here every step."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(b, sq, hkv, h // hkv, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        logits = torch.where(kpos <= qpos, logits, NEG_INF)
+    if kv_mask is not None:
+        logits = torch.where(kv_mask[:, None, None, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
+    return out.reshape(b, sq, h, d)
+
+
+def decode_attention(
+    q: torch.Tensor,        # (B, 1, H, D)
+    k_cache: torch.Tensor,  # (B, C, Hkv, D)
+    v_cache: torch.Tensor,
+    cache_len: torch.Tensor,  # (B,) valid entries
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-token decode against a fixed-capacity KV cache."""
+    cap = k_cache.shape[1]
+    kv_mask = torch.arange(cap, device=q.device)[None, :] < cache_len[:, None]
+    return mha_reference(q, k_cache, v_cache, kv_mask=kv_mask, softmax_scale=softmax_scale)
+
+
+def _rows(val, b: int, default: int, device) -> torch.Tensor:
+    """Scalar-or-(B,) length/offset → (B,) int32 tensor on ``device``."""
+    if val is None:
+        val = default
+    if isinstance(val, torch.Tensor):
+        return val.to(device=device, dtype=torch.int32).expand(b).contiguous()
+    return torch.full((b,), int(val), dtype=torch.int32, device=device)
+
+
+def _check_cuda_qkv(name: str, q, k, v, max_keys: Optional[int] = None):
+    for t, n in ((q, "q"), (k, "k"), (v, "v")):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name}: {n} must lie on q's CUDA device")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name}: q, k, v must share one dtype")
+        if t.dim() != 4 or t.stride(-1) != 1:
+            raise ValueError(f"{name}: {n} must be 4-D with a contiguous head dim")
+    if q.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"{name}: dtype {q.dtype} not supported (fp32, bf16)")
+    b, sq, h, d = q.shape
+    bk, sk, hkv, dk = k.shape
+    if v.shape != k.shape or bk != b or dk != d:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} do not agree")
+    if d not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not supported {_KERNEL_HEAD_DIMS}")
+    if hkv < 1 or h % hkv:
+        raise ValueError(f"{name}: {h} heads are not a multiple of {hkv} kv heads")
+    if b * h > 65535 or sq < 1 or sk < 1:
+        raise ValueError(f"{name}: B*H={b * h}, Sq={sq}, Sk={sk} out of range")
+
+
+def _strides(t: torch.Tensor):
+    """Element strides of the (batch, seq, head) dims."""
+    return list(t.stride()[:3])
+
+
+# ---------------------------------------------------------------------------
+# flash attention (cached prefill)
+# ---------------------------------------------------------------------------
+def flash_attention_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    causal: bool = False, kv_len=None, q_offset=0,
+    softmax_scale: Optional[float] = None,
+    block_q: int = 256, block_k: int = 256,
+) -> torch.Tensor:
+    """Plain version of ``flash_attention``, in the TPU kernel's arithmetic
+    and block order: q pre-scaled in fp32, online (m, l, acc) over key
+    blocks, masked logits -1e30, denominator clamped at 1e-30."""
+    b, sq, h, d = q.shape
+    _, sk, hkv, _ = k.shape
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    block_q, block_k = min(block_q, sq), min(block_k, sk)
+    n_kb = -(-sk // block_k)
+    lens = _rows(kv_len, b, sk, "cpu").clamp(max=sk).tolist()
+    offs = _rows(q_offset, b, 0, "cpu").tolist()
+    qf = (q.float() * scale).transpose(1, 2)               # (B, H, Sq, D)
+    kf = _repeat_kv(k, h // hkv).float().transpose(1, 2)   # (B, H, Sk, D)
+    vf = _repeat_kv(v, h // hkv).float().transpose(1, 2)
+    out = torch.zeros(b, h, sq, d, device=q.device)
+    for bi in range(b):
+        L, off = lens[bi], offs[bi]
+        for q0 in range(0, sq, block_q):
+            qb = qf[bi, :, q0:q0 + block_q]                       # (H, nq, D)
+            nq = qb.shape[1]
+            qpos = torch.arange(q0, q0 + nq, device=q.device)[:, None] + off
+            lim = min(q0 + block_q + off, L) if causal else L
+            max_kb = min(n_kb, -(-lim // block_k)) if lim > 0 else 0
+            m = torch.full((h, nq, 1), NEG_INF, device=q.device)
+            l = torch.zeros(h, nq, 1, device=q.device)
+            acc = torch.zeros(h, nq, d, device=q.device)
+            for kb in range(max_kb):
+                k0 = kb * block_k
+                s = qb @ kf[bi, :, k0:k0 + block_k].transpose(1, 2)  # (H, nq, nk)
+                kpos = torch.arange(k0, k0 + s.shape[-1], device=q.device)[None, :]
+                mask = kpos < L
+                if causal:
+                    mask = mask & (kpos <= qpos)
+                s = torch.where(mask, s, NEG_INF)
+                m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+                p = torch.exp(s - m_new)
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(dim=-1, keepdim=True)
+                acc = acc * alpha + p @ vf[bi, :, k0:k0 + block_k]
+                m = m_new
+            out[bi, :, q0:q0 + nq] = acc / torch.clamp(l, min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, Hkv, D)
+    v: torch.Tensor,
+    causal: bool = False,
+    kv_len=None,      # None, int or (B,) int tensor — valid keys per row
+    q_offset=0,       # int or (B,) int tensor — position of query row 0
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Flash attention forward with per-row ``kv_len`` and ``q_offset``
+    (clamped: ``kv_len`` past Sk counts as Sk).  k/v may be strided views
+    of a KV cache; nothing is copied."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal, kv_len, q_offset, softmax_scale)
+    if not q.is_cuda:
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    _check_cuda_qkv("flash_attention", q, k, v)
+    b, sq, h, d = q.shape
+    _, sk, hkv, _ = k.shape
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    lens = _rows(kv_len, b, sk, q.device)
+    offs = _rows(q_offset, b, 0, q.device)
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    err = _build.kernel("flash_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lens.data_ptr(), offs.data_ptr(), b, sq, sk, h, hkv, d, int(causal),
+        int(q.dtype == torch.bfloat16), *_strides(q), *_strides(k), *_strides(v),
+        scale, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# exact attention (the ViT)
+# ---------------------------------------------------------------------------
+def exact_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of ``exact_attention``: dot in fp32, THEN the scale;
+    whole-row max/exp/sum/div in fp32; probs cast to v's dtype; PV in fp32
+    with one final rounding to q's dtype."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    kr = _repeat_kv(k, h // hkv)
+    vr = _repeat_kv(v, h // hkv)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * scale
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    probs = (p / p.sum(dim=-1, keepdim=True)).to(v.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), vr.float())
+    return out.to(q.dtype)
+
+
+def exact_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """Non-causal, unmasked attention with a whole-row fp32 softmax.  q, k
+    and v may be strided views (the ViT passes slices of its fused qkv
+    projection); the kernel reads them through their strides."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if sk > _EXACT_MAX_KEYS or sq > _EXACT_MAX_QUERIES:
+        raise ValueError(
+            f"exact_attention: Sq={sq}, Sk={sk} exceed the kernel's bounds "
+            f"({_EXACT_MAX_QUERIES}, {_EXACT_MAX_KEYS}); use flash or mha_reference"
+        )
+    if q.device.type == "cpu":
+        return exact_attention_ref(q, k, v, softmax_scale)
+    if not q.is_cuda:
+        raise ValueError(f"exact_attention: no kernel for device {q.device}")
+    _check_cuda_qkv("exact_attention", q, k, v)
+    hkv = k.shape[2]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    err = _build.kernel("exact_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, sq, sk, h, hkv, d, int(q.dtype == torch.bfloat16),
+        *_strides(q), *_strides(k), *_strides(v),
+        scale, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "exact_attention")
+    exact_attention.launches += 1
+    return out
+
+
+exact_attention.launches = 0
+
+
+def attention(
+    q, k, v,
+    causal: bool = False,
+    kv_mask: Optional[torch.Tensor] = None,
+    kv_len=None,
+    q_offset=0,
+    impl: str = "auto",
+):
+    """Dispatcher: 'auto' → mha_reference; 'bf16' → softmax in the input
+    dtype; 'exact' → exact_attention where it applies (non-causal, no mask,
+    within its bounds), else the 'auto' path with the same numerics."""
+    if impl == "exact":
+        if (not causal and kv_mask is None and kv_len is None
+                and isinstance(q_offset, int) and q_offset == 0
+                and k.shape[1] <= _EXACT_MAX_KEYS and q.shape[1] <= _EXACT_MAX_QUERIES):
+            return exact_attention(q, k, v)
+        impl = "auto"
+    if impl not in ("auto", "bf16"):
+        raise ValueError(f"attention: impl {impl!r} is not ported (auto, bf16, exact)")
+    if kv_mask is None and kv_len is not None:
+        sk = k.shape[1]
+        kv_mask = torch.arange(sk, device=q.device)[None, :] < _rows(kv_len, k.shape[0], sk, q.device)[:, None]
+    if impl == "bf16":
+        h, hkv = q.shape[2], k.shape[2]
+        k = _repeat_kv(k, h // hkv)
+        v = _repeat_kv(v, h // hkv)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(q.shape[-1]))
+        if causal:
+            sq, sk = q.shape[1], k.shape[1]
+            qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+            s = torch.where(torch.arange(sk, device=q.device)[None, :] <= qpos, s,
+                            torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+        if kv_mask is not None:
+            s = torch.where(kv_mask[:, None, None, :], s,
+                            torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+        return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+    return mha_reference(q, k, v, causal=causal, kv_mask=kv_mask, q_offset=q_offset)

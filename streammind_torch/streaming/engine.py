@@ -1,0 +1,468 @@
+"""Event-gated cognition: the per-frame perception step and the turn.
+
+Per frame, ``StreamMindEngine.perceive_step`` runs the ViT, one Mamba
+projector step, the gate LM on the new memory token, and a write into the
+memory ring.  When the gate fires, ``StreamSession._cognify`` builds a
+splice plan, prefills the Mistral decoder from a bucketed suffix into the
+persistent KV cache, and decodes greedily (or sampled) until EOS, a stop
+sequence or the token budget.
+
+This package runs eagerly: the decode loop is a Python loop with one host
+sync per token, where the JAX package compiles a while-loop.  Ring and KV
+cache writes happen in place.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import StreamMindConfig
+from ..constants import VIDEO_TOKEN_INDEX
+from ..mm_utils import tokenizer_multimodal_token, trim_at_stop_strings
+from ..models import mistral as lm
+from ..models import projector as proj
+from ..models.mamba import MambaState
+from ..models.meta import SplicePlan, bucket_length, build_splice_plan, splice_embeds
+from ..models.vit import fuse_vit_qkv, vit_forward
+from ..utils.params import param_bytes, tree_leaves, tree_map
+from .logit_filters import sample_first_token, sample_token
+from .state import StreamState, init_stream_state
+
+DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
+_EMPTY_STOP_IDS = np.zeros((0, 1), np.int32)
+
+
+def _float_dtype(tree) -> torch.dtype:
+    """Working float dtype of a (possibly quantized) tree: the first sub-fp32
+    float leaf if any (a quantized tree carries fp32 scales beside bf16
+    embeddings), else the first float leaf, else bf16."""
+    first = None
+    for leaf in tree_leaves(tree):
+        if leaf.is_floating_point():
+            if first is None:
+                first = leaf.dtype
+            if leaf.dtype != torch.float32:
+                return leaf.dtype
+    return first if first is not None else torch.bfloat16
+
+
+class StreamMindEngine:
+    """Holds the params; many StreamSessions can share one engine."""
+
+    def __init__(
+        self,
+        params,
+        cfg: StreamMindConfig,
+        eos_token_id: int = 2,
+        prefill_buckets=DEFAULT_BUCKETS,
+        kv_capacity: Optional[int] = None,
+        attn_impl: str = "auto",
+        quantize_gate=False,
+        device="cuda",
+    ):
+        """params: the JAX package's tree layout, as tensors (moved to
+        ``device`` if they lie elsewhere).  quantize_gate: False or "int4"
+        (the int8 tier is not ported)."""
+        if quantize_gate not in (False, None, "int4"):
+            raise NotImplementedError(f"quantize_gate={quantize_gate!r} is not ported "
+                                      f"(False or 'int4')")
+        self.device = torch.device(device)
+        params = tree_map(lambda t: t.to(self.device), params)
+        if quantize_gate == "int4" and "cls_net" in params.get("projector", {}):
+            from ..utils.quantize import quantize_gate_params
+
+            params["projector"] = dict(params["projector"])
+            params["projector"]["cls_net"] = quantize_gate_params(
+                params["projector"]["cls_net"], bits=4)
+        if "vision" in params:
+            params["vision"] = fuse_vit_qkv(params["vision"])
+        if "text" in params:
+            # q/k/v → qkv and gate/up → gateup; quantized trees always, plain
+            # trees only under 2 GiB (a bf16 Mistral-7B stays unfused).  The
+            # gate LM (projector.cls_net) is never fused: its single-token
+            # shortcut reads only v.
+            q_leaf = params["text"].get("layers", {}).get("q", {})
+            quantized = isinstance(q_leaf, dict) and "w_int4pc" in q_leaf
+            if quantized or param_bytes(params["text"]) < 2 << 30:
+                params["text"] = lm.fuse_text_linears(params["text"])
+        self.params = params
+        self.cfg = cfg
+        self.eos_token_id = eos_token_id
+        self.buckets = tuple(b for b in prefill_buckets if b <= cfg.text.max_position_embeddings)
+        self.kv_capacity = kv_capacity or min(cfg.text.max_position_embeddings, 8192)
+        self.attn_impl = attn_impl
+
+    # -- perception -------------------------------------------------------
+    @torch.no_grad()
+    def perceive_step(self, pixels: torch.Tensor, state: StreamState):
+        """pixels (1, 3, H, W) → (gate_probs (2,) fp32, new_state).  The
+        memory ring of ``state`` is written in place."""
+        p, cfg = self.params, self.cfg
+        pixels = pixels.to(self.device)
+        feats = vit_forward(p["vision"], cfg.vision, pixels, attn_impl=self.attn_impl)
+        mem_tok, mamba_state = proj.mamba_project_step(p["projector"], cfg, feats, state.mamba)
+        logits = proj.gate_decision_step(p["projector"], cfg, mem_tok)
+        gate_probs = torch.softmax(logits[0].float(), dim=-1)
+        slot = min(state.frame_idx, cfg.max_stream_frames - 1)
+        state.memory[:, slot] = mem_tok.to(state.memory.dtype)
+        new_state = StreamState(mamba=mamba_state, memory=state.memory,
+                                frame_idx=state.frame_idx + 1, last_fire=state.last_fire)
+        return gate_probs, new_state
+
+    # -- cognition --------------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, plan: SplicePlan, memory: torch.Tensor, cache: lm.KVCache):
+        """Bucketed prefill of one right-padded suffix into ``cache`` (in
+        place).  Returns (next-token logits (1, V) fp32, cache advanced by
+        the plan's real length)."""
+        dev = self.device
+
+        def t(a):
+            return torch.as_tensor(a, device=dev)[None]
+
+        embeds = splice_embeds(self.params["text"], t(plan.token_ids), t(plan.mem_index),
+                               t(plan.use_mem), memory)
+        real_len = torch.full((1,), plan.length, dtype=torch.int32, device=dev)
+        logits, cache = lm.text_forward(self.params["text"], self.cfg.text,
+                                        inputs_embeds=embeds, cache=cache,
+                                        cache_advance=real_len)
+        return logits[:, max(plan.length - 1, 0), :], cache
+
+    @torch.no_grad()
+    def generate_from_prefill(
+        self,
+        last_logits: torch.Tensor,
+        cache: lm.KVCache,
+        max_new_tokens: int = 128,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+        stop_ids=None,
+    ):
+        """Decode after a prefill, greedy or sampled.  stop_ids: optional
+        (S, L) matrix of stop sequences left-padded with -1 (stop_id_matrix).
+        Returns (token_list, cache).  The token buffer, the stop match and
+        the returned count follow the JAX package's compiled loop: a
+        stop-terminating token is returned, EOS is not, and an EOS first
+        token returns []."""
+        eos = self.eos_token_id
+        first = sample_first_token(generator, last_logits[0], temperature, top_k, top_p)
+        if first == eos:
+            return [], cache
+        stop = np.asarray(_EMPTY_STOP_IDS if stop_ids is None else stop_ids, np.int32)
+        width = stop.shape[1]
+
+        def stop_hit(tail):
+            return bool(np.any(np.all((stop == np.asarray(tail)[None, :]) | (stop < 0), axis=1)))
+
+        buf = [eos] * max_new_tokens
+        buf[0] = first
+        tail = [-2] * (width - 1) + [first]
+        done = stop_hit(tail)
+        i, tok = 0, first
+        while i < max_new_tokens and not done:
+            ids = torch.tensor([[tok]], dtype=torch.long, device=self.device)
+            logits, cache = lm.text_forward(self.params["text"], self.cfg.text,
+                                            input_ids=ids, cache=cache)
+            nxt = sample_token(generator, logits[0, -1], temperature, top_k, top_p)
+            if i + 1 < max_new_tokens:
+                buf[i + 1] = nxt
+            tail = tail[1:] + [nxt]
+            done = nxt == eos or stop_hit(tail)
+            i, tok = i + 1, nxt
+        # iterations fed = i; a stop hit's final token is buffered but unfed
+        n = min(i + int(done and tok != eos), max_new_tokens)
+        return buf[:n], cache
+
+    CACHE_CAPACITY_LADDER = (256, 512, 1024, 2048, 4096, 8192)
+
+    def cache_capacity_for(self, n_prompt_padded: int, max_new: int) -> int:
+        """Smallest ladder capacity holding a one-shot turn (padded prefill
+        bucket + decode budget); decode attention reads the whole ring."""
+        need = n_prompt_padded + max_new
+        for c in self.CACHE_CAPACITY_LADDER:
+            if need <= c <= self.kv_capacity:
+                return c
+        return self.kv_capacity
+
+    def new_kv_cache(self, dtype=None, capacity: Optional[int] = None) -> lm.KVCache:
+        """dtype None → the decoder weights' working dtype."""
+        if dtype is None:
+            dtype = _float_dtype(self.params["text"])
+        return lm.init_kv_cache(self.cfg.text, batch=1, capacity=capacity or self.kv_capacity,
+                                dtype=dtype, device=self.device)
+
+    def new_stream_state(self) -> StreamState:
+        return init_stream_state(self.cfg, device=self.device)
+
+
+def stop_id_matrix(tokenizer, stop_strings) -> Optional[np.ndarray]:
+    """Encode stop strings into the (S, L) left-padded (-1) matrix the decode
+    loop matches against; each string bare and with a leading space."""
+    seqs: list = []
+    for s in stop_strings or []:
+        for variant in (s, " " + s):
+            ids = _encode_no_bos(tokenizer, variant)
+            if ids and ids not in seqs:
+                seqs.append(ids)
+    if not seqs:
+        return None
+    width = max(len(x) for x in seqs)
+    mat = np.full((len(seqs), width), -1, np.int32)
+    for r, x in enumerate(seqs):
+        mat[r, width - len(x):] = x
+    return mat
+
+
+def _encode_no_bos(tokenizer, text: str) -> list:
+    ids = tokenizer(text).input_ids
+    bos = getattr(tokenizer, "bos_token_id", None)
+    if bos is not None and ids and ids[0] == bos:
+        ids = ids[1:]
+    return ids
+
+
+_TURN_SCAFFOLD = 16  # "[INST] <video>\n [/INST]" worst case
+
+
+def turn_bucket(engine, n_pending: int, span_len: int, min_bucket: int = 0) -> int:
+    """The prefill bucket a turn with this pending/span size will pick."""
+    n_spliced = n_pending + _TURN_SCAFFOLD + span_len
+    return max(bucket_length(min(n_spliced, engine.buckets[-1]), engine.buckets), min_bucket)
+
+
+def ensure_turn_capacity(engine: StreamMindEngine, tokenizer, pending_ids: list, turns: list,
+                         cache, span_len: int, max_new_tokens: int, min_bucket: int = 0):
+    """KV-capacity guard: prefill writes the whole padded bucket, so the
+    budget counts that bucket plus the decode tokens.  On overflow: a fresh
+    cache, with recent turns re-carried as text (pending is REPLACED)."""
+    bucket = turn_bucket(engine, len(pending_ids), span_len, min_bucket)
+    if int(cache.length[0]) + bucket + max_new_tokens <= engine.kv_capacity:
+        return pending_ids, cache
+    new_pending = rebuild_history_pending(engine, tokenizer, turns, pending_ids, span_len,
+                                          max_new_tokens, min_bucket=min_bucket)
+    return new_pending, engine.new_kv_cache()
+
+
+def rebuild_history_pending(engine, tokenizer, turns: list, pending_ids: list, span_len: int,
+                            max_new_tokens: int, min_bucket: int = 0,
+                            capacity: Optional[int] = None) -> list:
+    """The pending suffix for a FRESH cache of ``capacity`` tokens: recent
+    turns re-carried as text, trimmed until bucket + decode budget fit."""
+    if capacity is None:
+        capacity = engine.kv_capacity
+    keep = min(capacity // 2,
+               max(engine.buckets) - span_len - _TURN_SCAFFOLD - max_new_tokens)
+    history: list = []
+    for turn in turns[::-1]:
+        ids = _encode_no_bos(tokenizer, f" {turn} </s>")
+        if len(history) + len(ids) > keep:
+            break
+        history = ids + history
+
+    def fits(hist):
+        n = len(hist) + _TURN_SCAFFOLD + span_len
+        b = max(bucket_length(min(n, engine.buckets[-1]), engine.buckets), min_bucket)
+        return b + max_new_tokens <= capacity and n <= engine.buckets[-1]
+
+    while history and not fits(history):
+        history = history[max(len(history) // 4, 1):]
+    if not fits(history):
+        history = []
+    return history if turns else pending_ids
+
+
+def turn_suffix_ids(tokenizer, pending_ids: list) -> list:
+    """Pending dialogue ids plus the "[INST] <video>\\n [/INST]" scaffold if
+    no modal slot is pending."""
+    if pending_ids and VIDEO_TOKEN_INDEX in pending_ids:
+        return pending_ids
+    turn_ids = tokenizer_multimodal_token("[INST] <video>\n [/INST]", tokenizer,
+                                          VIDEO_TOKEN_INDEX)
+    bos = getattr(tokenizer, "bos_token_id", None)
+    if bos is not None and turn_ids and turn_ids[0] == bos:
+        turn_ids = turn_ids[1:]
+    return pending_ids + turn_ids
+
+
+def build_turn_plan(engine: StreamMindEngine, tokenizer, span: list, pending_ids: list,
+                    pad_to: Optional[int] = None) -> SplicePlan:
+    """The splice plan of one cognition turn (span = absolute ring slots)."""
+    suffix_ids = turn_suffix_ids(tokenizer, pending_ids)
+    if pad_to is None:
+        pad_to = bucket_length(len(suffix_ids) - 1 + len(span), engine.buckets)
+    plan = build_splice_plan(suffix_ids, [len(span)], VIDEO_TOKEN_INDEX, pad_to)
+    mem_index = plan.mem_index.copy()
+    mem_index[plan.use_mem] = np.asarray(span, np.int32)
+    return SplicePlan(token_ids=plan.token_ids, mem_index=mem_index, use_mem=plan.use_mem,
+                      attn_mask=plan.attn_mask, labels=plan.labels, length=plan.length)
+
+
+def post_turn_pending(tokenizer) -> list:
+    """Ids carried into the next turn: only the closing </s> — the generated
+    tokens were each fed through the decode loop and are in the cache."""
+    eos_ids = tokenizer(getattr(tokenizer, "eos_token", "</s>")).input_ids
+    bos = getattr(tokenizer, "bos_token_id", None)
+    if bos is not None and eos_ids and eos_ids[0] == bos:
+        eos_ids = eos_ids[1:]
+    return list(eos_ids)
+
+
+def decode_tokens_to_text(tokenizer, tokens: list) -> str:
+    if hasattr(tokenizer, "decode"):
+        try:
+            return tokenizer.decode(tokens, skip_special_tokens=True)
+        except TypeError:
+            return tokenizer.decode(tokens)
+    return ""
+
+
+def run_cognition_turn(engine: StreamMindEngine, tokenizer, memory: torch.Tensor, span: list,
+                       pending_ids: list, cache, max_new_tokens: int = 128,
+                       temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+                       generator: Optional[torch.Generator] = None, stop_ids=None):
+    """One turn: splice the span into the pending suffix, prefill, decode.
+    Returns (text, tokens, new_pending_ids, cache)."""
+    plan = build_turn_plan(engine, tokenizer, span, pending_ids)
+    last, cache = engine.prefill(plan, memory, cache)
+    tokens, cache = engine.generate_from_prefill(
+        last, cache, max_new_tokens, temperature=temperature, top_k=top_k, top_p=top_p,
+        generator=generator, stop_ids=stop_ids)
+    return decode_tokens_to_text(tokenizer, tokens), tokens, post_turn_pending(tokenizer), cache
+
+
+class StreamSession:
+    """One live stream: per frame → perceive; on a gate fire → splice the
+    memory span since the previous fire into the rolling dialogue and decode
+    a turn.  The KV cache persists across turns."""
+
+    def __init__(
+        self,
+        engine: StreamMindEngine,
+        tokenizer,
+        prompt_ids: Optional[list] = None,
+        max_new_tokens: int = 128,
+        gate_threshold: Optional[float] = None,
+        stop_strings: Optional[list] = None,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 0.0,
+        seed: int = 0,
+        sample_type: str = "all",
+        sample_per: float = 0.5,
+    ):
+        if sample_type not in (None, "all"):
+            raise NotImplementedError(f"sample_type={sample_type!r} (memory subsampling) "
+                                      f"is not ported")
+        self.engine = engine
+        self.tokenizer = tokenizer
+        self.max_new_tokens = max_new_tokens
+        self.gate_threshold = gate_threshold  # None → argmax
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+        self.generator = torch.Generator(device=engine.device).manual_seed(seed)
+        self.sample_type = sample_type
+        self.sample_per = float(sample_per)
+        self.last_span: list = []
+        self.stop_strings = list(stop_strings) if stop_strings else []
+        self.stop_ids = stop_id_matrix(tokenizer, self.stop_strings)
+        self.state = engine.new_stream_state()
+        self.cache = engine.new_kv_cache()
+        self.turns: list = []
+        self.pending_ids: list = list(prompt_ids) if prompt_ids else []
+        self.interval_ids: list = []
+
+    def export_state(self) -> dict:
+        """Everything the dialogue carries, as host values (bf16 tensors are
+        exported as fp32 arrays, which is lossless)."""
+        def host(t):
+            return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+        return {
+            "mamba_conv": host(self.state.mamba.conv),
+            "mamba_ssm": host(self.state.mamba.ssm),
+            "memory": host(self.state.memory),
+            "frame_idx": int(self.state.frame_idx),
+            "last_fire": int(self.state.last_fire),
+            "kv_k": host(self.cache.k),
+            "kv_v": host(self.cache.v),
+            "kv_length": host(self.cache.length),
+            "pending_ids": list(self.pending_ids),
+            "turns": list(self.turns),
+            "interval_ids": list(self.interval_ids),
+            "max_new_tokens": self.max_new_tokens,
+            "gate_threshold": self.gate_threshold,
+            "stop_strings": list(self.stop_strings),
+            "temperature": self.temperature,
+            "top_k": self.top_k,
+            "top_p": self.top_p,
+            "sample_type": self.sample_type,
+            "sample_per": self.sample_per,
+        }
+
+    @classmethod
+    def resume(cls, engine: StreamMindEngine, tokenizer, blob: dict) -> "StreamSession":
+        s = cls(engine, tokenizer,
+                max_new_tokens=int(blob["max_new_tokens"]),
+                gate_threshold=blob["gate_threshold"],
+                stop_strings=blob.get("stop_strings"),
+                temperature=float(blob.get("temperature", 0.0)),
+                top_k=int(blob.get("top_k", 0)),
+                top_p=float(blob.get("top_p", 0.0)),
+                sample_type=str(blob.get("sample_type", "all")),
+                sample_per=float(blob.get("sample_per", 0.5)))
+
+        def dev(a, like):
+            return torch.as_tensor(np.asarray(a)).to(device=like.device, dtype=like.dtype)
+
+        s.state = StreamState(
+            mamba=MambaState(conv=dev(blob["mamba_conv"], s.state.mamba.conv),
+                             ssm=dev(blob["mamba_ssm"], s.state.mamba.ssm)),
+            memory=dev(blob["memory"], s.state.memory),
+            frame_idx=int(blob["frame_idx"]),
+            last_fire=int(blob["last_fire"]),
+        )
+        s.cache = lm.KVCache(k=dev(blob["kv_k"], s.cache.k), v=dev(blob["kv_v"], s.cache.v),
+                             length=dev(blob["kv_length"], s.cache.length))
+        s.pending_ids = list(blob["pending_ids"])
+        s.turns = list(blob["turns"])
+        s.interval_ids = list(blob["interval_ids"])
+        return s
+
+    def process_frame(self, pixels: torch.Tensor, force_fire: bool = False) -> Optional[str]:
+        """One video frame → None (silence) or the generated utterance.
+        force_fire overrides the gate for this frame; perception still runs."""
+        gate_probs, self.state = self.engine.perceive_step(pixels, self.state)
+        if force_fire:
+            fire = True
+        else:
+            p = gate_probs.tolist()
+            fire = p[1] > p[0] if self.gate_threshold is None else p[1] > self.gate_threshold
+        if not fire:
+            return None
+        return self._cognify()
+
+    def _cognify(self) -> str:
+        eng = self.engine
+        cur = self.state.frame_idx
+        cur_clamped = min(cur, eng.cfg.max_stream_frames)
+        start = min(self.state.last_fire, cur_clamped)
+        span = list(range(start, cur_clamped)) or [max(cur_clamped - 1, 0)]
+        self.last_span = span
+        self.interval_ids.append(cur)
+        self.pending_ids, self.cache = ensure_turn_capacity(
+            eng, self.tokenizer, self.pending_ids, self.turns, self.cache, len(span),
+            self.max_new_tokens)
+        text, _, self.pending_ids, self.cache = run_cognition_turn(
+            eng, self.tokenizer, self.state.memory, span, self.pending_ids, self.cache,
+            self.max_new_tokens, temperature=self.temperature, top_k=self.top_k,
+            top_p=self.top_p, generator=self.generator, stop_ids=self.stop_ids)
+        if self.stop_strings:
+            text = trim_at_stop_strings(text, self.stop_strings)
+        self.turns.append(text)
+        self.state = self.state._replace(last_fire=min(cur, eng.cfg.max_stream_frames))
+        return text

@@ -1,0 +1,106 @@
+"""Parameter-tree helpers: initializers, linear, tree walking.
+
+Models are plain functions over nested dicts of tensors ("param trees"),
+with the same leaf names and layout as the JAX package: linear weights
+are ``(out_features, in_features)`` and per-layer leaves of a transformer
+are stacked along a leading layer axis, so one converter
+(``utils.from_jax``) serves both packages.
+"""
+from __future__ import annotations
+
+import math
+from typing import Iterator, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.int4_matvec import int4_matvec
+from .quantize import dequantize_linear_weight_int4_pc
+
+
+def _normal(g: torch.Generator, shape, std: float, device, dtype) -> torch.Tensor:
+    return torch.empty(shape, device=device, dtype=dtype).normal_(0.0, std, generator=g)
+
+
+def _uniform(g: torch.Generator, shape, bound: float, device, dtype) -> torch.Tensor:
+    return torch.empty(shape, device=device, dtype=dtype).uniform_(-bound, bound, generator=g)
+
+
+def torch_linear_init(g: torch.Generator, out_features: int, in_features: int,
+                      bias: bool = True, device="cuda", dtype=torch.float32,
+                      lead: Tuple[int, ...] = ()):
+    """torch.nn.Linear's default init: uniform(±sqrt(1/fan_in)) weights and
+    bias.  ``lead`` prepends stacked-layer axes."""
+    bound = math.sqrt(1.0 / in_features)
+    out = {"weight": _uniform(g, (*lead, out_features, in_features), bound, device, dtype)}
+    if bias:
+        out["bias"] = _uniform(g, (*lead, out_features), bound, device, dtype)
+    return out
+
+
+def normal_init(g: torch.Generator, shape, std: float = 0.02, device="cuda",
+                dtype=torch.float32) -> torch.Tensor:
+    return _normal(g, shape, std, device, dtype)
+
+
+def zeros(shape, device="cuda", dtype=torch.float32) -> torch.Tensor:
+    return torch.zeros(shape, device=device, dtype=dtype)
+
+
+def ones(shape, device="cuda", dtype=torch.float32) -> torch.Tensor:
+    return torch.ones(shape, device=device, dtype=dtype)
+
+
+def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """x @ W.T + b with (out, in)-layout weights.
+
+    Also takes the gate's int4 leaves ({"w_int4pc", "scale"} from
+    utils.quantize): with at most 8 tokens on a CUDA tensor the fused
+    int4 kernel (ops/int4_matvec.py) reads the packed bytes directly;
+    everything else goes through the dequantized matmul, as the JAX
+    package does off the TPU.
+    """
+    if "w_int4pc" in p:
+        t = x.numel() // x.shape[-1]
+        if x.is_cuda and t <= 8:
+            y = int4_matvec(
+                x.reshape(t, x.shape[-1]).contiguous(), p["w_int4pc"], p["scale"]
+            ).reshape(*x.shape[:-1], -1)
+        else:
+            y = F.linear(x, dequantize_linear_weight_int4_pc(p, x.dtype))
+    elif "weight" in p:
+        y = F.linear(x, p["weight"].to(x.dtype))
+    else:
+        raise ValueError(f"linear: unsupported leaf scheme {sorted(p)}")
+    if "bias" in p:
+        y = y + p["bias"].to(x.dtype)
+    return y
+
+
+def tree_leaves(tree) -> Iterator[torch.Tensor]:
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def layer_slice(tree, i: int):
+    """Layer i of a layer-stacked tree (every leaf indexed on axis 0)."""
+    return tree_map(lambda a: a[i], tree)
+
+
+def param_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+

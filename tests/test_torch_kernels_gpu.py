@@ -1,0 +1,109 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Imports torch only, so it runs where JAX is not installed:
+
+    python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
+
+Every test is marked ``gpu`` and skips without a CUDA device (the kernels
+have no CPU mode; on the CPU the wrappers take the plain versions, which
+tests/test_torch_ops.py holds against the JAX package).  Tolerances: fp32
+outputs 1e-4 (sums in another order); bf16 outputs 4e-3 + 1e-2·|ref| (one
+bf16 rounding step either way, plus about twice the largest error measured
+on an H100 at the main path's shapes, as in chip_smoke.py).
+"""
+import numpy as np
+import pytest
+import torch
+
+from streammind_torch.ops import attention as A
+from streammind_torch.ops.int4_matvec import int4_matvec, int4_matvec_ref
+from streammind_torch.utils.quantize import quantize_linear_weight_int4_pc
+
+pytestmark = pytest.mark.gpu
+TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (4e-3, 1e-2)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return "cuda"
+
+
+def _r(rng, shape, dtype, scale=1.0):
+    return torch.tensor(rng.standard_normal(shape) * scale, dtype=dtype, device="cuda")
+
+
+def _close(out, ref, dtype):
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,sq,sk,h,hkv,d,kv_len,q_off",
+    [
+        (1, 70, 300, 8, 2, 128, [250], [180]),
+        (2, 33, 128, 4, 4, 64, [100, 0], [67, 0]),   # kv_len 0 gives zeros
+        (1, 64, 8192, 32, 8, 128, [164], [100]),      # the 7B prefill over its cache
+    ],
+)
+def test_flash_kernel_matches_plain(dev, dtype, b, sq, sk, h, hkv, d, kv_len, q_off):
+    rng = np.random.default_rng(0)
+    q = _r(rng, (b, sq, h, d), dtype)
+    k, v = _r(rng, (b, sk, hkv, d), dtype), _r(rng, (b, sk, hkv, d), dtype)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    offs = torch.tensor(q_off, dtype=torch.int32, device=dev)
+    n0 = A.flash_attention.launches
+    out = A.flash_attention(q, k, v, causal=True, kv_len=lens, q_offset=offs)
+    torch.cuda.synchronize()
+    assert A.flash_attention.launches == n0 + 1
+    _close(out, A.flash_attention_ref(q, k, v, causal=True, kv_len=lens, q_offset=offs), dtype)
+    if 0 in kv_len:
+        assert float(out[kv_len.index(0)].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hkv,d", [(2, 577, 16, 16, 64), (1, 37, 4, 2, 128),
+                                         (1, 3000, 2, 2, 64)])  # > 2048 keys: 8-row tiles
+def test_exact_kernel_matches_plain(dev, dtype, b, s, h, hkv, d):
+    rng = np.random.default_rng(1)
+    if h == hkv:  # the ViT's layout: strided views of one fused qkv
+        qkv = _r(rng, (b, s, 3, h, d), dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q, k, v = (_r(rng, (b, s, n, d), dtype) for n in (h, hkv, hkv))
+    out = A.exact_attention(q, k, v)
+    torch.cuda.synchronize()
+    _close(out, A.exact_attention_ref(q, k, v), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,din,dout", [(1, 4096, 1024), (8, 14336, 64), (3, 30, 17)])
+def test_int4_kernel_matches_plain(dev, dtype, b, din, dout):
+    rng = np.random.default_rng(2)
+    pk = quantize_linear_weight_int4_pc(_r(rng, (dout, din), torch.float32, 0.02))
+    x = _r(rng, (b, din), dtype)
+    out = int4_matvec(x, pk["w_int4pc"], pk["scale"])
+    torch.cuda.synchronize()
+    _close(out, int4_matvec_ref(x, pk["w_int4pc"], pk["scale"]), dtype)
+
+
+def test_int4_quantize_bytes_do_not_depend_on_the_device(dev):
+    """The card packs the same bytes and scales as the CPU (which the CPU
+    tests hold equal to the JAX package's)."""
+    rng = np.random.default_rng(3)
+    w = torch.tensor(rng.standard_normal((4, 512, 1024)) * 0.02, dtype=torch.float32)
+    on_cpu = quantize_linear_weight_int4_pc(w)
+    on_card = quantize_linear_weight_int4_pc(w.to(dev))
+    assert torch.equal(on_card["w_int4pc"].cpu(), on_cpu["w_int4pc"])
+    assert torch.equal(on_card["scale"].cpu(), on_cpu["scale"])
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q = torch.zeros(1, 4, 2, 32, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        A.flash_attention(q, q, q, causal=True)
+    with pytest.raises(ValueError, match="rows"):
+        pk = quantize_linear_weight_int4_pc(torch.zeros(8, 16, device=dev))
+        int4_matvec(torch.zeros(9, 16, device=dev), pk["w_int4pc"], pk["scale"])

@@ -1,0 +1,133 @@
+"""A two-turn StreamSession in streammind_torch against streammind_tpu.
+
+Both packages get one tiny tree (the JAX package's init, carried over with
+params_from_numpy), the same frames and the same forced gate fires; the
+greedy tokens of each turn must be identical, the gate probabilities and
+the memory ring equal within fp32 tolerance.  Also: export_state/resume,
+and that importing the port loads neither jax nor streammind_tpu.
+"""
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from streammind_tpu.config import tiny_streammind_config
+from streammind_tpu.constants import VIDEO_TOKEN_INDEX
+from streammind_tpu.models.meta import init_streammind_params
+from streammind_tpu.streaming import StreamMindEngine as JEngine
+from streammind_tpu.streaming import StreamSession as JSession
+from streammind_tpu.streaming import init_stream_state as j_init_state
+from streammind_torch import config as tconfig
+from streammind_torch.streaming import StreamMindEngine as TEngine
+from streammind_torch.streaming import StreamSession as TSession
+from streammind_torch.utils.from_jax import params_from_numpy
+
+REPO = Path(__file__).resolve().parent.parent
+FIRE = (2, 5)      # frames on which the gate is forced to fire
+N_FRAMES = 7
+PROMPT = [1, 10, 11, VIDEO_TOKEN_INDEX, 12]
+
+
+class FakeTokenizer:
+    bos_token_id = 1
+    eos_token_id = 2
+    eos_token = "</s>"
+
+    class _Out:
+        def __init__(self, ids):
+            self.input_ids = ids
+
+    def __call__(self, text):
+        return self._Out([self.bos_token_id] + [3 + (ord(c) % 200) for c in text][:20])
+
+    def decode(self, ids):
+        return " ".join(str(i) for i in ids)
+
+
+@pytest.fixture(scope="module")
+def engines():
+    cfg = tiny_streammind_config()
+    jp = init_streammind_params(jax.random.PRNGKey(0), cfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    kw = dict(eos_token_id=2, prefill_buckets=(32, 64), quantize_gate="int4")
+    jeng = JEngine(jp, cfg, **kw)
+    teng = TEngine(tp, tconfig.tiny_streammind_config(), device="cpu", **kw)
+    return cfg, jeng, teng
+
+
+def _frames(cfg):
+    rng = np.random.default_rng(1)
+    s = cfg.vision.image_size
+    return rng.standard_normal((N_FRAMES, 1, 3, s, s)).astype(np.float32)
+
+
+def test_two_turn_session_matches_jax(engines):
+    cfg, jeng, teng = engines
+    frames = _frames(cfg)
+    kw = dict(prompt_ids=list(PROMPT), gate_threshold=2.0, max_new_tokens=6,
+              stop_strings=["</s>"])
+    js, ts = JSession(jeng, FakeTokenizer(), **kw), TSession(teng, FakeTokenizer(), **kw)
+    jout, tout = [], []
+    for i, f in enumerate(frames):
+        jout.append(js.process_frame(jnp.asarray(f), force_fire=i in FIRE))
+        tout.append(ts.process_frame(torch.from_numpy(f), force_fire=i in FIRE))
+    assert [o is None for o in tout] == [i not in FIRE for i in range(N_FRAMES)]
+    assert tout == jout  # identical greedy tokens in both turns
+    assert len(ts.turns) == 2 and ts.turns == js.turns
+    np.testing.assert_allclose(ts.state.memory.numpy(), np.asarray(js.state.memory),
+                               rtol=2e-5, atol=2e-5)
+    assert int(ts.cache.length[0]) == int(js.cache.length[0])
+    n = int(ts.cache.length[0])
+    np.testing.assert_allclose(ts.cache.k[:, :, :n].numpy(), np.asarray(js.cache.k[:, :, :n]),
+                               rtol=1e-4, atol=1e-4)
+    assert ts.pending_ids == js.pending_ids and ts.interval_ids == js.interval_ids
+
+    # gate probabilities frame by frame
+    jstate, tstate = j_init_state(cfg), teng.new_stream_state()
+    for f in frames:
+        jprob, jstate = jeng.perceive_step(jnp.asarray(f), jstate)
+        tprob, tstate = teng.perceive_step(torch.from_numpy(f), tstate)
+        np.testing.assert_allclose(tprob.numpy(), np.asarray(jprob), rtol=1e-4, atol=1e-5)
+        assert abs(float(tprob.sum()) - 1.0) < 1e-6
+
+
+def test_export_resume_round_trip(engines):
+    cfg, _, teng = engines
+    frames = _frames(cfg)
+    kw = dict(prompt_ids=list(PROMPT), gate_threshold=2.0, max_new_tokens=5)
+    a = TSession(teng, FakeTokenizer(), **kw)
+    for i in range(4):
+        a.process_frame(torch.from_numpy(frames[i]), force_fire=i == 2)
+    blob = a.export_state()
+    b = TSession.resume(teng, FakeTokenizer(), blob)
+    assert b.state.frame_idx == a.state.frame_idx and b.state.last_fire == a.state.last_fire
+    assert torch.equal(b.cache.k, a.cache.k) and torch.equal(b.state.memory, a.state.memory)
+    for i in range(4, N_FRAMES):
+        fire = i == 5
+        assert (a.process_frame(torch.from_numpy(frames[i]), force_fire=fire)
+                == b.process_frame(torch.from_numpy(frames[i]), force_fire=fire))
+    assert a.turns == b.turns and torch.equal(a.state.mamba.ssm, b.state.mamba.ssm)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    mods = sorted(
+        "streammind_torch." + ".".join(p.relative_to(REPO / "streammind_torch").with_suffix("").parts)
+        for p in (REPO / "streammind_torch").rglob("*.py") if p.name != "__init__.py"
+    )
+    code = (
+        "import importlib, sys\n"
+        "import streammind_torch\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'streammind_tpu')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "streammind_torch.streaming.engine" in mods and "streammind_torch.ops._build" in mods

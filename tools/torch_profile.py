@@ -1,0 +1,136 @@
+#!/usr/bin/env python3
+"""Where the time of the port's main path goes, on one CUDA card.
+
+    python3 tools/torch_profile.py
+
+Builds StreamMind-7B in bf16 from a seed (as ``chip_smoke.py`` does: exact
+ViT attention, int4 gate), warms up one forced turn, then runs three
+regions under ``torch.profiler``: six per-frame ticks
+(``StreamMindEngine.perceive_step``), one cached prefill of a turn, and
+sixteen greedy decode steps.  For each region it prints one JSON line:
+host wall time (synchronized), the device's busy time (the sum of kernel
+and copy times the profiler saw), the idle share, the number of device
+operations, and the ten device operations that took the most time.
+Imports nothing of JAX; fails without a CUDA card.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import torch  # noqa: E402
+
+FRAMES = 6    # ticks profiled
+DECODE = 16   # decode steps profiled
+SEED = 0
+
+
+def device_ops(prof):
+    """[(name, calls, device µs)] of the device-side events, by total time."""
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((e.key, e.count, float(us)))
+    return sorted(rows, key=lambda r: -r[2])
+
+
+def profiled(name, fn, reps=1, units=None):
+    """Run ``fn`` ``reps`` times under the profiler and print the region's
+    line, its times per unit (``units`` defaults to ``reps``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    units = units or reps
+    ops = device_ops(prof)
+    busy_ms = sum(r[2] for r in ops) / 1e3
+    line = dict(region=name, units=units, wall_ms=wall_ms / units,
+                device_busy_ms=busy_ms / units,
+                idle_share=(1.0 - busy_ms / wall_ms) if busy_ms else None,
+                device_ops=sum(r[1] for r in ops) / units,
+                top=[dict(name=n[:90], calls=c / units, ms=us / 1e3 / units)
+                     for n, c, us in ops[:10]])
+    print(json.dumps(line), flush=True)
+    if not ops:
+        raise RuntimeError(f"{name}: the profiler saw no device time")
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_profile: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+
+    from streammind_torch.config import StreamMindConfig
+    from streammind_torch.constants import VIDEO_TOKEN_INDEX
+    from streammind_torch.models.meta import init_streammind_params
+    from streammind_torch.streaming import StreamMindEngine
+    from streammind_torch.streaming.engine import build_turn_plan, turn_suffix_ids
+
+    from chip_smoke import StandInTokenizer
+
+    dev = "cuda"
+    cfg = StreamMindConfig()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_streammind_params(g, cfg, device=dev, dtype=torch.bfloat16)
+    engine = StreamMindEngine(params, cfg, attn_impl="exact", quantize_gate="int4", device=dev)
+    del params
+    frames = [torch.empty((1, 3, 336, 336), device=dev, dtype=torch.bfloat16).normal_(generator=g)
+              for _ in range(FRAMES + 2)]
+    state = engine.new_stream_state()
+    cache = engine.new_kv_cache()
+    tok = StandInTokenizer()
+
+    def turn(state, cache):
+        span = list(range(state.last_fire, state.frame_idx))
+        plan = build_turn_plan(engine, tok, span, turn_suffix_ids(tok, [1, 10, VIDEO_TOKEN_INDEX]))
+        last, cache = engine.prefill(plan, state.memory, cache)
+        return last, cache, plan
+
+    # warm-up: two ticks and one short turn (kernel builds, allocator, cuBLAS)
+    for f in frames[:2]:
+        _, state = engine.perceive_step(f, state)
+    last, cache, _ = turn(state, cache)
+    _, cache = engine.generate_from_prefill(last, cache, max_new_tokens=4)
+    torch.cuda.synchronize()
+
+    it = iter(frames[2:])
+
+    def tick():
+        nonlocal state
+        _, state = engine.perceive_step(next(it), state)
+
+    profiled("tick", tick, reps=FRAMES)
+    state = state._replace(last_fire=2)
+    last, cache, plan = profiled("prefill", lambda: turn(state, cache))
+    print(json.dumps(dict(prefill_bucket=len(plan.token_ids), prefill_length=plan.length,
+                          cache_capacity=cache.capacity)), flush=True)
+    eng_eos = engine.eos_token_id
+    engine.eos_token_id = -1  # decode the full budget whatever the random weights say
+    # max_new_tokens=N feeds N tokens through the decoder: N steps
+    tokens, _ = profiled("decode_step", lambda: engine.generate_from_prefill(
+        last, cache, max_new_tokens=DECODE), units=DECODE)
+    engine.eos_token_id = eng_eos
+    print(json.dumps(dict(decode_tokens=len(tokens))), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
