@@ -8,18 +8,25 @@ Phases, each of which raises (exit code != 0) on failure:
   2. the kernel build: every ``streammind_torch/csrc/*.cu`` with nvcc for
      sm_90a, one process per source, all at once;
   3. each kernel against its plain PyTorch version on the card at the main
-     path's shapes, with its tolerance; times of the kernel, its plain
+     paths' shapes, with its tolerance; times of the kernel, its plain
      version and one PyTorch yardstick call, beside the card's bound;
   4. the full-width StreamMind-7B session (random bf16 weights from a seed):
      ViT-L/14-336 under attn_impl="exact", Mamba d_model 4096, the 4-layer
      gate under quantize_gate="int4", Mistral-7B; 10 frames with two forced
      gate fires and 16 new tokens a turn; the launch counts show the path ran
-     through all three kernels;
-  5. a reduced-depth parity run at the published widths in fp32 (TF32 off):
+     through the flash, exact and int4 kernels;
+  5. multi-stream serving on the same engine: a BatchedSessionBroker over
+     MultiStreamServer(kv_mode="paged", page_size=64) with four client
+     threads for 8 ticks; three gates fire together on one tick (one
+     batched paged turn, K = 3) and one alone on a later tick (K = 1); the
+     launch counts show the path ran through all five kernels;
+  6. a reduced-depth parity run at the published widths in fp32 (TF32 off):
      the same seeded weights and frames through the plain versions on the
-     CPU and through the kernels on the card; then the card once more with
-     TF32 on, which must break at least one limit (the limits see a matmul
-     that loses fp32 precision);
+     CPU and through the kernels on the card, for the session and for the
+     multi-stream server (paged on the CPU and the card, dense on the
+     card); then the session on the card once more with TF32 on, which must
+     break at least one limit (the limits see a matmul that loses fp32
+     precision);
 then the ``kernels`` JSON line and, last, the ``ok`` JSON line.  It uses
 nothing of JAX; without a CUDA card it exits with an error before any result.
 """
@@ -53,11 +60,41 @@ KERNEL_META = {
     "flash_attention": ("streammind_torch/csrc/flash_attention.cu", "ops/attention.py:76"),
     "exact_attention": ("streammind_torch/csrc/exact_attention.cu", "ops/attention.py:255"),
     "int4_matvec": ("streammind_torch/csrc/int4_matvec.cu", "ops/int4_matvec.py:37"),
+    "paged_write": ("streammind_torch/csrc/paged_write.cu", "streaming/paged.py:89"),
+    "paged_attention": ("streammind_torch/csrc/paged_attention.cu", "streaming/paged.py:250"),
+}
+# wrapper of each kernel, as (module, attribute), for its launch count
+WRAPPERS = {
+    "flash_attention": ("streammind_torch.ops.attention", "flash_attention"),
+    "exact_attention": ("streammind_torch.ops.attention", "exact_attention"),
+    "int4_matvec": ("streammind_torch.ops.int4_matvec", "int4_matvec"),
+    "paged_write": ("streammind_torch.ops.paged_attention", "write_tokens"),
+    "paged_attention": ("streammind_torch.ops.paged_attention", "paged_decode_attention"),
 }
 
 
 def log(tag: str, msg: str) -> None:
     print(f"[{tag}] {msg}", flush=True)
+
+
+def wrappers():
+    import importlib
+
+    return {n: getattr(importlib.import_module(m), a) for n, (m, a) in WRAPPERS.items()}
+
+
+def reset_launches() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {n: fn.launches for n, fn in wrappers().items()}
+
+
+def sync() -> float:
+    torch.cuda.synchronize()
+    return time.perf_counter()
 
 
 def cuda_ms(fns, iters: int = 20, warmup: int = 3) -> float:
@@ -186,6 +223,7 @@ def check_kernels(dev):
                           bound_ms=b_ms, bound_by=b_by))
         del ws, packs
     results["int4_matvec"] = (cases, "|err| <= 1e-2 + 1e-2*|ref| (bf16 output)")
+    results.update(check_paged_kernels(dev, randn))
 
     for name, (cases, tol) in results.items():
         for c in cases:
@@ -199,8 +237,89 @@ def check_kernels(dev):
     return results
 
 
+def check_paged_kernels(dev, randn):
+    """The paged pool's two kernels at the serving path's shapes: Mistral-7B
+    (32 q / 8 kv heads, D 128), page 64, tables of 128 pages (8192 tokens),
+    in a pool of 1024 pages (268 MB of K and V, five times the L2)."""
+    from streammind_torch.ops import paged_attention as PA
+
+    hkv, h, d, page, maxp, n_pages = 8, 32, 128, 64, 128, 1024
+    pool_k, pool_v = (randn(hkv, n_pages + 1, page, d) for _ in range(2))
+    # one short row, one full 8192-token row, one past its table at a page
+    # boundary (a finished row of the lockstep loop), then ragged rows
+    all_lengths = [8192, 37, maxp * page + 1, 3000, 64, 65, 5000, 129]
+    results = {}
+
+    cases = []
+    for K in (1, 4, 8):
+        lengths = torch.tensor(all_lengths[:K], dtype=torch.int32, device=dev)
+        visible = sum(min(n, maxp * page) for n in all_lengths[:K])
+        nbytes = 2 * (2 * visible * hkv * d + 2 * K * h * d) + 4 * (K + -(-visible // page))
+        # each set draws its tables from a fresh permutation of the pool, so
+        # successive launches read other pages, cold from HBM
+        sets = []
+        for _ in range(n_sets(nbytes)):
+            perm = torch.randperm(n_pages, device=dev)[: K * maxp] + 1
+            sets.append((randn(K, 1, h, d), perm.reshape(K, maxp).to(torch.int32)))
+        q, table = sets[0]
+        out = PA.paged_decode_attention(q, pool_k, pool_v, table, lengths)
+        ref = PA.paged_decode_attention_ref(q, pool_k, pool_v, table, lengths)
+        err, over = excess(out, ref, *BF16_TOL)
+        ms = cuda_ms([lambda s=s: PA.paged_decode_attention(s[0], pool_k, pool_v, s[1], lengths)
+                      for s in sets])
+        plain = cuda_ms([lambda s=s: PA.paged_decode_attention_ref(s[0], pool_k, pool_v, s[1],
+                                                                   lengths) for s in sets],
+                        iters=5)
+        # yardstick: SDPA over each row's pages gathered contiguous beforehand
+        # (untimed), kv heads repeated, with a length mask
+        mask = (torch.arange(maxp * page, device=dev)[None, :] < lengths[:, None])[:, None, None]
+        lib_sets = [(q.transpose(1, 2), *(PA.gather_seq(pool, table).repeat_interleave(
+            h // hkv, dim=2).transpose(1, 2).contiguous() for pool in (pool_k, pool_v)))
+            for q, table in sets[:2]]
+        lib = cuda_ms([lambda s=s: F.scaled_dot_product_attention(*s, attn_mask=mask)
+                       for s in lib_sets])
+        del lib_sets
+        b_ms, b_by = bound(nbytes, 4.0 * h * d * visible, BF16_FLOPS)
+        cases.append(dict(shape=f"q({K},1,32,128) pool(8,{n_pages + 1},64,128) table({K},128) "
+                                f"lengths={all_lengths[:K]}", max_abs_err=err, ok=over <= 0,
+                          ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by))
+    results["paged_attention"] = (cases, BF16_TOL_TEXT)
+
+    cases = []
+    for K in (1, 4, 8):
+        nbytes = 2 * (2 * 2 * K * hkv * d) + 8 * K
+        sets = []
+        for _ in range(64):  # 64 target sets spread over the pool
+            pages = (torch.randperm(n_pages, device=dev)[:K] + 1).to(torch.int32)
+            offs = torch.randint(0, page, (K,), dtype=torch.int32, device=dev)
+            sets.append((randn(K, hkv, d), randn(K, hkv, d), pages, offs))
+        kt, vt, pages, offs = sets[0]
+        ref_k, ref_v = pool_k.clone(), pool_v.clone()
+        PA.write_tokens_ref(ref_k, ref_v, kt, vt, pages, offs)
+        PA.write_tokens(pool_k, pool_v, kt, vt, pages, offs)
+        torch.cuda.synchronize()
+        same = torch.equal(pool_k, ref_k) and torch.equal(pool_v, ref_v)
+        err = max(float((pool_k.float() - ref_k.float()).abs().max()),
+                  float((pool_v.float() - ref_v.float()).abs().max()))
+        del ref_k, ref_v
+        ms = cuda_ms([lambda s=s: PA.write_tokens(pool_k, pool_v, *s) for s in sets])
+        plain = cuda_ms([lambda s=s: PA.write_tokens_ref(pool_k, pool_v, *s) for s in sets])
+
+        def index_put(kt, vt, pages, offs):  # yardstick: the two index_put_ calls
+            pool_k[:, pages.long(), offs.long()] = kt.transpose(0, 1)
+            pool_v[:, pages.long(), offs.long()] = vt.transpose(0, 1)
+
+        lib = cuda_ms([lambda s=s: index_put(*s) for s in sets])
+        b_ms, b_by = bound(nbytes, 0.0, BF16_FLOPS)
+        cases.append(dict(shape=f"tokens({K},8,128) into pool(8,{n_pages + 1},64,128)",
+                          max_abs_err=err, ok=same, ms=ms, plain_ms=plain, library_ms=lib,
+                          bound_ms=b_ms, bound_by=b_by))
+    results["paged_write"] = (cases, "bitwise equal pools (a copy)")
+    return results
+
+
 # ---------------------------------------------------------------------------
-# phases 4 and 5: sessions
+# phases 4-6: the session, multi-stream serving, parity
 # ---------------------------------------------------------------------------
 class StandInTokenizer:
     """Character-level stand-in (the repo ships no tokenizer files): ids
@@ -243,6 +362,11 @@ def make_engine_class():
             self.probs.append(probs.float().cpu())
             return probs, state
 
+        def perceive_step_batch(self, pixels, state, feed_mask=None):
+            probs, state = super().perceive_step_batch(pixels, state, feed_mask)
+            self.probs.append(probs.float().cpu())
+            return probs, state
+
         def prefill(self, plan, memory, cache):
             last, cache = super().prefill(plan, memory, cache)
             int(torch.argmax(last[0]))  # the greedy first token is known here
@@ -260,15 +384,54 @@ def make_engine_class():
     return RecordingEngine
 
 
-def run_session(engine, frames, fire, max_new):
+def recording_serving_classes():
+    """Subclasses that the serving phase swaps in for the broker's server and
+    page pool: synchronized tick times, the time each batched turn's first
+    tokens are known, and the lockstep decode steps and their time."""
+    from streammind_torch.streaming.multistream import MultiStreamServer
+    from streammind_torch.streaming.paged import PagedDialogues
+
+    class RecordingPaged(PagedDialogues):
+        def _decode_step(self, table, length, toks):
+            self.steps += 1
+            return super()._decode_step(table, length, toks)
+
+        def _decode(self, table, length, first, *a, **kw):
+            t0 = sync()  # the first tokens are on the host here
+            self.first_token_at.append(t0)
+            steps0 = self.steps
+            out = super()._decode(table, length, first, *a, **kw)
+            self.decodes.append(dict(k=len(first), steps=self.steps - steps0,
+                                     ms=(sync() - t0) * 1e3))
+            return out
+
+    class RecordingServer(MultiStreamServer):
+        def step(self, frames):
+            n0 = len(self.paged.first_token_at)
+            t0 = sync()
+            out = super().step(frames)
+            t1 = sync()
+            self.tick_log.append(dict(
+                ms=(t1 - t0) * 1e3, fired=sorted(k for k, v in out.items() if v is not None),
+                first_token_ms=[(t - t0) * 1e3 for t in self.paged.first_token_at[n0:]]))
+            return out
+
+    return RecordingServer, RecordingPaged
+
+
+def stand_in_prompt(tok):
     from streammind_torch.constants import VIDEO_TOKEN_INDEX
     from streammind_torch.mm_utils import tokenizer_multimodal_token
+
+    return tokenizer_multimodal_token("[INST] <video>\nWhat is happening? [/INST]", tok,
+                                      VIDEO_TOKEN_INDEX)
+
+
+def run_session(engine, frames, fire, max_new):
     from streammind_torch.streaming import StreamSession
 
     tok = StandInTokenizer()
-    prompt = tokenizer_multimodal_token("[INST] <video>\nWhat is happening? [/INST]", tok,
-                                        VIDEO_TOKEN_INDEX)
-    session = StreamSession(engine, tok, prompt_ids=prompt, max_new_tokens=max_new,
+    session = StreamSession(engine, tok, prompt_ids=stand_in_prompt(tok), max_new_tokens=max_new,
                             gate_threshold=2.0)  # fires only where forced
     ticks, e2ft = [], []
     for i, f in enumerate(frames):
@@ -282,11 +445,9 @@ def run_session(engine, frames, fire, max_new):
     return session, ticks, e2ft
 
 
-def full_width_session(dev):
+def build_engine(dev):
     from streammind_torch.config import StreamMindConfig
     from streammind_torch.models.meta import init_streammind_params
-    from streammind_torch.ops.attention import exact_attention, flash_attention
-    from streammind_torch.ops.int4_matvec import int4_matvec
     from streammind_torch.utils.params import param_bytes
 
     cfg = StreamMindConfig()
@@ -297,20 +458,23 @@ def full_width_session(dev):
                    f"{time.perf_counter() - t0:.1f} s")
     engine = make_engine_class()(params, cfg, attn_impl="exact", quantize_gate="int4",
                                       device=dev)
-    del params
+    return engine, g
+
+
+def full_width_session(engine, g, dev):
+    cfg = engine.cfg
     n_frames, fire = 10, (3, 7)
     frames = [torch.empty((1, 3, 336, 336), device=dev, dtype=torch.bfloat16).normal_(
         generator=g) for _ in range(n_frames)]
     torch.cuda.synchronize()
-    for fn in (exact_attention, int4_matvec, flash_attention):
-        fn.launches = 0
+    reset_launches()
     session, ticks, e2ft = run_session(engine, frames, fire, max_new=16)
-    counts = {"exact_attention": exact_attention.launches, "int4_matvec": int4_matvec.launches,
-              "flash_attention": flash_attention.launches}
+    counts = read_launches()
     turns = len(session.turns)
     n_vit = cfg.vision.num_layers + cfg.vision.select_layer + 1
     expect = {"exact_attention": n_vit * n_frames, "int4_matvec": 5 * cfg.gate.num_layers * n_frames,
-              "flash_attention": cfg.text.num_layers * turns}
+              "flash_attention": cfg.text.num_layers * turns, "paged_write": 0,
+              "paged_attention": 0}
     probs = torch.stack(engine.probs)
     n_tok = sum(len(t) for t in engine.decoded)
     decode_ms_tok = sum(engine.decode_ms) / max(n_tok, 1)
@@ -330,23 +494,142 @@ def full_width_session(dev):
         raise RuntimeError(f"expected two turns of valid token ids: {engine.decoded}")
     if counts != expect:
         raise RuntimeError(f"launch counts {counts} differ from the path's {expect}")
-    summary = dict(tick_ms_median=statistics.median(ticks[1:]), event_to_first_token_ms=e2ft,
-                   decode_ms_per_token=decode_ms_tok, launches=counts)
-    del engine, session, frames
+    del session, frames
     torch.cuda.empty_cache()
-    return summary
+    return dict(tick_ms_median=statistics.median(ticks[1:]), event_to_first_token_ms=e2ft,
+                decode_ms_per_token=decode_ms_tok, launches=counts)
 
 
-def parity(dev):
+SERVE_TICKS = 8
+SERVE_FIRES = {3: ("s0", "s1", "s2"), 6: ("s3",)}  # tick -> streams whose gates fire
+
+
+def serving_phase(engine, g, dev):
+    """Four client threads submit a frame a tick to one BatchedSessionBroker
+    (paged KV, page 64) for SERVE_TICKS ticks.  The per-stream gate
+    threshold, a request knob, is set before each tick: -1 opens a gate, 2
+    keeps it shut, so three streams fire together on one tick and one alone
+    on a later one."""
+    import threading
+
+    from streammind_torch.serve import BatchedSessionBroker
+
+    cfg = engine.cfg
+    sids = [f"s{i}" for i in range(4)]
+    torch.cuda.reset_peak_memory_stats()
+    # a long batching window: each tick waits for all four frames
+    broker = BatchedSessionBroker(engine, capacity=4, kv_mode="paged", page_size=64,
+                                  max_wait_ms=2000.0)
+    RecordingServer, RecordingPaged = recording_serving_classes()
+    srv = broker.server
+    srv.__class__, srv.paged.__class__ = RecordingServer, RecordingPaged
+    srv.tick_log, srv.paged.steps, srv.paged.first_token_at, srv.paged.decodes = [], 0, [], []
+    pd = srv.paged
+    pool_gb = sum(t.numel() * t.element_size() for t in pd.pool.k + pd.pool.v) / 1e9
+    log("serve", f"page pool: {pd.pool.num_pages - 1} pages + sink of {pd.page_size} tokens, "
+                 f"{pool_gb:.2f} GB ({cfg.text.num_kv_heads} kv heads x {cfg.text.head_dim} x "
+                 f"{cfg.text.num_layers} layers x k,v, {pd.pool.k[0].dtype}); "
+                 f"{pd.max_pages} pages a dialogue")
+    tok = StandInTokenizer()
+    for sid in sids:
+        broker.add(sid, tok, prompt_ids=stand_in_prompt(tok), max_new_tokens=16,
+                   gate_threshold=2.0)
+    size = cfg.vision.image_size
+    frames = {sid: [torch.empty((1, 3, size, size), device=dev, dtype=torch.bfloat16).normal_(
+        generator=g) for _ in range(SERVE_TICKS)] for sid in sids}
+    results = {sid: [] for sid in sids}
+    start, done = threading.Barrier(len(sids) + 1), threading.Barrier(len(sids) + 1)
+
+    def client(sid):
+        for t in range(SERVE_TICKS):
+            start.wait()
+            results[sid].append(broker.submit(sid, frames[sid][t], timeout=600))
+            done.wait()
+
+    threads = [threading.Thread(target=client, args=(sid,), daemon=True) for sid in sids]
+    torch.cuda.synchronize()
+    reset_launches()
+    try:
+        for th in threads:
+            th.start()
+        for t in range(SERVE_TICKS):
+            for slot in srv.slots:
+                slot.gate_threshold = -1.0 if slot.stream_id in SERVE_FIRES.get(t, ()) else 2.0
+            start.wait(timeout=600)
+            done.wait(timeout=600)
+        for th in threads:
+            th.join(timeout=60)
+        counts = read_launches()
+    finally:
+        start.abort()
+        done.abort()
+        broker.shutdown()
+    n_vit = cfg.vision.num_layers + cfg.vision.select_layer + 1
+    L = cfg.text.num_layers
+    steps = pd.steps
+    expect = {"exact_attention": n_vit * SERVE_TICKS,
+              "int4_matvec": 5 * cfg.gate.num_layers * SERVE_TICKS,
+              "flash_attention": L * len(pd.decodes), "paged_write": L * steps,
+              "paged_attention": L * steps}
+    ticks = srv.tick_log
+    log("serve", f"ticks={broker.ticks} frames={broker.frames_seen} fired per tick="
+                 f"{[t['fired'] for t in ticks]}")
+    log("serve", f"lockstep turns (K, steps, ms) = "
+                 f"{[(d['k'], d['steps'], round(d['ms'], 3)) for d in pd.decodes]}; "
+                 f"launches={counts} expected={expect}")
+    silent = [t["ms"] for t in ticks[1:] if not t["fired"]]
+    fire_ticks = [t for t in ticks if t["fired"]]
+    per_step = {d["k"]: d["ms"] / max(d["steps"], 1) for d in pd.decodes}
+    log("serve", f"median silent tick at S=4 (after the first) = "
+                 f"{statistics.median(silent):.3f} ms; ticks ms = "
+                 f"{[round(t['ms'], 3) for t in ticks]}")
+    log("serve", f"event-to-first-token ms = "
+                 f"{[(t['fired'], [round(x, 3) for x in t['first_token_ms']]) for t in fire_ticks]}"
+                 f"; decode ms per lockstep step = "
+                 f"{ {k: round(v, 3) for k, v in per_step.items()} }")
+    log("serve", f"peak device memory = {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    errors = [r for rs in results.values() for r in rs if "error" in r]
+    if errors:
+        raise RuntimeError(f"ticks failed inside the broker: {errors}")
+    for sid, rs in results.items():
+        want = [sid in SERVE_FIRES.get(t, ()) for t in range(SERVE_TICKS)]
+        if len(rs) != SERVE_TICKS or [r["fire"] for r in rs] != want:
+            raise RuntimeError(f"{sid}: fires {[r['fire'] for r in rs]}, expected {want}")
+        if any(r["fire"] != isinstance(r["text"], str) for r in rs):
+            raise RuntimeError(f"{sid}: an utterance is missing or a silence spoke: {rs}")
+        if [r["frame_idx"] for r in rs] != list(range(1, SERVE_TICKS + 1)):
+            raise RuntimeError(f"{sid}: frame indices {[r['frame_idx'] for r in rs]}")
+    if broker.ticks != SERVE_TICKS or [d["k"] for d in pd.decodes] != [3, 1]:
+        raise RuntimeError(f"expected {SERVE_TICKS} ticks with one K=3 and one K=1 turn, got "
+                           f"{broker.ticks} ticks and turns {pd.decodes}")
+    if counts != expect or not all(counts.values()):
+        raise RuntimeError(f"launch counts {counts} differ from the path's {expect}")
+    probs = torch.cat(engine.probs[-SERVE_TICKS:])
+    if not (torch.isfinite(probs).all() and (probs.sum(-1) - 1).abs().max() < 1e-5):
+        raise RuntimeError(f"gate probs not finite or not summing to 1: {probs}")
+    del frames, broker, srv, pd
+    torch.cuda.empty_cache()
+    return dict(silent_tick_ms_median=statistics.median(silent),
+                event_to_first_token_ms={len(t["fired"]): t["first_token_ms"][0]
+                                         for t in fire_ticks},
+                decode_ms_per_step=per_step, launches=counts, steps=steps)
+
+
+def parity_config():
     from streammind_torch.config import StreamMindConfig, gate_lm_config
-    from streammind_torch.models.meta import init_streammind_params
 
     base = StreamMindConfig()
-    cfg = base.replace(
+    return base.replace(
         vision=dataclasses.replace(base.vision, num_layers=3),
         text=dataclasses.replace(base.text, num_layers=2),
         gate=dataclasses.replace(gate_lm_config(), num_layers=2),
     )
+
+
+def parity(dev):
+    from streammind_torch.models.meta import init_streammind_params
+
+    cfg = parity_config()
     params = init_streammind_params(torch.Generator().manual_seed(1), cfg, device="cpu")
     rng = torch.Generator().manual_seed(2)
     frames = [torch.randn((1, 3, 336, 336), generator=rng) for _ in range(4)]
@@ -384,7 +667,64 @@ def parity(dev):
         raise RuntimeError("CPU (plain versions) and card (kernels) disagree")
     if not any(control[k] > tol[k] for k in tol):
         raise RuntimeError("the parity limits do not see TF32 matmuls on the card")
+    multistream_parity(cfg, params, dev, tol["probs"])
     return errs
+
+
+# ticks of the multi-stream parity run: streams whose gates are forced open
+PARITY_FIRES = ({"a", "b"}, set(), {"b"}, {"a", "b"})
+
+
+def multistream_parity(cfg, params, dev, probs_tol):
+    """The same frames through MultiStreamServer: paged on the CPU (plain
+    versions), paged on the card (kernels) and dense on the card, fp32 with
+    TF32 off.  Utterances and turns must be identical across the three; gate
+    probs within the session's limit.  page_size 16 puts page boundaries
+    inside the decode loop."""
+    from streammind_torch.streaming.multistream import MultiStreamServer
+
+    Engine = make_engine_class()
+    tok = StandInTokenizer()
+    rng = torch.Generator().manual_seed(3)
+    size = cfg.vision.image_size
+    frames = [{sid: torch.randn((1, 3, size, size), generator=rng) for sid in "ab"}
+              for _ in PARITY_FIRES]
+    out = {}
+    for run, where, kv_mode in (("paged_cpu", "cpu", "paged"), ("paged_card", dev, "paged"),
+                                ("dense_card", dev, "dense")):
+        t0 = time.perf_counter()
+        eng = Engine(params, cfg, attn_impl="exact", quantize_gate="int4", kv_capacity=1024,
+                     device=where)
+        srv = MultiStreamServer(eng, capacity=2, kv_mode=kv_mode, page_size=16)
+        for sid, limit in (("a", 8), ("b", 5)):
+            srv.add_stream(sid, tok, prompt_ids=stand_in_prompt(tok), max_new_tokens=limit)
+        reset_launches()
+        log_ = []
+        for f, fires in zip(frames, PARITY_FIRES):
+            for slot in srv.slots:
+                if slot is not None:
+                    slot.gate_threshold = -1.0 if slot.stream_id in fires else 2.0
+            log_.append(srv.step({k: v.to(where) for k, v in f.items()}))
+        counts = read_launches()
+        out[run] = dict(log=log_, turns=[list(s.turns) for s in srv.slots if s is not None],
+                        probs=torch.cat(eng.probs))
+        log("parity", f"multistream {run}: {time.perf_counter() - t0:.1f} s, utterances "
+                      f"{log_}, launches {counts}")
+        if where != "cpu" and kv_mode == "paged" and not (
+                counts["paged_attention"] and counts["paged_write"]):
+            raise RuntimeError(f"the paged run on the card missed the paged kernels: {counts}")
+        del eng, srv
+    ref = out["paged_cpu"]
+    errs = {run: float((ref["probs"] - out[run]["probs"]).abs().max())
+            for run in ("paged_card", "dense_card")}
+    same = {run: (out[run]["log"], out[run]["turns"]) == (ref["log"], ref["turns"])
+            for run in errs}
+    log("parity", f"multistream: max |probs - cpu| = {errs} (limit {probs_tol}); utterances and "
+                  f"turns identical to the CPU's: {same}")
+    if not all(same.values()) or any(e > probs_tol for e in errs.values()):
+        raise RuntimeError("multi-stream serving differs between the CPU and the card")
+    if any(o is None for o in ref["log"][0].values()):
+        raise RuntimeError(f"the batched tick did not speak: {ref['log'][0]}")
 
 
 def main() -> int:
@@ -414,7 +754,11 @@ def main() -> int:
         log("build", f"{name}: {info['seconds']:.1f} s; " + " | ".join(ptx))
 
     kernels = check_kernels(dev)
-    summary = full_width_session(dev)
+    engine, g = build_engine(dev)
+    session = full_width_session(engine, g, dev)
+    serving = serving_phase(engine, g, dev)
+    del engine
+    torch.cuda.empty_cache()
     parity(dev)
 
     entries = []
@@ -423,7 +767,9 @@ def main() -> int:
         head = cases[0]
         entries.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=summary["launches"][name],
+            launches=serving["launches"][name],
+            launches_by_path={"session": session["launches"][name],
+                              "serving": serving["launches"][name]},
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"],

@@ -22,7 +22,8 @@ from typing import Dict, Iterable, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_kernels"
-KERNELS = ("flash_attention", "exact_attention", "int4_matvec")
+KERNELS = ("flash_attention", "exact_attention", "int4_matvec", "paged_write",
+           "paged_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -89,6 +90,8 @@ SIGNATURES = {
     "flash_attention": ("sm_flash_attention", [_P] * 6 + [_I] * 8 + [_L] * 9 + [_F, _P]),
     "exact_attention": ("sm_exact_attention", [_P] * 4 + [_I] * 7 + [_L] * 9 + [_F, _P]),
     "int4_matvec": ("sm_int4_matvec", [_P] * 4 + [_I] * 4 + [_P]),
+    "paged_write": ("sm_paged_write", [_P] * 6 + [_I] * 5 + [_P]),
+    "paged_attention": ("sm_paged_attention", [_P] * 6 + [_I] * 8 + [_F, _P]),
 }
 
 

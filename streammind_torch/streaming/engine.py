@@ -7,9 +7,14 @@ splice plan, prefills the Mistral decoder from a bucketed suffix into the
 persistent KV cache, and decodes greedily (or sampled) until EOS, a stop
 sequence or the token budget.
 
-This package runs eagerly: the decode loop is a Python loop with one host
-sync per token, where the JAX package compiles a while-loop.  Ring and KV
-cache writes happen in place.
+Many streams: ``perceive_step_batch`` runs one frame of each of S streams
+at once, and ``prefill_batch`` / ``generate_from_prefill_batch`` one turn of
+each of K fired streams; ``lockstep_decode`` is the batched decode loop of
+both KV modes (dense rings here, the page pool in ``streaming/paged.py``).
+
+This package runs eagerly: the decode loops are Python loops with one host
+sync per token (or lockstep step), where the JAX package compiles a
+while-loop.  Ring and KV cache writes happen in place.
 """
 from __future__ import annotations
 
@@ -27,8 +32,14 @@ from ..models.mamba import MambaState
 from ..models.meta import SplicePlan, bucket_length, build_splice_plan, splice_embeds
 from ..models.vit import fuse_vit_qkv, vit_forward
 from ..utils.params import param_bytes, tree_leaves, tree_map
-from .logit_filters import sample_first_token, sample_token
-from .state import StreamState, init_stream_state
+from .logit_filters import (
+    sample_first_token,
+    sample_first_token_rows,
+    sample_token,
+    sample_token_rows,
+)
+from .memory_subsample import subsample_span
+from .state import StreamState, init_multistream_state, init_stream_state
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 _EMPTY_STOP_IDS = np.zeros((0, 1), np.int32)
@@ -195,8 +206,200 @@ class StreamMindEngine:
         return lm.init_kv_cache(self.cfg.text, batch=1, capacity=capacity or self.kv_capacity,
                                 dtype=dtype, device=self.device)
 
-    def new_stream_state(self) -> StreamState:
-        return init_stream_state(self.cfg, device=self.device)
+    def new_stream_state(self, n_streams: Optional[int] = None) -> StreamState:
+        """Fresh perception state: one stream, or S batched streams."""
+        if n_streams is None:
+            return init_stream_state(self.cfg, device=self.device)
+        return init_multistream_state(self.cfg, n_streams, device=self.device)
+
+    # -- batched perception and cognition (multi-stream serving) ----------
+    @torch.no_grad()
+    def perceive_step_batch(self, pixels: torch.Tensor, state: StreamState,
+                            feed_mask: Optional[torch.Tensor] = None):
+        """One frame for each of S streams (state from new_stream_state(S)).
+        feed_mask (S,) bool: unfed rows keep their conv/ssm state, ring and
+        frame counter.  Returns (gate_probs (S, 2) fp32, new_state); the
+        ring is written in place, one row per fed stream."""
+        p, cfg = self.params, self.cfg
+        pixels = pixels.to(self.device)
+        s = pixels.shape[0]
+        if feed_mask is None:
+            feed_mask = torch.ones((s,), dtype=torch.bool, device=self.device)
+        feed_mask = torch.as_tensor(feed_mask, device=self.device)
+        feats = vit_forward(p["vision"], cfg.vision, pixels, attn_impl=self.attn_impl)
+        mem_tok, mamba_state = proj.mamba_project_step(p["projector"], cfg, feats, state.mamba)
+        logits = proj.gate_decision_step(p["projector"], cfg, mem_tok)
+        gate_probs = torch.softmax(logits.float(), dim=-1)
+        rows = torch.arange(s, device=self.device)
+        slots = torch.clamp(state.frame_idx.long(), max=cfg.max_stream_frames - 1)
+        cur = state.memory[rows, slots]
+        state.memory[rows, slots] = torch.where(feed_mask[:, None],
+                                                mem_tok.to(state.memory.dtype), cur)
+        fed = feed_mask[None, :, None, None]
+        mamba_state = MambaState(conv=torch.where(fed, mamba_state.conv, state.mamba.conv),
+                                 ssm=torch.where(fed, mamba_state.ssm, state.mamba.ssm))
+        new_state = StreamState(mamba=mamba_state, memory=state.memory,
+                                frame_idx=state.frame_idx + feed_mask.to(torch.int32),
+                                last_fire=state.last_fire)
+        return gate_probs, new_state
+
+    @torch.no_grad()
+    def prefill_batch(self, plans, memory: torch.Tensor, cache: lm.KVCache):
+        """Batched prefill of K turns padded to one shared bucket into a
+        batch-K cache (in place).  memory (K, M, D).  Returns ((K, V)
+        last logits, cache with each row advanced by its plan's length)."""
+        dev = self.device
+
+        def t(key):
+            return torch.as_tensor(np.stack([getattr(pl, key) for pl in plans]), device=dev)
+
+        embeds = splice_embeds(self.params["text"], t("token_ids"), t("mem_index"),
+                               t("use_mem"), memory)
+        real_len = torch.tensor([pl.length for pl in plans], dtype=torch.int32, device=dev)
+        logits, cache = lm.text_forward(self.params["text"], self.cfg.text,
+                                        inputs_embeds=embeds, cache=cache,
+                                        cache_advance=real_len)
+        last = torch.clamp(real_len.long() - 1, min=0)
+        return logits[torch.arange(len(plans), device=dev), last], cache
+
+    @torch.no_grad()
+    def generate_from_prefill_batch(self, last_logits: torch.Tensor, cache: lm.KVCache,
+                                    max_new_tokens, active=None, temperature=0.0, top_k=0,
+                                    top_p=0.0, generator: Optional[torch.Generator] = None,
+                                    stop_ids=None):
+        """Lockstep decode of K rows after prefill_batch: per-row limits
+        (an int or K ints), ``active`` (K,) bools (False rows are padding
+        and never advance), per-row knobs and stop matrices ((S, L) shared
+        or (K, S, L) from stack_stop_ids).  Returns (K token lists,
+        lockstep steps run, cache)."""
+        K = last_logits.shape[0]
+        limits = ([max_new_tokens] * K if isinstance(max_new_tokens, int)
+                  else list(max_new_tokens))
+        knobs = (_knob_rows(temperature, K), _knob_rows(top_k, K), _knob_rows(top_p, K))
+        first = sample_first_token_rows(generator, last_logits, *knobs)
+
+        def step(toks, advance):
+            nonlocal cache
+            ids = torch.tensor(toks, dtype=torch.long, device=self.device)[:, None]
+            adv = torch.tensor(advance, dtype=torch.int32, device=self.device)
+            logits, cache = lm.text_forward(self.params["text"], self.cfg.text, input_ids=ids,
+                                            cache=cache, cache_advance=adv)
+            return logits[:, -1]
+
+        buf, steps = lockstep_decode(step, first, limits, self.eos_token_id, knobs, generator,
+                                     stop_ids, active)
+        return [tokens_until_eos(r, self.eos_token_id) for r in buf], steps, cache
+
+
+def _knob_rows(v, K: int) -> list:
+    """Scalar-or-list sampling knob → K per-row values (host list)."""
+    if isinstance(v, (int, float)):
+        return [v] * K
+    vals = list(v)
+    if len(vals) != K:
+        raise ValueError(f"{len(vals)} sampling-knob rows for K={K}")
+    return vals
+
+
+def _stop_hit(per_row: np.ndarray, tail: np.ndarray) -> np.ndarray:
+    """per_row (K or 1, S, L) stop matrices, tail (K, L) → (K,) bool.  All-(-1)
+    padding rows of a ragged per-row stack never match."""
+    concrete = np.any(per_row >= 0, axis=-1)
+    hit = np.all((per_row == tail[:, None, :]) | (per_row < 0), axis=-1)
+    return np.any(hit & concrete, axis=-1)
+
+
+def lockstep_decode(step, first: list, limits: list, eos: int, knobs, generator, stop_ids=None,
+                    active=None):
+    """The batched decode loop of the dense and the paged cognition paths.
+
+    ``step(toks, advance)`` feeds K tokens (host ints), advances row r's
+    cache length by advance[r] (0 for finished rows, which keep writing at
+    their frozen length) and returns the (K, V) logits.  Per row: a limit
+    (rows stop at their own), a done flag (EOS, a stop sequence, the
+    limit, or inactive padding), and a buffer that is EOS-filled past the
+    generated prefix, with column 0 the first token and sampled tokens
+    written as they come, so a stop-terminating token stays visible.
+    Returns (buf (K, max_new) int32, lockstep steps run)."""
+    K = len(first)
+    max_new = max(max(limits), 1)
+    stop = np.asarray(_EMPTY_STOP_IDS if stop_ids is None else stop_ids, np.int32)
+    per_row = stop if stop.ndim == 3 else stop[None]
+    first = np.asarray(first, np.int64)
+    lim = np.asarray(limits)
+    done = lim <= 0
+    if active is not None:
+        done |= ~np.asarray(active, bool)
+    done |= first == eos
+    buf = np.full((K, max_new), eos, np.int32)
+    buf[:, 0] = np.where(done, eos, first)
+    tail = np.full((K, per_row.shape[-1]), -2, np.int64)
+    tail[:, -1] = np.where(done, -2, first)
+    done |= _stop_hit(per_row, tail)
+    i, toks = 0, first
+    while i < max_new and not done.all():
+        logits = step(toks.tolist(), np.where(done, 0, 1).tolist())
+        nxt = np.asarray(sample_token_rows(generator, logits, *knobs), np.int64)
+        limit_hit = i + 1 >= lim
+        nxt = np.where(done | limit_hit, eos, nxt)
+        tail = np.concatenate([tail[:, 1:], nxt[:, None]], axis=1)
+        if i + 1 < max_new:
+            buf[:, i + 1] = nxt
+        done = done | (nxt == eos) | _stop_hit(per_row, tail) | limit_hit
+        i, toks = i + 1, nxt
+    return buf, i
+
+
+def tokens_until_eos(row, eos_id: int) -> list:
+    """Decode-buffer row → the generated tokens (rows are EOS-filled past
+    the generated prefix)."""
+    toks = []
+    for t in row:
+        if int(t) == eos_id:
+            break
+        toks.append(int(t))
+    return toks
+
+
+def stack_kv_caches(caches) -> lm.KVCache:
+    """Per-stream batch-1 caches → one batch-K cache (a copy)."""
+    return lm.KVCache(k=torch.cat([c.k for c in caches], dim=1),
+                      v=torch.cat([c.v for c in caches], dim=1),
+                      length=torch.cat([c.length for c in caches]))
+
+
+def split_kv_cache(cache: lm.KVCache, rows: int) -> list:
+    """A batch-K cache → K batch-1 caches (views of its rows)."""
+    return [lm.KVCache(k=cache.k[:, i:i + 1], v=cache.v[:, i:i + 1],
+                       length=cache.length[i:i + 1]) for i in range(rows)]
+
+
+def stack_stop_ids(mats):
+    """Per-row stop matrices for the batched decode: K Optional (S_i, L_i)
+    matrices → (K, S, L), ragged slots padded with all-(-1) rows (which
+    never match), so a row halts only on its OWN stop sequences.  None if
+    every input is None."""
+    if all(m is None for m in mats):
+        return None
+    S = max(m.shape[0] for m in mats if m is not None) or 1
+    L = max(m.shape[1] for m in mats if m is not None) or 1
+    out = np.full((len(mats), S, L), -1, np.int32)
+    for i, m in enumerate(mats):
+        if m is not None:
+            out[i, : m.shape[0], L - m.shape[1]:] = m
+    return out
+
+
+def merge_stop_ids(mats):
+    """Union of stop matrices (one matcher shared by every row), padded to
+    a common width, rows deduplicated.  None if all inputs are."""
+    mats = [m for m in mats if m is not None]
+    if not mats:
+        return None
+    width = max(m.shape[1] for m in mats)
+    rows = [np.concatenate([np.full((m.shape[0], width - m.shape[1]), -1, np.int32), m], axis=1)
+            for m in mats]
+    return np.unique(np.concatenate(rows, axis=0), axis=0)
 
 
 def stop_id_matrix(tokenizer, stop_strings) -> Optional[np.ndarray]:
@@ -354,9 +557,6 @@ class StreamSession:
         sample_type: str = "all",
         sample_per: float = 0.5,
     ):
-        if sample_type not in (None, "all"):
-            raise NotImplementedError(f"sample_type={sample_type!r} (memory subsampling) "
-                                      f"is not ported")
         self.engine = engine
         self.tokenizer = tokenizer
         self.max_new_tokens = max_new_tokens
@@ -452,6 +652,8 @@ class StreamSession:
         cur_clamped = min(cur, eng.cfg.max_stream_frames)
         start = min(self.state.last_fire, cur_clamped)
         span = list(range(start, cur_clamped)) or [max(cur_clamped - 1, 0)]
+        if self.sample_type not in (None, "all"):
+            span = subsample_span(span, self.state.memory, self.sample_type, self.sample_per)
         self.last_span = span
         self.interval_ids.append(cur)
         self.pending_ids, self.cache = ensure_turn_capacity(

@@ -6,6 +6,8 @@ logits.  Conventions: temperature <= 0 → greedy argmax; top_k <= 0 → no
 top-k; top_p <= 0 or >= 1 → no nucleus.  Ties at a boundary are all kept.
 Random draws come from a ``torch.Generator`` and so differ from
 ``jax.random``'s; ``filtered_logits`` is what the two packages share.
+The ``*_rows`` forms sample (K, V) logits with per-row (K,) knobs, for the
+lockstep batched decode loops.
 """
 from __future__ import annotations
 
@@ -62,3 +64,24 @@ def sample_token(generator: Optional[torch.Generator], logits: torch.Tensor,
 def sample_first_token(generator, logits, temperature=0.0, top_k=0, top_p=0.0) -> int:
     """The first post-prefill token from logits (V,)."""
     return sample_token(generator, logits, temperature, top_k, top_p)
+
+
+def sample_token_rows(generator: Optional[torch.Generator], logits: torch.Tensor,
+                      temperature, top_k, top_p) -> list:
+    """One token id per row of logits (K, V), with (K,) knobs (host lists):
+    greedy rows (temperature <= 0) take the argmax, the others a draw from
+    their filtered distribution.  Returns K ints (one host sync)."""
+    greedy = torch.argmax(logits, dim=-1)
+    if not any(t > 0 for t in temperature):
+        return greedy.tolist()
+    dev = logits.device
+    temps = torch.tensor(temperature, dtype=torch.float32, device=dev)
+    x = filtered_logits(logits, temps, torch.tensor(top_k, dtype=torch.int64, device=dev),
+                        torch.tensor(top_p, dtype=torch.float32, device=dev))
+    drawn = torch.multinomial(torch.softmax(x, dim=-1), 1, generator=generator)[:, 0]
+    return torch.where(temps > 0, drawn, greedy).tolist()
+
+
+def sample_first_token_rows(generator, logits, temperature, top_k, top_p) -> list:
+    """The first post-prefill token of each row of logits (K, V)."""
+    return sample_token_rows(generator, logits, temperature, top_k, top_p)

@@ -6,16 +6,18 @@ Imports torch only, so it runs where JAX is not installed:
 
 Every test is marked ``gpu`` and skips without a CUDA device (the kernels
 have no CPU mode; on the CPU the wrappers take the plain versions, which
-tests/test_torch_ops.py holds against the JAX package).  Tolerances: fp32
-outputs 1e-4 (sums in another order); bf16 outputs 4e-3 + 1e-2·|ref| (one
-bf16 rounding step either way, plus about twice the largest error measured
-on an H100 at the main path's shapes, as in chip_smoke.py).
+tests/test_torch_ops.py and tests/test_torch_paged.py hold against the JAX
+package).  Tolerances: fp32 outputs 1e-4 (sums in another order); bf16
+outputs 4e-3 + 1e-2·|ref| (one bf16 rounding step either way, plus about
+twice the largest error measured on an H100 at the main path's shapes, as
+in chip_smoke.py); the paged pool write is a copy and must be bitwise.
 """
 import numpy as np
 import pytest
 import torch
 
 from streammind_torch.ops import attention as A
+from streammind_torch.ops import paged_attention as PA
 from streammind_torch.ops.int4_matvec import int4_matvec, int4_matvec_ref
 from streammind_torch.utils.quantize import quantize_linear_weight_int4_pc
 
@@ -100,6 +102,58 @@ def test_int4_quantize_bytes_do_not_depend_on_the_device(dev):
     assert torch.equal(on_card["scale"].cpu(), on_cpu["scale"])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_paged_write_kernel_is_bitwise_the_plain_copy(dev, dtype, k):
+    rng = np.random.default_rng(4)
+    hkv, pages, page, d = 8, 40, 64, 128
+    pool_k, pool_v = _r(rng, (hkv, pages, page, d), dtype), _r(rng, (hkv, pages, page, d), dtype)
+    k_tok, v_tok = _r(rng, (k, hkv, d), torch.float32), _r(rng, (k, hkv, d), torch.float32)
+    page_idx = rng.choice(np.arange(1, pages), k, replace=False)
+    offset = rng.integers(0, page, k)
+    if k > 1:  # two finished rows race on one sink slot; nothing else moves
+        page_idx[-2:], offset[-2:] = 0, 3
+    pi = torch.tensor(page_idx, dtype=torch.int32, device=dev)
+    off = torch.tensor(offset, dtype=torch.int32, device=dev)
+    ref_k, ref_v = pool_k.clone(), pool_v.clone()
+    PA.write_tokens_ref(ref_k, ref_v, k_tok, v_tok, pi, off)
+    n0 = PA.write_tokens.launches
+    out = PA.write_tokens(pool_k, pool_v, k_tok, v_tok, pi, off)
+    torch.cuda.synchronize()
+    assert PA.write_tokens.launches == n0 + 1 and out[0] is pool_k
+    for got, ref in ((pool_k, ref_k), (pool_v, ref_v)):
+        assert torch.equal(got[:, 1:], ref[:, 1:])
+        assert torch.equal(got[:, 0, :3], ref[:, 0, :3]) and torch.equal(got[:, 0, 4:], ref[:, 0, 4:])
+    if k > 1:  # each element of the sink slot comes from one of the two rows
+        sink = pool_k[:, 0, 3]
+        assert ((sink == k_tok[k - 2].to(dtype)) | (sink == k_tok[k - 1].to(dtype))).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "h,hkv,d,page,maxp,lengths",
+    [
+        (32, 8, 128, 64, 8, [1, 512, 513, 100]),   # Mistral's heads: short, full, past the table
+        (4, 4, 64, 8, 5, [40, 17]),                # MHA, page 8, full row
+        (16, 2, 128, 16, 6, [95, 33, 64]),         # group of 8 (the kernel's most)
+    ],
+)
+def test_paged_attention_kernel_matches_plain(dev, dtype, h, hkv, d, page, maxp, lengths):
+    rng = np.random.default_rng(5)
+    k = len(lengths)
+    pages = k * maxp + 1
+    pool_k, pool_v = (_r(rng, (hkv, pages, page, d), dtype) for _ in range(2))
+    q = _r(rng, (k, 1, h, d), dtype)
+    table = torch.tensor(rng.permutation(np.arange(1, pages)).reshape(k, maxp),
+                         dtype=torch.int32, device=dev)
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    n0 = PA.paged_decode_attention.launches
+    out = PA.paged_decode_attention(q, pool_k, pool_v, table, length)
+    torch.cuda.synchronize()
+    assert PA.paged_decode_attention.launches == n0 + 1 and out.shape == q.shape
+    _close(out, PA.paged_decode_attention_ref(q, pool_k, pool_v, table, length), dtype)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.zeros(1, 4, 2, 32, device=dev)
     with pytest.raises(ValueError, match="head dim"):
@@ -107,3 +161,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="rows"):
         pk = quantize_linear_weight_int4_pc(torch.zeros(8, 16, device=dev))
         int4_matvec(torch.zeros(9, 16, device=dev), pk["w_int4pc"], pk["scale"])
+    pool = torch.zeros(2, 3, 8, 32, device=dev)
+    table = torch.ones(1, 2, dtype=torch.int32, device=dev)
+    length = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        PA.paged_decode_attention(torch.zeros(1, 1, 4, 32, device=dev), pool, pool, table, length)
+    pool = torch.zeros(1, 3, 8, 64, device=dev)
+    with pytest.raises(ValueError, match="group"):
+        PA.paged_decode_attention(torch.zeros(1, 1, 16, 64, device=dev), pool, pool, table, length)
+    with pytest.raises(ValueError, match="int32"):
+        PA.write_tokens(pool, pool, torch.zeros(1, 1, 64, device=dev),
+                        torch.zeros(1, 1, 64, device=dev), table[0, :1].long(), table[0, :1])

@@ -4,10 +4,13 @@
     python3 tools/torch_profile.py
 
 Builds StreamMind-7B in bf16 from a seed (as ``chip_smoke.py`` does: exact
-ViT attention, int4 gate), warms up one forced turn, then runs three
+ViT attention, int4 gate), warms up one forced turn, then runs five
 regions under ``torch.profiler``: six per-frame ticks
-(``StreamMindEngine.perceive_step``), one cached prefill of a turn, and
-sixteen greedy decode steps.  For each region it prints one JSON line:
+(``StreamMindEngine.perceive_step``), one cached prefill of a turn,
+sixteen greedy decode steps over the dense cache, then the multi-stream
+server's batched turn over the paged KV pool (page 64): one prefill of
+K = 3 dialogues and sixteen lockstep decode steps.  For each region it
+prints one JSON line:
 host wall time (synchronized), the device's busy time (the sum of kernel
 and copy times the profiler saw), the idle share, the number of device
 operations, and the ten device operations that took the most time.
@@ -27,6 +30,7 @@ import torch  # noqa: E402
 
 FRAMES = 6    # ticks profiled
 DECODE = 16   # decode steps profiled
+PAGED_K = 3   # dialogues in the paged lockstep decode
 SEED = 0
 
 
@@ -83,6 +87,7 @@ def main() -> int:
     from streammind_torch.models.meta import init_streammind_params
     from streammind_torch.streaming import StreamMindEngine
     from streammind_torch.streaming.engine import build_turn_plan, turn_suffix_ids
+    from streammind_torch.streaming.paged import PagedDialogues
 
     from chip_smoke import StandInTokenizer
 
@@ -127,8 +132,32 @@ def main() -> int:
     # max_new_tokens=N feeds N tokens through the decoder: N steps
     tokens, _ = profiled("decode_step", lambda: engine.generate_from_prefill(
         last, cache, max_new_tokens=DECODE), units=DECODE)
-    engine.eos_token_id = eng_eos
     print(json.dumps(dict(decode_tokens=len(tokens))), flush=True)
+    del cache
+    torch.cuda.empty_cache()
+
+    # K dialogues on one page pool: a batched prefill, then the lockstep decode
+    pd = PagedDialogues(engine, num_pages=256, page_size=64)
+    dids = [f"d{i}" for i in range(PAGED_K)]
+    span = list(range(state.frame_idx))
+    plan = build_turn_plan(engine, tok, span, turn_suffix_ids(tok, [1, 10, VIDEO_TOKEN_INDEX]))
+    for d in dids:
+        pd.open(d)
+        pd.ensure_capacity(d, len(plan.token_ids) + DECODE)
+    table = pd._table(dids)
+    memory = state.memory.expand(PAGED_K, -1, -1)
+    pd._prefill(table, pd._lengths(dids), [plan] * PAGED_K, memory)  # warm-up
+    last = profiled(f"paged_prefill_k{PAGED_K}", lambda: pd._prefill(
+        table, pd._lengths(dids), [plan] * PAGED_K, memory))
+    knobs = ([0.0] * PAGED_K, [0] * PAGED_K, [0.0] * PAGED_K)
+    first = torch.argmax(last, dim=-1).tolist()
+    lengths = [plan.length] * PAGED_K
+    pd._decode(table, lengths, first, [2] * PAGED_K, knobs, None, None)  # warm-up
+    buf, _ = profiled(f"paged_decode_step_k{PAGED_K}", lambda: pd._decode(
+        table, lengths, first, [DECODE] * PAGED_K, knobs, None, None), units=DECODE)
+    engine.eos_token_id = eng_eos
+    print(json.dumps(dict(paged_rows=PAGED_K, page_size=pd.page_size, length=plan.length,
+                          decode_tokens=int(buf.shape[1]))), flush=True)
     return 0
 
 
