@@ -27,6 +27,21 @@ Phases, each of which raises (exit code != 0) on failure:
      card); then the session on the card once more with TF32 on, which must
      break at least one limit (the limits see a matmul that loses fp32
      precision);
+  7. training at full width: ``train()`` on StreamMind-7B (bf16, random
+     weights from seed 0), the ``adapter`` stage, remat, one sample a
+     microbatch and two microbatches a step, 6 optimizer steps over a
+     synthetic MatchTime-shaped set (pre-extracted (64, 577, 1024) features,
+     1,900-1,980-token prompts with one <video> slot and a 129-token
+     supervised answer, so every microbatch splices into the 2048 bucket);
+     step time, supervised tokens/s, losses, peak memory and launches per
+     microbatch (64 lse forwards, 32 dQ, 32 dK/dV); frozen leaves bitwise
+     unchanged, trainable leaves moved, the adapter checkpoint read back
+     bitwise; then 2 steps of the ``cls`` stage resumed from it;
+  8. training parity in fp32 (TF32 off) at the published widths, depth cut
+     (text 2, gate 2 layers, features in): the same seeded tree and batch
+     through the plain versions on the CPU and the kernels on the card —
+     loss, grad norm, every trainable gradient, the params after two
+     optimizer steps — and a TF32-on control that must break a limit;
 then the ``kernels`` JSON line and, last, the ``ok`` JSON line.  It uses
 nothing of JAX; without a CUDA card it exits with an error before any result.
 """
@@ -35,12 +50,14 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -62,6 +79,9 @@ KERNEL_META = {
     "int4_matvec": ("streammind_torch/csrc/int4_matvec.cu", "ops/int4_matvec.py:37"),
     "paged_write": ("streammind_torch/csrc/paged_write.cu", "streaming/paged.py:89"),
     "paged_attention": ("streammind_torch/csrc/paged_attention.cu", "streaming/paged.py:250"),
+    "flash_attention_lse": ("streammind_torch/csrc/flash_attention.cu", "ops/attention.py:86"),
+    "flash_bwd_dq": ("streammind_torch/csrc/flash_bwd_dq.cu", "ops/attention.py:363"),
+    "flash_bwd_dkv": ("streammind_torch/csrc/flash_bwd_dkv.cu", "ops/attention.py:407"),
 }
 # wrapper of each kernel, as (module, attribute), for its launch count
 WRAPPERS = {
@@ -70,7 +90,12 @@ WRAPPERS = {
     "int4_matvec": ("streammind_torch.ops.int4_matvec", "int4_matvec"),
     "paged_write": ("streammind_torch.ops.paged_attention", "write_tokens"),
     "paged_attention": ("streammind_torch.ops.paged_attention", "paged_decode_attention"),
+    "flash_attention_lse": ("streammind_torch.ops.attention", "flash_attention_lse"),
+    "flash_bwd_dq": ("streammind_torch.ops.attention", "flash_bwd_dq"),
+    "flash_bwd_dkv": ("streammind_torch.ops.attention", "flash_bwd_dkv"),
 }
+TRAIN_KERNELS = ("flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv")
+
 
 
 def log(tag: str, msg: str) -> None:
@@ -224,10 +249,12 @@ def check_kernels(dev):
         del ws, packs
     results["int4_matvec"] = (cases, "|err| <= 1e-2 + 1e-2*|ref| (bf16 output)")
     results.update(check_paged_kernels(dev, randn))
+    results.update(check_train_kernels(dev, randn))
 
     for name, (cases, tol) in results.items():
         for c in cases:
             log("kernel", f"{name} {c['shape']}: max_abs_err={c['max_abs_err']:.3e} "
+                          f"{'(each output: ' + str(c['errs']) + ') ' if 'errs' in c else ''}"
                           f"within [{tol}]={c['ok']} kernel={c['ms']:.4f} ms "
                           f"plain={c['plain_ms']:.4f} ms library={c['library_ms']:.4f} ms "
                           f"bound={c['bound_ms']:.4f} ms ({c['bound_by']})")
@@ -316,6 +343,99 @@ def check_paged_kernels(dev, randn):
                           bound_ms=b_ms, bound_by=b_by))
     results["paged_write"] = (cases, "bitwise equal pools (a copy)")
     return results
+
+
+# the fp32 lse of the training forward against its plain version: about
+# twice the largest error measured on an H100 (9.5e-7 at |lse| ~ 8), as
+# the bf16 limits above were set; the bf16 dQ, dK and dV take BF16_TOL (one
+# bf16 step, 1.56e-2 at |ref| in [2, 4), is the largest error measured)
+LSE_TOL = (2e-6, 1e-7)
+LSE_TOL_TEXT = "|err| <= 2e-6 + 1e-7*|ref| (fp32 lse)"
+
+
+def check_train_kernels(dev, randn):
+    """The training kernels at the adapter stage's shape: Mistral-7B
+    attention (32 q / 8 kv heads, D 128) over the 2048 bucket, causal;
+    a ragged batch (B 2, kv_len 2048 and 1531) and one D 64 case.  The lse
+    forward, dQ and dK/dV each against its plain version on the same
+    inputs; SDPA (causal, enable_gqa) is the yardstick: its forward, and its
+    forward+backward less the forward (which computes dQ, dK and dV at once)."""
+    from streammind_torch.ops import attention as A
+
+    rows = {n: [] for n in TRAIN_KERNELS}
+    for b, s, h, hkv, d, kv_len in ((1, 2048, 32, 8, 128, [2048]),
+                                    (2, 2048, 32, 8, 128, [2048, 1531]),
+                                    (1, 2048, 32, 8, 64, [2048])):
+        shape = f"q({b},{s},{h},{d}) kv({b},{s},{hkv},{d}) causal kv_len={kv_len}"
+        lens = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+        pairs = h * sum(sum(min(i + 1, n) for i in range(s)) for n in kv_len)
+        qb, kvb, rowb = 2 * b * s * h * d, 2 * b * s * hkv * d, 4 * b * s * h
+        sets = []
+        for _ in range(n_sets(2 * qb + 2 * kvb + 2 * rowb)):
+            q, do, k, v = randn(b, s, h, d), randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
+            out, lse = A.flash_attention_lse(q, k, v, True, lens)
+            sets.append((q, k, v, do, lse, (do.float() * out.float()).sum(-1)))
+        q, k, v, do, _, _ = sets[0]
+        out, lse = A.flash_attention_lse(q, k, v, True, lens)
+        ref_out, ref_lse = A.flash_attention_ref(q, k, v, True, lens, return_lse=True)
+        delta = (do.float() * ref_out.float()).sum(-1)
+        dq = A.flash_bwd_dq(q, k, v, do, ref_lse, delta, True, lens)
+        dk, dv = A.flash_bwd_dkv(q, k, v, do, ref_lse, delta, True, lens)
+        ref_dq = A.flash_bwd_dq_ref(q, k, v, do, ref_lse, delta, True, lens)
+        ref_dk, ref_dv = A.flash_bwd_dkv_ref(q, k, v, do, ref_lse, delta, True, lens)
+        checks = {
+            "flash_attention_lse": [excess(out, ref_out, *BF16_TOL), excess(lse, ref_lse, *LSE_TOL)],
+            "flash_bwd_dq": [excess(dq, ref_dq, *BF16_TOL)],
+            "flash_bwd_dkv": [excess(dk, ref_dk, *BF16_TOL), excess(dv, ref_dv, *BF16_TOL)],
+        }
+        del out, lse, dq, dk, dv, ref_out, ref_dq, ref_dk, ref_dv
+        fns = {
+            "flash_attention_lse": (lambda z: A.flash_attention_lse(z[0], z[1], z[2], True, lens),
+                                    lambda z: A.flash_attention_ref(z[0], z[1], z[2], True, lens,
+                                                                    return_lse=True)),
+            "flash_bwd_dq": (lambda z: A.flash_bwd_dq(*z, True, lens),
+                             lambda z: A.flash_bwd_dq_ref(*z, True, lens)),
+            "flash_bwd_dkv": (lambda z: A.flash_bwd_dkv(*z, True, lens),
+                              lambda z: A.flash_bwd_dkv_ref(*z, True, lens)),
+        }
+        # yardstick: SDPA on (B, H, S, D), kv heads grouped by enable_gqa
+        mask = None
+        if min(kv_len) < s:
+            mask = ((torch.arange(s, device=dev)[None, :] <= torch.arange(s, device=dev)[:, None])
+                    & (torch.arange(s, device=dev)[None, :] < lens[:, None, None]))[:, None]
+        lib_sets = [tuple(t.transpose(1, 2).detach().requires_grad_() for t in z[:3])
+                    + (z[3].transpose(1, 2),) for z in sets]
+
+        def sdpa(z):
+            return F.scaled_dot_product_attention(z[0], z[1], z[2], attn_mask=mask,
+                                                  is_causal=mask is None, enable_gqa=True)
+
+        with torch.no_grad():
+            lib_fwd = cuda_ms([lambda z=z: sdpa(z) for z in lib_sets])
+        lib_both = cuda_ms([lambda z=z: torch.autograd.grad(sdpa(z), z[:3], z[3])
+                            for z in lib_sets])
+        # bytes: each input read once, each output written once
+        work = {"flash_attention_lse": (2 * qb + 2 * kvb + rowb, 4.0 * d * pairs),
+                "flash_bwd_dq": (qb * 3 + kvb * 2 + 2 * rowb, 6.0 * d * pairs),
+                "flash_bwd_dkv": (qb * 2 + kvb * 4 + 2 * rowb, 8.0 * d * pairs)}
+        for name in TRAIN_KERNELS:
+            kern, plain = fns[name]
+            ms = cuda_ms([lambda z=z: kern(z) for z in sets])
+            plain_ms = cuda_ms([lambda z=z: plain(z) for z in sets], iters=3, warmup=1)
+            b_ms, b_by = bound(*work[name], BF16_FLOPS)
+            errs = checks[name]
+            rows[name].append(dict(
+                shape=shape, max_abs_err=max(e for e, _ in errs), ok=all(o <= 0 for _, o in errs),
+                errs=[e for e, _ in errs],
+                ms=ms, plain_ms=plain_ms,
+                library_ms=lib_fwd if name == "flash_attention_lse" else lib_both - lib_fwd,
+                bound_ms=b_ms, bound_by=b_by))
+        del sets, lib_sets
+        torch.cuda.empty_cache()
+    return {"flash_attention_lse": (rows["flash_attention_lse"],
+                                    f"out {BF16_TOL_TEXT}; lse {LSE_TOL_TEXT}"),
+            "flash_bwd_dq": (rows["flash_bwd_dq"], BF16_TOL_TEXT),
+            "flash_bwd_dkv": (rows["flash_bwd_dkv"], f"dK and dV {BF16_TOL_TEXT}")}
 
 
 # ---------------------------------------------------------------------------
@@ -474,7 +594,7 @@ def full_width_session(engine, g, dev):
     n_vit = cfg.vision.num_layers + cfg.vision.select_layer + 1
     expect = {"exact_attention": n_vit * n_frames, "int4_matvec": 5 * cfg.gate.num_layers * n_frames,
               "flash_attention": cfg.text.num_layers * turns, "paged_write": 0,
-              "paged_attention": 0}
+              "paged_attention": 0, **{n: 0 for n in TRAIN_KERNELS}}
     probs = torch.stack(engine.probs)
     n_tok = sum(len(t) for t in engine.decoded)
     decode_ms_tok = sum(engine.decode_ms) / max(n_tok, 1)
@@ -570,7 +690,7 @@ def serving_phase(engine, g, dev):
     expect = {"exact_attention": n_vit * SERVE_TICKS,
               "int4_matvec": 5 * cfg.gate.num_layers * SERVE_TICKS,
               "flash_attention": L * len(pd.decodes), "paged_write": L * steps,
-              "paged_attention": L * steps}
+              "paged_attention": L * steps, **{n: 0 for n in TRAIN_KERNELS}}
     ticks = srv.tick_log
     log("serve", f"ticks={broker.ticks} frames={broker.frames_seen} fired per tick="
                  f"{[t['fired'] for t in ticks]}")
@@ -602,7 +722,7 @@ def serving_phase(engine, g, dev):
     if broker.ticks != SERVE_TICKS or [d["k"] for d in pd.decodes] != [3, 1]:
         raise RuntimeError(f"expected {SERVE_TICKS} ticks with one K=3 and one K=1 turn, got "
                            f"{broker.ticks} ticks and turns {pd.decodes}")
-    if counts != expect or not all(counts.values()):
+    if counts != expect or not all(counts[n] for n in counts if n not in TRAIN_KERNELS):
         raise RuntimeError(f"launch counts {counts} differ from the path's {expect}")
     probs = torch.cat(engine.probs[-SERVE_TICKS:])
     if not (torch.isfinite(probs).all() and (probs.sum(-1) - 1).abs().max() < 1e-5):
@@ -727,6 +847,246 @@ def multistream_parity(cfg, params, dev, probs_tol):
         raise RuntimeError(f"the batched tick did not speak: {ref['log'][0]}")
 
 
+# ---------------------------------------------------------------------------
+# phases 7-8: training
+# ---------------------------------------------------------------------------
+TRAIN_STEPS = 6
+TRAIN_ANSWER = 128   # answer tokens a sample; with its EOS 129 supervised labels
+TRAIN_LR = 5e-2      # large enough that 6 steps move every bf16 trainable leaf
+SMOKE_DIR = Path(__file__).resolve().parent / "_smoke_train"
+
+
+class MatchTimeShaped:
+    """Synthetic MatchTime-shaped samples: pre-extracted (frames, 577, 1024)
+    fp32 feature "videos" and prompts of ``lengths`` token ids — BOS, random
+    ids with one <video> slot, then a TRAIN_ANSWER-token answer and EOS, the
+    supervised span — captioned alternately with speech and silence."""
+
+    def __init__(self, lengths, frames: int, seed: int, vocab: int = 32000, width: int = 1024):
+        from streammind_torch.constants import IGNORE_INDEX, VIDEO_TOKEN_INDEX
+
+        rng = np.random.default_rng(seed)
+        self.samples = []
+        for i, n_ids in enumerate(lengths):
+            prompt = [1] + rng.integers(3, vocab, n_ids - TRAIN_ANSWER - 3).tolist()
+            prompt.insert(32 + i, VIDEO_TOKEN_INDEX)
+            answer = rng.integers(3, vocab, TRAIN_ANSWER).tolist() + [2]
+            self.samples.append({
+                "input_ids": np.asarray([prompt + answer], np.int64),
+                "labels": np.asarray([[IGNORE_INDEX] * len(prompt) + answer], np.int64),
+                "video": rng.standard_normal((frames, 577, width), dtype=np.float32),
+                "caption_info": "</s>" if i % 2 else "a goal is scored",
+            })
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        return self.samples[i % len(self.samples)]
+
+
+def train_args(stage: str, dev, max_steps: int, resume: bool):
+    from streammind_torch.train.args import DataArguments, ModelArguments, TrainingArguments
+
+    return (ModelArguments(tune_mm_mlp_adapter=stage == "adapter"),
+            DataArguments(score_dataset_train_cls=stage == "cls", num_workers=2),
+            TrainingArguments(output_dir=str(SMOKE_DIR), learning_rate=TRAIN_LR, bf16=True,
+                              max_steps=max_steps, save_steps=max_steps, logging_steps=1,
+                              per_device_train_batch_size=1, gradient_accumulation_steps=2,
+                              gradient_checkpointing=True, seed=0, resume=resume, device=dev))
+
+
+def metric_lines():
+    with open(SMOKE_DIR / "logs" / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def training_phase(dev):
+    """train() at StreamMind-7B's published widths: the adapter stage for
+    TRAIN_STEPS steps, then 2 steps of the cls stage resumed from its
+    adapter-only checkpoint."""
+    from streammind_torch.config import StreamMindConfig
+    from streammind_torch.models.meta import init_streammind_params
+    from streammind_torch.train.run import train
+    from streammind_torch.train.trainer import named_leaves, trainable_mask
+    from streammind_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
+
+    cfg = StreamMindConfig()
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    ds = MatchTimeShaped([1900, 1920, 1940, 1980], frames=64, seed=0)
+    log("train", f"data: {len(ds)} samples, features {ds.samples[0]['video'].shape}, prompts "
+                 f"{[s['input_ids'].shape[1] for s in ds.samples]} ids, made in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state = train(*train_args("adapter", dev, TRAIN_STEPS, resume=False), dataset=ds, cfg=cfg)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    recs = metric_lines()
+    losses = [r["train/loss"] for r in recs]
+    step_ms = [(b["ts"] - a["ts"]) * 1e3 for a, b in zip(recs, recs[1:])]
+    micro = 2 * TRAIN_STEPS
+    per_micro = {n: c / micro for n, c in counts.items()}
+    expect = {n: 0 for n in counts}
+    expect.update(flash_attention_lse=2 * cfg.text.num_layers, flash_bwd_dq=cfg.text.num_layers,
+                  flash_bwd_dkv=cfg.text.num_layers)
+    tokens = 2 * (TRAIN_ANSWER + 1)
+    log("train", f"adapter stage, 2048 bucket, remat, B 1 x accumulation 2: losses {losses}; "
+                 f"grad norms {[r['train/grad_norm'] for r in recs]}")
+    log("train", f"step ms (synchronized, after the first) = {[round(t, 3) for t in step_ms]}, "
+                 f"median {statistics.median(step_ms):.3f}; supervised tokens/s = "
+                 f"{tokens / statistics.median(step_ms) * 1e3:.3f} ({tokens} a step)")
+    log("train", f"peak device memory = {peak / 1e9:.2f} GB; launches per microbatch = "
+                 f"{per_micro}; expected {expect}")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"training losses not finite: {losses}")
+    if per_micro != expect:
+        raise RuntimeError(f"launch counts {counts} over {micro} microbatches differ from the "
+                           f"path's {expect} each")
+
+    # frozen leaves bitwise unchanged, every trainable leaf moved: against the
+    # same seeded tree built afresh
+    init = init_streammind_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev,
+                                  dtype=torch.bfloat16)
+    trainable = set(named_leaves(init, trainable_mask(init, "adapter")))
+    after, before = named_leaves(state.params), named_leaves(init)
+    frozen_same = [p for p in before if p not in trainable and torch.equal(after[p], before[p])]
+    moved = [p for p in trainable if not torch.equal(after[p], before[p])]
+    log("train", f"{len(frozen_same)} of {len(before) - len(trainable)} frozen leaves bitwise "
+                 f"unchanged; {len(moved)} of {len(trainable)} trainable leaves moved")
+    if len(frozen_same) != len(before) - len(trainable) or len(moved) != len(trainable):
+        raise RuntimeError("a frozen leaf changed or a trainable leaf did not move: "
+                           f"{sorted(set(before) - trainable - set(frozen_same))} "
+                           f"{sorted(trainable - set(moved))}")
+    del init, before
+    ckpt = latest_checkpoint(str(SMOKE_DIR))
+    loaded, _, meta = load_checkpoint(ckpt, dev)
+    saved = named_leaves(loaded)
+    same = all(torch.equal(t, after[p]) for p, t in saved.items())
+    log("train", f"{Path(ckpt).name}: meta {meta}, {len(saved)} projector leaves read back "
+                 f"bitwise: {same}")
+    if not (meta["adapter_only"] and meta["step"] == TRAIN_STEPS and same
+            and set(saved) == {p for p in after if p.startswith("projector.")}):
+        raise RuntimeError("the adapter-only checkpoint does not read back")
+    del state, after
+    torch.cuda.empty_cache()
+
+    # the gate stage on the same tree: resumed from the adapter checkpoint
+    reset_launches()
+    state = train(*train_args("cls", dev, TRAIN_STEPS + 2, resume=True), dataset=ds, cfg=cfg)
+    torch.cuda.synchronize()
+    cls_losses = [r["train/loss"] for r in metric_lines()[TRAIN_STEPS:]]
+    after = named_leaves(state.params["projector"], prefix="projector.")
+    gate = "projector.cls_net."
+    unmoved = sorted(p[len(gate):] for p, t in saved.items()
+                     if p.startswith(gate) and torch.equal(after[p], t))
+    rest_same = all(torch.equal(after[p], t) for p, t in saved.items() if not p.startswith(gate))
+    log("train", f"cls stage, 2 steps resumed at step {TRAIN_STEPS}: losses {cls_losses}; gate "
+                 f"leaves unchanged: {unmoved}; the rest of the projector unchanged: "
+                 f"{rest_same}; launches {read_launches()}")
+    # the gate's loss sits on each pair's first position, which attends to
+    # itself alone: its q and k projections and the label embeddings (second
+    # position) get no gradient, and so no update
+    if (len(cls_losses) != 2 or not all(math.isfinite(x) for x in cls_losses) or not rest_same
+            or unmoved != ["embed_tokens", "layers.k.weight", "layers.q.weight"]
+            or any(read_launches().values())):
+        raise RuntimeError("the cls stage did not train the gate alone")
+    del state, loaded, saved, after
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(step_ms_median=statistics.median(step_ms), losses=losses, peak_gb=peak / 1e9,
+                launches=counts, launches_per_microbatch=per_micro)
+
+
+def training_parity(dev):
+    """The adapter stage's loss, gradients and two optimizer steps in fp32
+    through the plain versions on the CPU and the kernels on the card (TF32
+    off), then on the card with TF32 on as the control."""
+    from streammind_torch.models.meta import init_streammind_params
+    from streammind_torch.train.objectives import stage1_llm_loss
+    from streammind_torch.train.run import make_microbatch
+    from streammind_torch.train.trainer import (
+        cosine_schedule, global_norm, init_train_state, make_grad_step, make_optimizer,
+        make_train_step, named_leaves, trainable_mask)
+    from streammind_torch.utils.params import tree_map
+
+    cfg = parity_config()
+    params = init_streammind_params(torch.Generator().manual_seed(5), cfg, device="cpu")
+    sample = MatchTimeShaped([440], frames=16, seed=6).samples[0]   # splices into 512
+
+    def loss_fn(p, b):
+        return stage1_llm_loss(p, cfg, b["frames"], b["token_ids"], b["mem_index"], b["use_mem"],
+                               b["attn_mask"], b["labels"], remat=True, attn_impl="flash!")
+
+    out = {}
+    for run, where, tf32 in (("cpu", "cpu", False), ("card", dev, False),
+                             ("card_tf32", dev, True)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        t0 = time.perf_counter()
+        p = tree_map(lambda t: t.to(where, copy=True), params)
+        mask = trainable_mask(p, "adapter")
+        opt = make_optimizer(cosine_schedule(1e-4, 2))
+        state = init_train_state(p, opt, mask)
+        _, batch = make_microbatch([sample], cfg, p["vision"], "adapter", pad_to=1)
+        reset_launches()
+        loss, grads = make_grad_step(loss_fn, mask)(p, batch)
+        step = make_train_step(loss_fn, opt, mask)
+        for _ in range(2):
+            state, _ = step(state, batch)
+        counts = read_launches()
+        out[run] = dict(loss=float(loss), gnorm=float(global_norm(grads.values())),
+                        grads={k: g.cpu() for k, g in grads.items()},
+                        params={k: t.detach().cpu() for k, t in named_leaves(p, mask).items()})
+        log("train-parity", f"{run}: loss {out[run]['loss']:.7f}, grad norm "
+                            f"{out[run]['gnorm']:.7f}, {time.perf_counter() - t0:.1f} s, "
+                            f"launches {counts}")
+        if where != "cpu" and not all(counts[n] == 3 * 2 * cfg.text.num_layers
+                                      if n == "flash_attention_lse" else
+                                      counts[n] == 3 * cfg.text.num_layers
+                                      for n in TRAIN_KERNELS):
+            raise RuntimeError(f"the card's run missed the training kernels: {counts}")
+        del p, state, grads, batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def errs(o):
+        # params: Adam steps each element by about lr * sign(grad) whatever
+        # its size, so an element whose gradient is at the level of the fp32
+        # noise may step either way; the limit holds the elements whose
+        # gradient is at least 1e-3 of its leaf's largest, and the max over
+        # all elements is printed beside it
+        c = out["cpu"]
+        firm = {k: g.abs() >= 1e-3 * g.abs().max() for k, g in c["grads"].items()}
+        return {"loss": abs(o["loss"] - c["loss"]),
+                "grad_norm": abs(o["gnorm"] - c["gnorm"]) / c["gnorm"],
+                "grads": max(float((o["grads"][k] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+                             for k, g in c["grads"].items()),
+                "params": max(float((o["params"][k] - t)[firm[k]].abs().max())
+                              for k, t in c["params"].items()),
+                "params_all": max(float((o["params"][k] - t).abs().max())
+                                  for k, t in c["params"].items())}
+
+    # about ten times the errors measured on an H100 with TF32 off (loss
+    # 1.9e-6, grad norm 1.08e-7, grads 8.05e-6, params 2.38e-7)
+    tol = {"loss": 2e-5, "grad_norm": 1e-6, "grads": 8e-5, "params": 2.4e-6}
+    got, control = errs(out["card"]), errs(out["card_tf32"])
+    log("train-parity", f"text 2 / gate 2 layers at published widths, fp32, TF32 off: "
+                        f"|cpu - card| = {got} (loss abs, grad norm rel, worst leaf's grad max "
+                        f"err / its max |grad|, params after 2 steps (lr 1e-4) abs where "
+                        f"|grad| >= 1e-3 of the leaf's max, and over all), limits {tol}")
+    log("train-parity", f"control, TF32 on: {control}; over the limits: "
+                        f"{[k for k in tol if control[k] > tol[k]]}")
+    if any(got[k] > tol[k] for k in tol):
+        raise RuntimeError("training on the CPU (plain versions) and the card (kernels) disagree")
+    if not any(control[k] > tol[k] for k in tol):
+        raise RuntimeError("the training parity limits do not see TF32 matmuls on the card")
+    return got
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "streammind_torch" / "__init__.py").exists():
@@ -760,16 +1120,20 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
     parity(dev)
+    training = training_phase(dev)
+    training_parity(dev)
 
     entries = []
     for name, (cases, tol) in kernels.items():
         src, replaces = KERNEL_META[name]
         head = cases[0]
+        main_path = training if name in TRAIN_KERNELS else serving
         entries.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=serving["launches"][name],
+            launches=main_path["launches"][name],
             launches_by_path={"session": session["launches"][name],
-                              "serving": serving["launches"][name]},
+                              "serving": serving["launches"][name],
+                              "train": training["launches"][name]},
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"],

@@ -1,9 +1,16 @@
 // Blockwise online-softmax attention forward (flash), causal prefill over a
-// KV cache.
+// KV cache, and the training forward that also returns the row lse.
 //
 // Replaces the JAX package's ops/attention.py::_flash_kernel_nolse (entry
-// point flash_attention; _flash_kernel is its lse-returning twin), which
-// cached prefill calls in every decoder layer.
+// point flash_attention), which cached prefill calls in every decoder layer,
+// and its lse-returning twin _flash_kernel (entry _flash_fwd_with_lse), the
+// forward of the differentiable flash_mha that training runs in every
+// decoder layer and again in its rematerialized recompute.  A null lse
+// pointer is the inference kernel; otherwise each row's
+// lse = max(m, -1e30) + log(max(l, 1e-30)) is written in fp32 to (B, Sq, H),
+// one float a row (the TPU kernel replicates it over 128 lanes for Mosaic's
+// tiling; nothing here needs that), so a row with no visible key gives a
+// finite lse and output 0, as on the TPU.
 //
 // Arithmetic, as the TPU kernel does it: q is cast to fp32 and scaled
 // BEFORE the dot; per key tile the running (m, l, acc) are updated in fp32
@@ -56,7 +63,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
+                       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                        const int* __restrict__ kv_len, const int* __restrict__ q_offset,
                        int Sq, int Sk, int H, int Hkv, int causal,
                        long long qsb, long long qss, long long qsh,
@@ -168,10 +175,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qi < Sq)
       store(o + (((long long)b * Sq + qi) * H + h) * D + dl, acc[r] / fmaxf(l_s[i], 1e-30f));
   }
+  if (lse != nullptr && tid < kBQ && q0 + tid < Sq)
+    lse[((long long)b * Sq + q0 + tid) * H + h] =
+        fmaxf(m_s[tid], kNegInf) + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, const void* kv_len,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, const void* kv_len,
            const void* q_offset, int B, int Sq, int Sk, int H, int Hkv, int causal,
            const long long* st, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
@@ -182,7 +192,8 @@ int launch(const void* q, const void* k, const void* v, void* o, const void* kv_
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H), block(kThreads);
   kern<<<grid, block, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<const int*>(kv_len), static_cast<const int*>(q_offset),
+      static_cast<T*>(o), static_cast<float*>(lse), static_cast<const int*>(kv_len),
+      static_cast<const int*>(q_offset),
       Sq, Sk, H, Hkv, causal, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
       scale);
   return (int)cudaGetLastError();
@@ -192,10 +203,11 @@ int launch(const void* q, const void* k, const void* v, void* o, const void* kv_
 
 // q (B, Sq, H, D), k/v (B, Sk, Hkv, D), each with element strides
 // (batch, seq, head) and a contiguous head dim; kv_len and q_offset (B,)
-// int32 on the device; o (B, Sq, H, D) contiguous in q's dtype.
-// D in {64, 128}; B*H <= 65535.  kv_len is clamped to Sk.
+// int32 on the device; o (B, Sq, H, D) contiguous in q's dtype; lse null
+// or (B, Sq, H) fp32 contiguous.  D in {64, 128}; B*H <= 65535.  kv_len is
+// clamped to Sk.
 extern "C" int sm_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                  const void* kv_len, const void* q_offset,
+                                  void* lse, const void* kv_len, const void* q_offset,
                                   int B, int Sq, int Sk, int H, int Hkv, int D,
                                   int causal, int is_bf16,
                                   long long qsb, long long qss, long long qsh,
@@ -209,14 +221,14 @@ extern "C" int sm_flash_attention(const void* q, const void* k, const void* v, v
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (is_bf16) {
     if (D == 64)
-      return launch<__nv_bfloat16, 64>(q, k, v, o, kv_len, q_offset, B, Sq, Sk, H, Hkv, causal, st, scale, s);
+      return launch<__nv_bfloat16, 64>(q, k, v, o, lse, kv_len, q_offset, B, Sq, Sk, H, Hkv, causal, st, scale, s);
     if (D == 128)
-      return launch<__nv_bfloat16, 128>(q, k, v, o, kv_len, q_offset, B, Sq, Sk, H, Hkv, causal, st, scale, s);
+      return launch<__nv_bfloat16, 128>(q, k, v, o, lse, kv_len, q_offset, B, Sq, Sk, H, Hkv, causal, st, scale, s);
   } else {
     if (D == 64)
-      return launch<float, 64>(q, k, v, o, kv_len, q_offset, B, Sq, Sk, H, Hkv, causal, st, scale, s);
+      return launch<float, 64>(q, k, v, o, lse, kv_len, q_offset, B, Sq, Sk, H, Hkv, causal, st, scale, s);
     if (D == 128)
-      return launch<float, 128>(q, k, v, o, kv_len, q_offset, B, Sq, Sk, H, Hkv, causal, st, scale, s);
+      return launch<float, 128>(q, k, v, o, lse, kv_len, q_offset, B, Sq, Sk, H, Hkv, causal, st, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

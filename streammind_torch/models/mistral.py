@@ -6,7 +6,10 @@ layers in Python.  The KV cache has a static capacity with length masking;
 new K/V rows are written into it IN PLACE (the JAX package builds a new
 cache with dynamic_update_slice on a donated buffer), so the cache a
 caller passes in is updated by the call.  Cached prefill attends through
-the hand-written flash kernel (``ops/attention.py::flash_attention``).
+the hand-written flash kernel (``ops/attention.py::flash_attention``);
+training (no cache, ``attn_impl="flash"``) through the differentiable
+``flash_mha``, each layer rematerialized in the backward under
+``remat=True``.
 """
 from __future__ import annotations
 
@@ -14,12 +17,13 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import TextConfig
 from ..ops.attention import _repeat_kv, attention, decode_attention, flash_attention
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rope, rope_cos_sin
-from ..utils.params import layer_slice, linear, normal_init, ones, zeros
+from ..utils.params import linear, normal_init, ones, unstack_layers
 
 
 class KVCache(NamedTuple):
@@ -187,6 +191,14 @@ def _attn_block(x, lp, cfg: TextConfig, positions, kv_mask, cache_k, cache_v, ca
     return linear(o.reshape(b, s, cfg.q_dim), lp["o"])
 
 
+def _layer(x, lp, cfg: TextConfig, positions, attn_mask, attn_impl):
+    """One decoder layer without a cache (the training and gate shape)."""
+    y = rms_norm(x, lp["input_norm"]["weight"], cfg.rms_norm_eps)
+    x = x + _attn_block(y, lp, cfg, positions, attn_mask, None, None, None, attn_impl)
+    y = rms_norm(x, lp["post_norm"]["weight"], cfg.rms_norm_eps)
+    return x + _mlp(y, lp, cfg)
+
+
 def text_forward(
     params,
     cfg: TextConfig,
@@ -198,8 +210,14 @@ def text_forward(
     cache_advance: Optional[torch.Tensor] = None,
     attn_impl: str = "auto",
     return_hidden: bool = False,
+    remat: bool = False,
 ):
     """Forward over a token block.
+
+    ``remat`` (no cache): per-layer rematerialization — each layer runs
+    under ``torch.utils.checkpoint`` (non-reentrant), so its activations are
+    recomputed in the backward and only the layer inputs stay alive (the
+    JAX package's ``jax.checkpoint`` on the layer body).
 
     Without a cache: causal self-attention over the block.  With a cache:
     the block is written at cache.length (prefill, or one decode token) and
@@ -215,16 +233,17 @@ def text_forward(
         base = cache.length[:, None] if cache is not None else torch.zeros(
             (b, 1), dtype=torch.int32, device=x.device)
         positions = base + torch.arange(s, device=x.device)[None, :]
-    layers = params["layers"]
-    for i in range(cfg.num_layers):
-        lp = layer_slice(layers, i)
+    for i, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
+        if cache is None:
+            if remat:
+                x = checkpoint(_layer, x, lp, cfg, positions, attn_mask, attn_impl,
+                               use_reentrant=False)
+            else:
+                x = _layer(x, lp, cfg, positions, attn_mask, attn_impl)
+            continue
         y = rms_norm(x, lp["input_norm"]["weight"], cfg.rms_norm_eps)
-        if cache is not None:
-            a = _attn_block(y, lp, cfg, positions, attn_mask, cache.k[i], cache.v[i],
+        x = x + _attn_block(y, lp, cfg, positions, attn_mask, cache.k[i], cache.v[i],
                             cache.length, attn_impl)
-        else:
-            a = _attn_block(y, lp, cfg, positions, attn_mask, None, None, None, attn_impl)
-        x = x + a
         y = rms_norm(x, lp["post_norm"]["weight"], cfg.rms_norm_eps)
         x = x + _mlp(y, lp, cfg)
     new_cache = None

@@ -4,6 +4,8 @@ Per frame: spatial mean-pool 576→1 token, PreNet linear + leaky-relu,
 a VideoMamba step with carried state, PostNet leaky-relu + linear; the
 gate (ClsNet) is a small Mistral with a 2-token vocabulary, run on the
 newest memory token alone.  Only the ``"mamba"`` projector type is ported.
+Training adds ``project_memory`` (the whole clip at once) and the
+class-weighted ``gate_loss``.
 """
 from __future__ import annotations
 
@@ -43,6 +45,16 @@ def mamba_project(params, cfg: StreamMindConfig,
     return x, state
 
 
+def project_memory(params, cfg: StreamMindConfig, frames_features: torch.Tensor) -> torch.Tensor:
+    """Full-clip projection (B, T, N, H) → (B, T, hidden) memory tokens, one a
+    frame.  Only the mamba projector is ported."""
+    if cfg.mm_projector_type != "mamba":
+        raise NotImplementedError(
+            f"projector type {cfg.mm_projector_type!r} is not ported (ROADMAP Queue 1 item 14)")
+    memory, _ = mamba_project(params, cfg, frames_features)
+    return memory
+
+
 def mamba_project_step(params, cfg: StreamMindConfig, frame_features: torch.Tensor,
                        state: MambaState) -> Tuple[torch.Tensor, MambaState]:
     """O(1) streaming projection of one frame (B, N, H) → one memory token
@@ -67,3 +79,19 @@ def gate_decision_step(params, cfg: StreamMindConfig,
     """Streaming gate: the newest memory token (B, hidden) alone through the
     gate LM, logits at the last position → (B, 2)."""
     return gate_logits(params, cfg, memory_token[:, None, :])[:, -1, :]
+
+
+def gate_loss(logits: torch.Tensor, labels: torch.Tensor,
+              class_weights: Tuple[float, float] = (0.15, 0.85)) -> torch.Tensor:
+    """Class-weighted causal CE over the 2-way gate vocabulary (B, S, 2):
+    shifted by one, IGNORE_INDEX (-100) masked out, normalized by the sum
+    of the weights of the counted labels (a weighted mean)."""
+    shift_logits = logits[:, :-1].float()
+    shift_labels = labels[:, 1:].long()
+    valid = shift_labels != -100
+    safe = torch.where(valid, shift_labels, 0)
+    logp = torch.log_softmax(shift_logits, dim=-1)
+    picked = logp.gather(-1, safe[..., None])[..., 0]
+    w = torch.tensor(class_weights, dtype=torch.float32, device=logits.device)[safe]
+    w = torch.where(valid, w, 0.0)
+    return -(picked * w).sum() / torch.clamp(w.sum(), min=1e-8)

@@ -23,7 +23,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_kernels"
 KERNELS = ("flash_attention", "exact_attention", "int4_matvec", "paged_write",
-           "paged_attention")
+           "paged_attention", "flash_bwd_dq", "flash_bwd_dkv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -87,11 +87,13 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry point and argument types of each kernel (see the .cu files)
 SIGNATURES = {
-    "flash_attention": ("sm_flash_attention", [_P] * 6 + [_I] * 8 + [_L] * 9 + [_F, _P]),
+    "flash_attention": ("sm_flash_attention", [_P] * 7 + [_I] * 8 + [_L] * 9 + [_F, _P]),
     "exact_attention": ("sm_exact_attention", [_P] * 4 + [_I] * 7 + [_L] * 9 + [_F, _P]),
     "int4_matvec": ("sm_int4_matvec", [_P] * 4 + [_I] * 4 + [_P]),
     "paged_write": ("sm_paged_write", [_P] * 6 + [_I] * 5 + [_P]),
     "paged_attention": ("sm_paged_attention", [_P] * 6 + [_I] * 8 + [_F, _P]),
+    "flash_bwd_dq": ("sm_flash_bwd_dq", [_P] * 8 + [_I] * 8 + [_L] * 12 + [_F, _P]),
+    "flash_bwd_dkv": ("sm_flash_bwd_dkv", [_P] * 9 + [_I] * 8 + [_L] * 12 + [_F, _P]),
 }
 
 

@@ -101,6 +101,15 @@ def layer_slice(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def unstack_layers(tree, n: int):
+    """The n per-layer trees of a layer-stacked tree, as views.  Unbinding
+    each leaf once (instead of indexing it per layer) makes the backward of
+    a trained stacked leaf one stack of the layers' grads, not one
+    leaf-sized scatter per layer."""
+    parts = tree_map(lambda a: a.unbind(0), tree)  # tuples are leaves to tree_map
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
+
+
 def param_bytes(tree) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 

@@ -10,7 +10,9 @@ tests/test_torch_ops.py and tests/test_torch_paged.py hold against the JAX
 package).  Tolerances: fp32 outputs 1e-4 (sums in another order); bf16
 outputs 4e-3 + 1e-2·|ref| (one bf16 rounding step either way, plus about
 twice the largest error measured on an H100 at the main path's shapes, as
-in chip_smoke.py); the paged pool write is a copy and must be bitwise.
+in chip_smoke.py); the paged pool write is a copy and must be bitwise.  The
+training kernels get the same output limits (kernel and plain version read
+the same inputs and both accumulate in fp32); the fp32 lse 1e-4.
 """
 import numpy as np
 import pytest
@@ -63,6 +65,67 @@ def test_flash_kernel_matches_plain(dev, dtype, b, sq, sk, h, hkv, d, kv_len, q_
     _close(out, A.flash_attention_ref(q, k, v, causal=True, kv_len=lens, q_offset=offs), dtype)
     if 0 in kv_len:
         assert float(out[kv_len.index(0)].abs().max()) == 0.0
+
+
+TRAIN_CASES = [
+    # b, s, h, hkv, d, kv_len, causal
+    (1, 130, 8, 2, 128, [130], True),        # GQA 4, ragged last tiles
+    (2, 97, 4, 4, 64, [70, 0], True),        # kv_len 0: output 0, finite lse, zero grads
+    (2, 64, 8, 2, 64, [64, 33], False),      # non-causal, right-padded
+    (1, 300, 32, 8, 128, [300], True),       # Mistral's heads
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hkv,d,kv_len,causal", TRAIN_CASES)
+def test_flash_lse_and_backward_kernels_match_plain(dev, dtype, b, s, h, hkv, d, kv_len,
+                                                    causal):
+    rng = np.random.default_rng(6)
+    q, do = _r(rng, (b, s, h, d), dtype), _r(rng, (b, s, h, d), dtype)
+    k, v = _r(rng, (b, s, hkv, d), dtype), _r(rng, (b, s, hkv, d), dtype)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    n0 = (A.flash_attention_lse.launches, A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches)
+    out, lse = A.flash_attention(q, k, v, causal=causal, kv_len=lens, return_lse=True)
+    ref_out, ref_lse = A.flash_attention_ref(q, k, v, causal=causal, kv_len=lens,
+                                             return_lse=True)
+    delta = (do.float() * ref_out.float()).sum(-1)
+    dq = A.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal, lens)
+    dk, dv = A.flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal, lens)
+    torch.cuda.synchronize()
+    assert (A.flash_attention_lse.launches, A.flash_bwd_dq.launches,
+            A.flash_bwd_dkv.launches) == tuple(n + 1 for n in n0)
+    _close(out, ref_out, dtype)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    assert torch.isfinite(lse).all()
+    ref_dq = A.flash_bwd_dq_ref(q, k, v, do, ref_lse, delta, causal, lens)
+    ref_dk, ref_dv = A.flash_bwd_dkv_ref(q, k, v, do, ref_lse, delta, causal, lens)
+    assert dq.dtype == q.dtype and dk.shape == k.shape and dv.dtype == v.dtype
+    for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        _close(got, ref, dtype)
+    if 0 in kv_len:
+        i = kv_len.index(0)
+        assert float(out[i].abs().max()) == 0.0
+        assert float(dq[i].abs().max()) == float(dk[i].abs().max()) == float(dv[i].abs().max()) == 0
+
+
+def test_flash_mha_gradients_on_the_card_match_autograd_of_the_reference(dev):
+    """The autograd Function end to end (lse forward, delta, both backward
+    kernels) against autograd through mha_reference, fp32, GQA, ragged."""
+    rng = np.random.default_rng(7)
+    b, s, h, hkv, d = 2, 150, 8, 2, 64
+    lens = torch.tensor([150, 91], dtype=torch.int32, device=dev)
+    mask = torch.arange(s, device=dev)[None, :] < lens[:, None]
+    w = _r(rng, (b, s, h, d), torch.float32)
+    grads = []
+    for fn in (lambda q, k, v: A.flash_mha(q, k, v, lens, True),
+               lambda q, k, v: A.mha_reference(q, k, v, causal=True, kv_mask=mask)):
+        rs = np.random.default_rng(8)
+        q, k, v = (_r(rs, shape, torch.float32).requires_grad_()
+                   for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+        (fn(q, k, v) * w).sum().backward()
+        grads.append((q.grad, k.grad, v.grad))
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -172,3 +235,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="int32"):
         PA.write_tokens(pool, pool, torch.zeros(1, 1, 64, device=dev),
                         torch.zeros(1, 1, 64, device=dev), table[0, :1].long(), table[0, :1])
+    q = torch.zeros(1, 8, 4, 64, device=dev)
+    lse = torch.zeros(1, 8, 4, device=dev)
+    with pytest.raises(ValueError, match="lse"):
+        A.flash_bwd_dq(q, q, q, q, lse.double(), lse)
+    with pytest.raises(ValueError, match="dO"):
+        A.flash_bwd_dkv(q, q, q, q[:, :4], lse, lse)

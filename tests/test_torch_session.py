@@ -131,3 +131,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "streammind_torch.streaming.engine" in mods and "streammind_torch.ops._build" in mods
+    assert "streammind_torch.train.run" in mods and "streammind_torch.train.trainer" in mods

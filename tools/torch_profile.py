@@ -9,8 +9,12 @@ regions under ``torch.profiler``: six per-frame ticks
 (``StreamMindEngine.perceive_step``), one cached prefill of a turn,
 sixteen greedy decode steps over the dense cache, then the multi-stream
 server's batched turn over the paged KV pool (page 64): one prefill of
-K = 3 dialogues and sixteen lockstep decode steps.  For each region it
-prints one JSON line:
+K = 3 dialogues and sixteen lockstep decode steps; last, after a warm-up,
+one training microbatch of the adapter stage (``make_grad_step`` of the
+stage-1 loss: a 1,980-token prompt with 64 frames of pre-extracted
+features, spliced into the 2048 bucket, remat, the flash training
+kernels in every layer; forward, recompute and backward, no optimizer
+step).  For each region it prints one JSON line:
 host wall time (synchronized), the device's busy time (the sum of kernel
 and copy times the profiler saw), the idle share, the number of device
 operations, and the ten device operations that took the most time.
@@ -158,7 +162,39 @@ def main() -> int:
     engine.eos_token_id = eng_eos
     print(json.dumps(dict(paged_rows=PAGED_K, page_size=pd.page_size, length=plan.length,
                           decode_tokens=int(buf.shape[1]))), flush=True)
+    del engine, pd, memory
+    torch.cuda.empty_cache()
+    train_microbatch(cfg, dev)
     return 0
+
+
+def train_microbatch(cfg, dev):
+    """One adapter-stage microbatch (gradients of the trainable projector
+    through the frozen bf16 decoder) on a fresh seeded tree."""
+    from streammind_torch.models.meta import init_streammind_params
+    from streammind_torch.train.objectives import stage1_llm_loss
+    from streammind_torch.train.run import make_microbatch
+    from streammind_torch.train.trainer import apply_trainable, make_grad_step, trainable_mask
+
+    from chip_smoke import MatchTimeShaped
+
+    params = init_streammind_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                                    device=dev, dtype=torch.bfloat16)
+    mask = trainable_mask(params, "adapter")
+    apply_trainable(params, mask)
+    sample = MatchTimeShaped([1980], frames=64, seed=SEED).samples[0]
+    _, batch = make_microbatch([sample], cfg, params["vision"], "adapter", pad_to=1)
+
+    def loss_fn(p, b):
+        return stage1_llm_loss(p, cfg, b["frames"], b["token_ids"], b["mem_index"], b["use_mem"],
+                               b["attn_mask"], b["labels"], remat=True, attn_impl="flash!")
+
+    grad_step = make_grad_step(loss_fn, mask)
+    grad_step(params, batch)  # warm-up
+    profiled("train_microbatch", lambda: grad_step(params, batch))
+    print(json.dumps(dict(train_bucket=int(batch["token_ids"].shape[1]),
+                          train_frames=int(batch["frames"].shape[1]),
+                          supervised=int((batch["labels"][:, 1:] != -100).sum()))), flush=True)
 
 
 if __name__ == "__main__":
