@@ -42,8 +42,24 @@ Phases, each of which raises (exit code != 0) on failure:
      through the plain versions on the CPU and the kernels on the card —
      loss, grad norm, every trainable gradient, the params after two
      optimizer steps — and a TF32-on control that must break a limit;
-then the ``kernels`` JSON line and, last, the ``ok`` JSON line.  It uses
-nothing of JAX; without a CUDA card it exits with an error before any result.
+  9. (run after phase 5, on its own engine) the fast serving tier at full
+     width: a bf16 StreamMind-7B tree from seed 0, the decoder through the
+     load_8bit transform (``quantize_text_params(bits=8)``), then
+     StreamMindEngine(quantize_gate="int8", fast_vision="int8"): the session
+     of phase 4 (launches exactly 20 int8_matvec a tick, 128 a one-token
+     decode forward, 32 flash a turn, no exact and no int4), then
+     ``perceive_burst`` of 32 frames on the same stream (one selective_scan,
+     20 int8_matvec), timed, and the same frames as single steps;
+ 10. the fast tier in fp32 at reduced depth on the CPU (plain versions) and
+     the card (kernels), TF32 off, with a burst of 16 frames and, on the
+     card, the burst against single steps; a TF32-on control that must break
+     a limit; the int8 ViT on its own (one linear on identical inputs, and
+     the tower's features);
+then the ``kernels`` JSON line (``launches`` from the serving phase for the
+inference kernels, from the training phase for the training kernels and from
+the fast phase for int8_matvec and selective_scan) and, last, the ``ok`` JSON
+line.  It uses nothing of JAX; without a CUDA card it exits with an error
+before any result.
 """
 from __future__ import annotations
 
@@ -82,6 +98,8 @@ KERNEL_META = {
     "flash_attention_lse": ("streammind_torch/csrc/flash_attention.cu", "ops/attention.py:86"),
     "flash_bwd_dq": ("streammind_torch/csrc/flash_bwd_dq.cu", "ops/attention.py:363"),
     "flash_bwd_dkv": ("streammind_torch/csrc/flash_bwd_dkv.cu", "ops/attention.py:407"),
+    "int8_matvec": ("streammind_torch/csrc/int8_matvec.cu", "ops/int8_matvec.py:39"),
+    "selective_scan": ("streammind_torch/csrc/selective_scan.cu", "ops/scan.py:150"),
 }
 # wrapper of each kernel, as (module, attribute), for its launch count
 WRAPPERS = {
@@ -93,8 +111,11 @@ WRAPPERS = {
     "flash_attention_lse": ("streammind_torch.ops.attention", "flash_attention_lse"),
     "flash_bwd_dq": ("streammind_torch.ops.attention", "flash_bwd_dq"),
     "flash_bwd_dkv": ("streammind_torch.ops.attention", "flash_bwd_dkv"),
+    "int8_matvec": ("streammind_torch.ops.int8_matvec", "int8_matvec"),
+    "selective_scan": ("streammind_torch.ops.scan", "selective_scan_kernel"),
 }
 TRAIN_KERNELS = ("flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv")
+FAST_KERNELS = ("int8_matvec", "selective_scan")
 
 
 
@@ -250,13 +271,15 @@ def check_kernels(dev):
     results["int4_matvec"] = (cases, "|err| <= 1e-2 + 1e-2*|ref| (bf16 output)")
     results.update(check_paged_kernels(dev, randn))
     results.update(check_train_kernels(dev, randn))
+    results.update(check_fast_kernels(dev, g))
 
     for name, (cases, tol) in results.items():
         for c in cases:
+            lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f} ms"
             log("kernel", f"{name} {c['shape']}: max_abs_err={c['max_abs_err']:.3e} "
                           f"{'(each output: ' + str(c['errs']) + ') ' if 'errs' in c else ''}"
                           f"within [{tol}]={c['ok']} kernel={c['ms']:.4f} ms "
-                          f"plain={c['plain_ms']:.4f} ms library={c['library_ms']:.4f} ms "
+                          f"plain={c['plain_ms']:.4f} ms library={lib} "
                           f"bound={c['bound_ms']:.4f} ms ({c['bound_by']})")
     bad = [(n, c["shape"]) for n, (cs, _) in results.items() for c in cs if not c["ok"]]
     if bad:
@@ -438,6 +461,109 @@ def check_train_kernels(dev, randn):
             "flash_bwd_dkv": (rows["flash_bwd_dkv"], f"dK and dV {BF16_TOL_TEXT}")}
 
 
+# int8 against its plain version: fp32 sums in another order, then one
+# rounding to the output dtype; |err| <= atol + rtol*|ref| with one bf16 step
+# (2**-8 relative) for bf16 outputs, fp32 sums over up to 14336 terms for fp32
+INT8_TOL = {torch.bfloat16: (1e-3, 1e-2), torch.float32: (1e-4, 1e-5)}
+# the scan: the same step-by-step fp32 arithmetic but for the order of the sum
+# over the 16 states and the exp/log1p of the device; bf16 y rounds once
+SCAN_TOL = {torch.bfloat16: (4e-3, 1e-2), torch.float32: (1e-5, 1e-5)}
+SCAN_STATE_TOL = (1e-5, 1e-5)
+
+
+def tol_text(tol, what):
+    return f"|err| <= {tol[0]:g} + {tol[1]:g}*|ref| ({what})"
+
+
+def check_fast_kernels(dev, g):
+    """The fast tier's two kernels.  int8_matvec at the int8 gate's four
+    shapes (one token a frame) and the int8 decoder's three fused ones, B 1, 4
+    and 8, bf16 and fp32 x; the yardstick is F.linear on the weight
+    dequantized beforehand into x's dtype.  selective_scan at the burst's
+    Mamba shape (d_inner 8192, d_state 16) over L 1, 8, 32 and 64, with and
+    without a carried state, bf16 and fp32, its inputs laid out as the mixer
+    hands them over; no single PyTorch call computes it."""
+    from streammind_torch.ops import scan as S
+    from streammind_torch.ops.int8_matvec import int8_matvec, int8_matvec_ref
+    from streammind_torch.utils.quantize import dequantize_linear_weight, quantize_linear_weight
+
+    rows = []
+    for name, dout, din in (("v", 1024, 4096), ("o", 4096, 4096), ("gate/up", 14336, 4096),
+                            ("down", 4096, 14336), ("qkv (fused)", 6144, 4096),
+                            ("gateup (fused)", 28672, 4096)):
+        n_copy = n_sets(dout * din)
+        qs = [quantize_linear_weight(torch.empty((dout, din), device=dev).normal_(
+            0.0, 0.02, generator=g)) for _ in range(n_copy)]
+        for dtype in (torch.bfloat16, torch.float32):
+            libs = [dequantize_linear_weight(q, dtype) for q in qs]
+            esize = torch.finfo(dtype).bits // 8
+            for b in (1, 4, 8):
+                x = torch.empty((b, din), device=dev, dtype=dtype).normal_(generator=g)
+                q0 = qs[0]
+                out = int8_matvec(x, q0["w_int8"], q0["scale"])
+                ref = int8_matvec_ref(x, q0["w_int8"], q0["scale"])
+                err, over = excess(out, ref, *INT8_TOL[dtype])
+                ms = cuda_ms([lambda q=q: int8_matvec(x, q["w_int8"], q["scale"]) for q in qs])
+                plain = cuda_ms([lambda q=q: int8_matvec_ref(x, q["w_int8"], q["scale"])
+                                 for q in qs], iters=5)
+                lib = cuda_ms([lambda w=w: F.linear(x, w) for w in libs])
+                b_ms, b_by = bound(dout * din + 4 * dout + esize * b * (din + dout),
+                                   2.0 * b * dout * din,
+                                   BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+                rows.append(dict(shape=f"{name}: x({b},{din}) {str(dtype)[6:]} W({dout},{din}) "
+                                       f"int8", max_abs_err=err, ok=over <= 0, ms=ms,
+                                 plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by))
+            del libs
+        del qs
+        torch.cuda.empty_cache()
+    results = {"int8_matvec": (rows, "; ".join(tol_text(INT8_TOL[d], str(d)[6:] + " output")
+                                               for d in INT8_TOL))}
+
+    rows = []
+    b, d, n = 1, 8192, 16
+    for dtype in (torch.bfloat16, torch.float32):
+        esize = torch.finfo(dtype).bits // 8
+        for length in (32, 1, 8, 64):
+            for with_h0 in (True, False):
+                def case():
+                    def r(*shape, std=1.0, dt=dtype):
+                        return torch.empty(shape, device=dev, dtype=dt).normal_(0.0, std,
+                                                                               generator=g)
+                    xz, dtp, x_dbl = r(b, length, 2 * d), r(b, length, d, std=0.5), r(
+                        b, length, 256 + 2 * n)
+                    args = (xz[..., :d].transpose(1, 2), dtp.transpose(1, 2),
+                            -torch.exp(r(d, n, std=0.5, dt=torch.float32)),
+                            x_dbl[..., 256:256 + n].transpose(1, 2),
+                            x_dbl[..., 256 + n:].transpose(1, 2))
+                    return args, dict(D=r(d, dt=torch.float32), z=xz[..., d:].transpose(1, 2),
+                                      delta_bias=r(d, dt=torch.float32), delta_softplus=True,
+                                      return_last_state=True,
+                                      h0=r(b, d, n, dt=torch.float32) if with_h0 else None)
+
+                nbytes = (esize * (4 * b * d * length + 2 * b * n * length) + 4 * (d * n + 2 * d)
+                          + 4 * b * d * n * (2 if with_h0 else 1))
+                sets = [case() for _ in range(n_sets(nbytes))]
+                args, kw = sets[0]
+                y, h = S.selective_scan(*args, **kw, impl="pallas")
+                ref_y, ref_h = S.selective_scan_ref(*args, **kw)
+                errs = [excess(y, ref_y, *SCAN_TOL[dtype]), excess(h, ref_h, *SCAN_STATE_TOL)]
+                ms = cuda_ms([lambda s=s: S.selective_scan(*s[0], **s[1], impl="pallas")
+                              for s in sets])
+                plain = cuda_ms([lambda s=s: S.selective_scan_ref(*s[0], **s[1]) for s in sets],
+                                iters=3, warmup=1)
+                b_ms, b_by = bound(nbytes, (7.0 * n + 12.0) * b * d * length, FP32_FLOPS)
+                rows.append(dict(shape=f"u/dt/z ({b},{d},{length}) {str(dtype)[6:]} A({d},{n}) "
+                                       f"B/C ({b},{n},{length}) h0={'yes' if with_h0 else 'no'}",
+                                 max_abs_err=max(e for e, _ in errs), errs=[e for e, _ in errs],
+                                 ok=all(o <= 0 for _, o in errs), ms=ms, plain_ms=plain,
+                                 library_ms=None, bound_ms=b_ms, bound_by=b_by))
+                del sets
+    results["selective_scan"] = (rows, "y " + "; ".join(
+        tol_text(SCAN_TOL[dt], str(dt)[6:]) for dt in SCAN_TOL) + "; last state "
+        + tol_text(SCAN_STATE_TOL, "fp32"))
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phases 4-6: the session, multi-stream serving, parity
 # ---------------------------------------------------------------------------
@@ -594,7 +720,7 @@ def full_width_session(engine, g, dev):
     n_vit = cfg.vision.num_layers + cfg.vision.select_layer + 1
     expect = {"exact_attention": n_vit * n_frames, "int4_matvec": 5 * cfg.gate.num_layers * n_frames,
               "flash_attention": cfg.text.num_layers * turns, "paged_write": 0,
-              "paged_attention": 0, **{n: 0 for n in TRAIN_KERNELS}}
+              "paged_attention": 0, **{n: 0 for n in TRAIN_KERNELS + FAST_KERNELS}}
     probs = torch.stack(engine.probs)
     n_tok = sum(len(t) for t in engine.decoded)
     decode_ms_tok = sum(engine.decode_ms) / max(n_tok, 1)
@@ -690,7 +816,7 @@ def serving_phase(engine, g, dev):
     expect = {"exact_attention": n_vit * SERVE_TICKS,
               "int4_matvec": 5 * cfg.gate.num_layers * SERVE_TICKS,
               "flash_attention": L * len(pd.decodes), "paged_write": L * steps,
-              "paged_attention": L * steps, **{n: 0 for n in TRAIN_KERNELS}}
+              "paged_attention": L * steps, **{n: 0 for n in TRAIN_KERNELS + FAST_KERNELS}}
     ticks = srv.tick_log
     log("serve", f"ticks={broker.ticks} frames={broker.frames_seen} fired per tick="
                  f"{[t['fired'] for t in ticks]}")
@@ -722,7 +848,8 @@ def serving_phase(engine, g, dev):
     if broker.ticks != SERVE_TICKS or [d["k"] for d in pd.decodes] != [3, 1]:
         raise RuntimeError(f"expected {SERVE_TICKS} ticks with one K=3 and one K=1 turn, got "
                            f"{broker.ticks} ticks and turns {pd.decodes}")
-    if counts != expect or not all(counts[n] for n in counts if n not in TRAIN_KERNELS):
+    if counts != expect or not all(counts[n] for n in counts
+                                   if n not in TRAIN_KERNELS + FAST_KERNELS):
         raise RuntimeError(f"launch counts {counts} differ from the path's {expect}")
     probs = torch.cat(engine.probs[-SERVE_TICKS:])
     if not (torch.isfinite(probs).all() and (probs.sum(-1) - 1).abs().max() < 1e-5):
@@ -845,6 +972,282 @@ def multistream_parity(cfg, params, dev, probs_tol):
         raise RuntimeError("multi-stream serving differs between the CPU and the card")
     if any(o is None for o in ref["log"][0].values()):
         raise RuntimeError(f"the batched tick did not speak: {ref['log'][0]}")
+
+
+# ---------------------------------------------------------------------------
+# phases 9-10: the fast serving tier and the burst catch-up
+# ---------------------------------------------------------------------------
+BURST = 32          # frames of one burst: about one second of a 30 fps stream
+PARITY_BURST = 16
+
+
+class DecodeCounter:
+    """Counts the decoder's one-token forwards (``text_forward`` called with
+    input ids, as only the decode loops call it) while it is installed."""
+
+    def __init__(self):
+        from streammind_torch.models import mistral
+
+        self.mod, self.orig, self.n = mistral, mistral.text_forward, 0
+
+    def __enter__(self):
+        def counted(*a, **kw):
+            if kw.get("input_ids") is not None:
+                self.n += 1
+            return self.orig(*a, **kw)
+
+        self.mod.text_forward = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.text_forward = self.orig
+
+
+def clone_state(state):
+    from streammind_torch.models.mamba import MambaState
+
+    return state._replace(memory=state.memory.clone(),
+                          mamba=MambaState(conv=state.mamba.conv.clone(),
+                                           ssm=state.mamba.ssm.clone()))
+
+
+def burst_and_steps(engine, state, frames):
+    """The same frames through one perceive_burst and through single
+    perceive_steps, each from its own copy of ``state``.  Returns the two
+    (probs, state) pairs and the burst's synchronized ms."""
+    a = clone_state(state)
+    t0 = sync()
+    probs_b, a = engine.perceive_burst(torch.cat(frames), a)
+    burst_ms = (sync() - t0) * 1e3
+    b = clone_state(state)
+    for f in frames:
+        probs_s, b = engine.perceive_step(f, b)
+    return (probs_b.float().cpu(), a), (probs_s.float().cpu(), b), burst_ms
+
+
+def burst_errors(burst, steps, first_slot):
+    (pb, a), (ps, b) = burst, steps
+    rows = slice(first_slot, first_slot + BURST)
+    return {"probs": float((pb - ps).abs().max()),
+            "memory": float((a.memory[:, rows] - b.memory[:, rows]).abs().max()),
+            "ssm": float((a.mamba.ssm - b.mamba.ssm).abs().max()),
+            "ssm_max": float(b.mamba.ssm.abs().max())}
+
+
+def fast_phase(dev):
+    """StreamMind-7B on the fast serving tier, built as the JAX package's
+    bench builds it: a bf16 tree from seed 0, the decoder through the
+    load_8bit transform, then StreamMindEngine(quantize_gate="int8",
+    fast_vision="int8").  The session of phase 4 (10 frames, two forced
+    fires, 16 new tokens a turn), then a burst of BURST frames on the same
+    engine and stream, and the same frames as single steps."""
+    from streammind_torch.config import StreamMindConfig
+    from streammind_torch.models.meta import init_streammind_params
+    from streammind_torch.utils.params import param_bytes
+    from streammind_torch.utils.quantize import quantize_text_params
+
+    cfg = StreamMindConfig()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = init_streammind_params(g, cfg, device=dev, dtype=torch.bfloat16)
+    params["text"] = quantize_text_params(params["text"], bits=8, free_source=True)
+    engine = make_engine_class()(params, cfg, quantize_gate="int8", fast_vision="int8",
+                                 device=dev)
+    del params
+    torch.cuda.synchronize()
+    log("fast", f"StreamMind-7B, int8 decoder (load_8bit), int8 gate and ViT: "
+                f"{param_bytes(engine.params) / 1e9:.2f} GB ({param_bytes(engine.params['text']) / 1e9:.2f} "
+                f"GB decoder) built in {time.perf_counter() - t0:.1f} s; ViT attention "
+                f"{engine.attn_impl!r}")
+    n_frames, fire, size = 10, (3, 7), cfg.vision.image_size
+    frames = [torch.empty((1, 3, size, size), device=dev, dtype=torch.bfloat16).normal_(
+        generator=g) for _ in range(n_frames)]
+    torch.cuda.synchronize()
+    reset_launches()
+    with DecodeCounter() as dc:
+        session, ticks, e2ft = run_session(engine, frames, fire, max_new=16)
+    counts = read_launches()
+    turns = len(session.turns)
+    gate_per_tick = 5 * cfg.gate.num_layers
+    per_decode = 4 * cfg.text.num_layers
+    expect = {n: 0 for n in counts}
+    expect.update(flash_attention=cfg.text.num_layers * turns,
+                  int8_matvec=gate_per_tick * n_frames + per_decode * dc.n)
+    n_tok = sum(len(t) for t in engine.decoded)
+    decode_ms_tok = sum(engine.decode_ms) / max(n_tok, 1)
+    log("fast", f"session: frames={n_frames} turns={turns} tokens="
+                f"{[len(t) for t in engine.decoded]} decode forwards={dc.n} launches={counts} "
+                f"expected={expect} ({gate_per_tick} int8 a tick, {per_decode} a decode forward)")
+    log("fast", f"median tick (silent frames after the first) = "
+                f"{statistics.median(ticks[1:]):.3f} ms; ticks ms = {[round(t, 3) for t in ticks]}")
+    log("fast", f"event-to-first-token ms = {[round(t, 3) for t in e2ft]}; decode ms/token = "
+                f"{decode_ms_tok:.3f}")
+    probs = torch.stack(engine.probs)
+    if not (torch.isfinite(probs).all() and torch.isfinite(session.state.memory).all()):
+        raise RuntimeError("the fast tier's gate probs or ring hold non-finite values")
+    if turns != 2 or any(not 0 <= t < cfg.text.vocab_size for ts in engine.decoded for t in ts):
+        raise RuntimeError(f"expected two turns of valid token ids: {engine.decoded}")
+    if counts != expect or not dc.n:
+        raise RuntimeError(f"launch counts {counts} differ from the path's {expect}")
+
+    # the burst: a warm-up burst (its launches counted), then the timed one
+    # and the same frames as single steps, each from a copy of the stream's state
+    bframes = [torch.empty((1, 3, size, size), device=dev, dtype=torch.bfloat16).normal_(
+        generator=g) for _ in range(BURST)]
+    state = session.state
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = sync()
+    engine.perceive_burst(torch.cat(bframes), clone_state(state))
+    first_ms = (sync() - t0) * 1e3
+    burst_counts = read_launches()
+    burst_expect = {n: 0 for n in counts}
+    burst_expect.update(selective_scan=cfg.mamba.n_layers, int8_matvec=gate_per_tick)
+    burst, steps, burst_ms = burst_and_steps(engine, state, bframes)
+    errs = burst_errors(burst, steps, state.frame_idx)
+    log("fast", f"perceive_burst of {BURST} frames: {burst_ms:.3f} ms ({BURST / burst_ms * 1e3:.1f} "
+                f"frames/s; first call {first_ms:.3f} ms); launches {burst_counts}, expected "
+                f"{burst_expect}")
+    log("fast", f"burst vs {BURST} single steps, bf16 (a GEMM against GEMVs rounds otherwise): "
+                f"max |diff| = {errs}")
+    log("fast", f"peak device memory = {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if burst_counts != burst_expect:
+        raise RuntimeError(f"burst launch counts {burst_counts} differ from {burst_expect}")
+    if not all(math.isfinite(v) for v in errs.values()) or burst[1].frame_idx != state.frame_idx + BURST:
+        raise RuntimeError("the burst gave non-finite values or a wrong frame count")
+    del engine, session, frames, bframes, state, burst, steps
+    torch.cuda.empty_cache()
+    launches = dict(counts)
+    launches["selective_scan"] = burst_counts["selective_scan"]
+    return dict(tick_ms_median=statistics.median(ticks[1:]), event_to_first_token_ms=e2ft,
+                decode_ms_per_token=decode_ms_tok, burst_ms=burst_ms, launches=launches,
+                burst_launches=burst_counts)
+
+
+def fast_parity(dev):
+    """The fast tier at reduced depth in fp32 (TF32 off): the same seeded
+    tree (decoder through the int8 transform) and frames through the plain
+    versions on the CPU and the kernels on the card — a 4-frame session with
+    two forced fires, then a burst of PARITY_BURST frames; on the card also
+    the burst against single steps; then the card with TF32 on as the
+    control.  The int8 gate and decoder run as on the path; the ViT keeps
+    fp32 linears (fast_vision=True): the int8 ViT rounds its activations to
+    int8, and where the CPU's and the card's fp32 sums differ in the last
+    bit an activation lands one int8 step away, which moves the memory
+    tokens by ~1e-3, as much as TF32 does (measured on an H100).  The int8
+    ViT is held on its own (``int8_vit_parity``)."""
+    from streammind_torch.models.meta import init_streammind_params
+    from streammind_torch.utils.quantize import quantize_text_params
+
+    cfg = parity_config()
+    params = init_streammind_params(torch.Generator().manual_seed(7), cfg, device="cpu")
+    int8_vit_parity(cfg, params["vision"], dev)
+    params["text"] = quantize_text_params(params["text"], bits=8)
+    rng = torch.Generator().manual_seed(8)
+    size = cfg.vision.image_size
+    frames = [torch.randn((1, 3, size, size), generator=rng) for _ in range(4 + PARITY_BURST)]
+    Engine = make_engine_class()
+    out = {}
+    for run, where, tf32 in (("cpu", "cpu", False), ("card", dev, False),
+                             ("card_tf32", dev, True)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        t0 = time.perf_counter()
+        eng = Engine(params, cfg, quantize_gate="int8", fast_vision=True, kv_capacity=1024,
+                     device=where)
+        fs = [f.to(where) for f in frames]
+        reset_launches()
+        session, _, _ = run_session(eng, fs[:4], (1, 3), max_new=8)
+        n_probs = len(eng.probs)
+        state = session.state
+        burst_probs, bs = eng.perceive_burst(torch.cat(fs[4:]), clone_state(state))
+        counts = read_launches()
+        out[run] = dict(probs=torch.stack(eng.probs[:n_probs]),
+                        memory=session.state.memory[0, :4].cpu(),
+                        logits=torch.cat(eng.prefill_logits), tokens=eng.decoded,
+                        burst_probs=burst_probs.float().cpu(),
+                        burst_memory=bs.memory[0, 4:4 + PARITY_BURST].cpu(),
+                        burst_ssm=bs.mamba.ssm.cpu())
+        if where != "cpu":
+            steps = clone_state(state)
+            for f in fs[4:]:
+                step_probs, steps = eng.perceive_step(f, steps)
+            out[run]["vs_steps"] = {
+                "burst_probs": float((step_probs.float().cpu() - out[run]["burst_probs"])
+                                     .abs().max()),
+                "burst_memory": float((steps.memory[0, 4:4 + PARITY_BURST].cpu()
+                                       - out[run]["burst_memory"]).abs().max()),
+                "burst_ssm": float((steps.mamba.ssm.cpu() - out[run]["burst_ssm"]).abs().max())}
+            if not (counts["int8_matvec"] and counts["selective_scan"] == cfg.mamba.n_layers):
+                raise RuntimeError(f"the card's run missed the fast tier's kernels: {counts}")
+        log("fast-parity", f"{run}: {time.perf_counter() - t0:.1f} s, tokens {eng.decoded}, "
+                           f"launches {counts}")
+        del eng, session, state, bs, fs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tol = FAST_PARITY_TOL
+    c = out["cpu"]
+    errs, control = ({k: float((c[k] - out[run][k]).abs().max()) for k in tol}
+                     for run in ("card", "card_tf32"))
+    vs_steps = out["card"]["vs_steps"]
+    log("fast-parity", f"depth vit3/gate2/text2 at published widths, fp32, TF32 off, int8 gate "
+                       f"and decoder: max |cpu - card| = {errs}, limits {tol}; greedy tokens "
+                       f"equal: {c['tokens'] == out['card']['tokens']}")
+    log("fast-parity", f"card, burst of {PARITY_BURST} vs single steps: max |diff| = {vs_steps}, "
+                       f"limits {tol}")
+    log("fast-parity", f"control, TF32 on: max |cpu - card| = {control}; over the limits: "
+                       f"{[k for k in tol if control[k] > tol[k]]}")
+    if (any(errs[k] > tol[k] for k in tol) or c["tokens"] != out["card"]["tokens"]
+            or any(vs_steps[k] > tol[k] for k in vs_steps)):
+        raise RuntimeError("the fast tier on the CPU (plain versions) and the card disagree")
+    if not any(control[k] > tol[k] for k in tol):
+        raise RuntimeError("the fast-tier parity limits do not see TF32 matmuls on the card")
+    return errs
+
+
+# about ten times the errors measured on an H100 with TF32 off (probs 2.0e-6,
+# memory 1.6e-6, logits 2.1e-5; burst probs 3.0e-7, burst memory 3.2e-6,
+# burst state 1.1e-6; the card's burst against its single steps 1.2e-7,
+# 3.0e-6 and 9.5e-7); the TF32-on control crossed all six
+FAST_PARITY_TOL = {"probs": 2e-5, "memory": 2e-5, "logits": 2e-4, "burst_probs": 3e-6,
+                   "burst_memory": 3e-5, "burst_ssm": 1e-5}
+# the int8 linear on identical inputs: measured bitwise equal (an exact int8
+# product and the same fp32 rescale); the tower's features: the activations'
+# int8 rounding flips where the devices' fp32 sums differ, 2.2e-3 relative rms
+# measured, limit about ten times that
+INT8_VIT_TOL = {"linear_q": 1e-6, "features_rel_rms": 2e-2}
+
+
+def int8_vit_parity(cfg, vision, dev):
+    """The int8 ViT (fp32 tree, depth cut) on the CPU and the card, TF32
+    off.  One int8 linear on identical inputs: the int8 product is exact on
+    both, so the outputs agree to the fp32 rescale (limit relative to the
+    largest output).  The tower on the same two frames: the activations'
+    int8 rounding flips where the two devices' fp32 sums differ in the last
+    bit, so the features are held by their relative rms difference."""
+    from streammind_torch.models import vit
+    from streammind_torch.utils.params import tree_map
+    from streammind_torch.utils.quantize import quantize_vit_params
+
+    qv = vit.fuse_vit_qkv(quantize_vit_params(vision))
+    rng = torch.Generator().manual_seed(9)
+    x = torch.randn((2, 577, cfg.vision.hidden_size), generator=rng)
+    leaf = {k: t[0] for k, t in qv["layers"]["qkv"].items()}
+    ref = vit._linear_q(x, leaf)
+    got = vit._linear_q(x.to(dev), {k: t.to(dev) for k, t in leaf.items()}).cpu()
+    lin_err = float((got - ref).abs().max() / ref.abs().max())
+    size = cfg.vision.image_size
+    px = torch.randn((2, 3, size, size), generator=rng)
+    f_cpu = vit.vit_forward(qv, cfg.vision, px, attn_impl="bf16")
+    f_card = vit.vit_forward(tree_map(lambda t: t.to(dev), qv), cfg.vision, px.to(dev), attn_impl="bf16").cpu()
+    rel = float((f_card - f_cpu).norm() / f_cpu.norm())
+    err = {"linear_q": lin_err, "features_rel_rms": rel,
+           "features_max_abs": float((f_card - f_cpu).abs().max())}
+    log("fast-parity", f"int8 ViT (3 layers, fp32, TF32 off), card vs cpu: {err}, limits "
+                       f"{INT8_VIT_TOL}")
+    if any(err[k] > INT8_VIT_TOL[k] for k in INT8_VIT_TOL):
+        raise RuntimeError("the int8 ViT differs between the CPU and the card")
 
 
 # ---------------------------------------------------------------------------
@@ -1119,6 +1522,8 @@ def main() -> int:
     serving = serving_phase(engine, g, dev)
     del engine
     torch.cuda.empty_cache()
+    fast = fast_phase(dev)
+    fast_parity(dev)
     parity(dev)
     training = training_phase(dev)
     training_parity(dev)
@@ -1127,12 +1532,14 @@ def main() -> int:
     for name, (cases, tol) in kernels.items():
         src, replaces = KERNEL_META[name]
         head = cases[0]
-        main_path = training if name in TRAIN_KERNELS else serving
+        main_path = (training if name in TRAIN_KERNELS else fast if name in FAST_KERNELS
+                     else serving)
         entries.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=main_path["launches"][name],
             launches_by_path={"session": session["launches"][name],
                               "serving": serving["launches"][name],
+                              "fast": fast["launches"][name],
                               "train": training["launches"][name]},
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],

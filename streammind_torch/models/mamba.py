@@ -18,7 +18,7 @@ from ..ops.norms import layer_norm
 from ..ops.scan import (
     causal_conv1d,
     causal_conv1d_update,
-    selective_scan_ref,
+    selective_scan,
     selective_state_update,
 )
 from ..utils.params import linear, normal_init, ones, torch_linear_init, zeros
@@ -91,11 +91,13 @@ def _split_dbl(x_dbl, cfg: MambaConfig):
     return x_dbl[..., :r], x_dbl[..., r:r + n], x_dbl[..., r + n:]
 
 
-def _mixer_forward(bp, cfg: MambaConfig, x: torch.Tensor,
+def _mixer_forward(bp, cfg: MambaConfig, x: torch.Tensor, impl: str = "auto",
                    conv_state0: Optional[torch.Tensor] = None,
                    ssm_state0: Optional[torch.Tensor] = None):
     """Mamba mixer over (B, L, D) → (B, L, D) + final (conv, ssm) state;
-    with carried states it continues a stream mid-flight."""
+    with carried states it continues a stream mid-flight.  ``impl`` picks
+    the scan (``ops.scan.selective_scan``); its inputs are the projections'
+    (B, L, D) products seen as (B, D, L), channels contiguous."""
     l = x.shape[1]
     xz = linear(x, bp["in_proj"])
     xs, z = xz.chunk(2, dim=-1)
@@ -116,10 +118,10 @@ def _mixer_forward(bp, cfg: MambaConfig, x: torch.Tensor,
     dt, Bc, Cc = _split_dbl(x_dbl, cfg)
     dt = dt @ bp["dt_proj"]["weight"].T.to(x.dtype)
     A = -torch.exp(bp["A_log"].float())
-    y, last_state = selective_scan_ref(
+    y, last_state = selective_scan(
         xconv, dt.transpose(1, 2), A, Bc.transpose(1, 2), Cc.transpose(1, 2),
         D=bp["D"], z=z.transpose(1, 2), delta_bias=bp["dt_proj"]["bias"],
-        delta_softplus=True, return_last_state=True, h0=ssm_state0,
+        delta_softplus=True, return_last_state=True, h0=ssm_state0, impl=impl,
     )
     return linear(y.transpose(1, 2), bp["out_proj"]), (conv_state, last_state)
 
@@ -143,9 +145,11 @@ def _mixer_step(bp, cfg: MambaConfig, x: torch.Tensor, conv_state, ssm_state):
 
 
 def video_mamba_forward(params, cfg: MambaConfig, x: torch.Tensor,
-                        state: Optional[MambaState] = None) -> Tuple[torch.Tensor, MambaState]:
+                        state: Optional[MambaState] = None,
+                        impl: str = "auto") -> Tuple[torch.Tensor, MambaState]:
     """VideoMamba over (B, L, d_model): prenorm blocks, an fp32 residual
-    stream, then the final LayerNorm."""
+    stream, then the final LayerNorm.  ``state`` continues a stream; ``impl``
+    is the scan's (auto, ref, pallas)."""
     hidden, residual = x, None
     conv_states, ssm_states = [], []
     for i, bp in enumerate(params["blocks"]):
@@ -153,7 +157,7 @@ def video_mamba_forward(params, cfg: MambaConfig, x: torch.Tensor,
         normed = layer_norm(residual, bp["norm"]["weight"], bp["norm"]["bias"],
                             cfg.layer_norm_eps).to(x.dtype)
         hidden, (cs, ss) = _mixer_forward(
-            bp, cfg, normed,
+            bp, cfg, normed, impl,
             conv_state0=state.conv[i] if state is not None else None,
             ssm_state0=state.ssm[i] if state is not None else None,
         )

@@ -86,8 +86,10 @@ def embed_tokens(params, input_ids: torch.Tensor) -> torch.Tensor:
 
 # Concat axes for fusing linear leaves along the OUTPUT dim of stacked
 # (L, out, in) trees; packed int4 leaves pack along the input dim, so their
-# out axis is still -2.
-_FUSE_AXES = {"weight": -2, "w_int4pc": -2, "scale": -1, "bias": -1}
+# out axis is still -2; per-channel scales and biases are (L, out), group
+# scales (L, out, groups).
+_FUSE_AXES = {"weight": -2, "w_int8": -2, "w_int4": -2, "w_int4pc": -2,
+              "scale": -1, "scale4": -2, "bias": -1}
 
 
 def _fuse_leaves(leaves):

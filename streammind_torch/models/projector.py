@@ -3,7 +3,9 @@
 Per frame: spatial mean-pool 576→1 token, PreNet linear + leaky-relu,
 a VideoMamba step with carried state, PostNet leaky-relu + linear; the
 gate (ClsNet) is a small Mistral with a 2-token vocabulary, run on the
-newest memory token alone.  Only the ``"mamba"`` projector type is ported.
+newest memory token alone; a burst of frames after a stall continues the
+carried state in one chunked scan (``mamba_project_chunk``).  Only the
+``"mamba"`` projector type is ported.
 Training adds ``project_memory`` (the whole clip at once) and the
 class-weighted ``gate_loss``.
 """
@@ -34,13 +36,28 @@ def init_projector_params(g: torch.Generator, cfg: StreamMindConfig, device="cud
     }
 
 
-def mamba_project(params, cfg: StreamMindConfig,
-                  frames_features: torch.Tensor) -> Tuple[torch.Tensor, MambaState]:
+def spatial_pool(frames_features: torch.Tensor) -> torch.Tensor:
+    """(B, T, N, H) → (B, T, H): each frame's mean over its patch tokens."""
+    return frames_features.mean(dim=2)
+
+
+def mamba_project(params, cfg: StreamMindConfig, frames_features: torch.Tensor,
+                  impl: str = "auto") -> Tuple[torch.Tensor, MambaState]:
     """(B, T, N, H) frame features → per-frame memory tokens (B, T, hidden)
-    and the final Mamba state."""
-    x = frames_features.mean(dim=2)
-    x = F.leaky_relu(linear(x, params["pre_net"]), negative_slope=0.01)
-    x, state = video_mamba_forward(params["mamba"], cfg.mamba, x)
+    and the final Mamba state.  ``impl`` is the scan's (auto, ref, pallas)."""
+    return mamba_project_chunk(params, cfg, frames_features, None, impl)
+
+
+def mamba_project_chunk(params, cfg: StreamMindConfig, frames_features: torch.Tensor,
+                        state: Optional[MambaState],
+                        impl: str = "auto") -> Tuple[torch.Tensor, MambaState]:
+    """Continue the carried Mamba ``state`` over a burst of T frames (B, T,
+    N, H) in one scan: the catch-up path, equal to T single steps (None
+    starts a fresh stream).  Returns (B, T, hidden) memory tokens and the
+    new state."""
+    x = F.leaky_relu(linear(spatial_pool(frames_features), params["pre_net"]),
+                     negative_slope=0.01)
+    x, state = video_mamba_forward(params["mamba"], cfg.mamba, x, state=state, impl=impl)
     x = linear(F.leaky_relu(x, negative_slope=0.01), params["post_net"])
     return x, state
 

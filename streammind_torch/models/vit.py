@@ -4,7 +4,8 @@ Taps hidden layer ``select_layer`` (default -2, so only the first
 num_layers-1 blocks run) and drops the CLS token under
 ``select_feature="patch"``: output (frames, 576, 1024).  The patch
 embedding is a reshape + matmul; attention goes through the shared
-dispatcher, whose ``"exact"`` path is the hand-written CUDA kernel.
+dispatcher, whose ``"exact"`` path is the hand-written CUDA kernel.  An
+int8 tree (``fast_vision="int8"``) runs its linears int8 by int8.
 """
 from __future__ import annotations
 
@@ -60,18 +61,42 @@ def _embed(params, cfg: VisionConfig, pixel_values: torch.Tensor) -> torch.Tenso
     return x + params["position_embedding"].to(x.dtype)[None]
 
 
+def _linear_q(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """Encoder linear.  Full-precision leaves go to ``utils.params.linear``;
+    int8 leaves (``utils.quantize.quantize_vit_params``) run the int8 tier:
+    the activations are quantized per token (symmetric absmax over the
+    feature axis), multiplied int8 by int8 into int32 (an exact integer
+    product: ``torch._int_mm``, a library product as the JAX package leaves
+    its einsum to XLA), then rescaled by act_scale ⊗ weight_scale in fp32."""
+    if "w_int8" not in p:
+        return linear(x, p)
+    x32 = x.float()
+    ax = x32.abs().amax(dim=-1, keepdim=True)
+    ax = torch.clamp(ax / ax.new_tensor(127.0), min=1e-8)
+    xq = torch.clamp(torch.round(x32 / ax), -127, 127).to(torch.int8)
+    y = torch._int_mm(xq.reshape(-1, x.shape[-1]), p["w_int8"].T)
+    y = y.reshape(*x.shape[:-1], -1).float() * ax * p["scale"].float()
+    if "bias" in p:
+        y = y + p["bias"].float()
+    return y.to(x.dtype)
+
+
 def fuse_vit_qkv(vit_params: dict) -> dict:
     """Concatenate each layer's q/k/v projections into one (3D, D) weight
-    (output-dim concat: every output column is the same dot as before)."""
+    (output-dim concat: every output column is the same dot as before), on
+    full-precision and int8 trees alike; on the int8 tier it also saves two
+    of the three activation quantizations."""
     layers = vit_params.get("layers", {})
     if "q" not in layers:
         return vit_params
     out = dict(vit_params)
     layers = dict(layers)
     q, k, v = layers.pop("q"), layers.pop("k"), layers.pop("v")
-    fused = {"weight": torch.cat([q["weight"], k["weight"], v["weight"]], dim=-2)}
-    if "bias" in q:
-        fused["bias"] = torch.cat([q["bias"], k["bias"], v["bias"]], dim=-1)
+    wkey = "w_int8" if "w_int8" in q else "weight"
+    fused = {wkey: torch.cat([q[wkey], k[wkey], v[wkey]], dim=-2)}
+    for key in ("scale", "bias"):
+        if key in q:
+            fused[key] = torch.cat([q[key], k[key], v[key]], dim=-1)
     layers["qkv"] = fused
     out["layers"] = layers
     return out
@@ -84,17 +109,17 @@ def _encoder_layer(x, lp, cfg: VisionConfig, attn_impl: str):
     y = layer_norm(x, lp["ln1"]["weight"], lp["ln1"]["bias"], cfg.layer_norm_eps)
     if "qkv" in lp:
         # strided views of the fused product; the exact kernel reads them as is
-        qkv = linear(y, lp["qkv"]).reshape(b, s, 3, h, hd)
+        qkv = _linear_q(y, lp["qkv"]).reshape(b, s, 3, h, hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     else:
-        q = linear(y, lp["q"]).reshape(b, s, h, hd)
-        k = linear(y, lp["k"]).reshape(b, s, h, hd)
-        v = linear(y, lp["v"]).reshape(b, s, h, hd)
+        q = _linear_q(y, lp["q"]).reshape(b, s, h, hd)
+        k = _linear_q(y, lp["k"]).reshape(b, s, h, hd)
+        v = _linear_q(y, lp["v"]).reshape(b, s, h, hd)
     o = attention(q, k, v, causal=False, impl=attn_impl).reshape(b, s, d)
-    x = res + linear(o, lp["o"])
+    x = res + _linear_q(o, lp["o"])
     res = x
     y = layer_norm(x, lp["ln2"]["weight"], lp["ln2"]["bias"], cfg.layer_norm_eps)
-    return res + linear(quick_gelu(linear(y, lp["fc1"])), lp["fc2"])
+    return res + _linear_q(quick_gelu(_linear_q(y, lp["fc1"])), lp["fc2"])
 
 
 def vit_forward(params, cfg: VisionConfig, pixel_values: torch.Tensor,

@@ -23,7 +23,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_kernels"
 KERNELS = ("flash_attention", "exact_attention", "int4_matvec", "paged_write",
-           "paged_attention", "flash_bwd_dq", "flash_bwd_dkv")
+           "paged_attention", "flash_bwd_dq", "flash_bwd_dkv", "int8_matvec",
+           "selective_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -94,6 +95,8 @@ SIGNATURES = {
     "paged_attention": ("sm_paged_attention", [_P] * 6 + [_I] * 8 + [_F, _P]),
     "flash_bwd_dq": ("sm_flash_bwd_dq", [_P] * 8 + [_I] * 8 + [_L] * 12 + [_F, _P]),
     "flash_bwd_dkv": ("sm_flash_bwd_dkv", [_P] * 9 + [_I] * 8 + [_L] * 12 + [_F, _P]),
+    "int8_matvec": ("sm_int8_matvec", [_P] * 4 + [_I] * 4 + [_P]),
+    "selective_scan": ("sm_selective_scan", [_P] * 11 + [_I] * 6 + [_L] * 15 + [_P]),
 }
 
 

@@ -1,9 +1,12 @@
-"""Selective-scan (Mamba-1 SSM) ops in plain torch.
+"""Selective-scan (Mamba-1 SSM) ops.
 
 The per-frame step (``selective_state_update``, ``causal_conv1d_update``)
 is a handful of elementwise ops, left to XLA in the JAX package and to
-plain torch here.  ``selective_scan_ref`` and ``causal_conv1d`` serve the
-full-sequence forward that the step is held against.
+plain torch here.  The full-sequence scan has two implementations behind
+``selective_scan(impl=...)``: ``selective_scan_ref``, the plain,
+differentiable per-step loop, and ``selective_scan_kernel``, the
+hand-written CUDA forward (``csrc/selective_scan.cu``) that the burst
+catch-up runs.  ``causal_conv1d`` serves the full-sequence mixer.
 
 Recurrence (per batch b, channel d, state n):
   dt'   = softplus(dt + dt_bias)           (when delta_softplus)
@@ -20,6 +23,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from . import _build
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -65,6 +70,109 @@ def selective_scan_ref(
         y = y * F.silu(z.float())
     out = y.to(dtype_in)
     return (out, h) if return_last_state else out
+
+
+_MAX_STATE = 16  # the kernel keeps N states a channel in registers
+
+
+def selective_scan_kernel(
+    u: torch.Tensor,
+    delta: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    C: torch.Tensor,
+    D: Optional[torch.Tensor] = None,
+    z: Optional[torch.Tensor] = None,
+    delta_bias: Optional[torch.Tensor] = None,
+    delta_softplus: bool = False,
+    return_last_state: bool = False,
+    h0: Optional[torch.Tensor] = None,
+):
+    """The scan forward through the CUDA kernel (the JAX package's
+    ``selective_scan_pallas``): same arguments and results as
+    ``selective_scan_ref``, which it takes for tensors on the CPU.  It has
+    no backward, as the Pallas kernel has none: it raises if an input
+    requires grad while grad mode is on.
+
+    u, delta, z (B, D, L) and B, C (B, N, L) share one dtype (fp32 or
+    bf16) and are read through their strides as they lie (no copy);
+    A (D, N), D, delta_bias (D,) and h0 (B, D, N) are taken in fp32 (the
+    wrapper makes fp32 contiguous copies where they are not already).  y
+    comes back as a (B, D, L) view of a (B, L, D) tensor, channels
+    contiguous; the last state (B, D, N) fp32.  ``selective_scan_kernel.
+    launches`` counts the launches."""
+    args = (u, delta, A, B, C, D, z, delta_bias, h0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
+        raise RuntimeError("selective_scan(impl='pallas') has no backward; use impl='ref'")
+    if u.device.type == "cpu":
+        return selective_scan_ref(u, delta, A, B, C, D=D, z=z, delta_bias=delta_bias,
+                                  delta_softplus=delta_softplus,
+                                  return_last_state=return_last_state, h0=h0)
+    if not u.is_cuda or any(t is not None and t.device != u.device for t in args):
+        raise ValueError("selective_scan_kernel: every input must lie on one CUDA device")
+    if u.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"selective_scan_kernel: dtype {u.dtype} not supported (fp32, bf16)")
+    if any(t is not None and t.dtype != u.dtype for t in (delta, B, C, z)):
+        raise ValueError("selective_scan_kernel: u, delta, B, C and z must share one dtype")
+    if u.dim() != 3 or A.dim() != 2 or B.dim() != 3 or C.dim() != 3:
+        raise ValueError("selective_scan_kernel: u (B, D, L), A (D, N), B and C (B, N, L)")
+    bsz, dim, seqlen = u.shape
+    n = A.shape[1]
+    if (delta.shape != u.shape or (z is not None and z.shape != u.shape)
+            or A.shape[0] != dim or B.shape != (bsz, n, seqlen) or C.shape != B.shape
+            or (D is not None and D.shape != (dim,))
+            or (delta_bias is not None and delta_bias.shape != (dim,))
+            or (h0 is not None and h0.shape != (bsz, dim, n))):
+        raise ValueError("selective_scan_kernel: input shapes do not agree")
+    if not (1 <= n <= _MAX_STATE and seqlen >= 1 and 1 <= bsz <= 65535):
+        raise ValueError(f"selective_scan_kernel: N {n} (1..{_MAX_STATE}), L {seqlen} (>= 1) "
+                         f"and batch {bsz} (1..65535) are what the kernel takes")
+
+    def f32(t):
+        return None if t is None else t.float().contiguous()
+
+    A32, D32, bias32, h032 = f32(A), f32(D), f32(delta_bias), f32(h0)
+    y = torch.empty((bsz, seqlen, dim), dtype=u.dtype, device=u.device)
+    h_out = torch.empty((bsz, dim, n), dtype=torch.float32, device=u.device)
+    flags = ((z is not None) | (D is not None) << 1 | (delta_bias is not None) << 2
+             | bool(delta_softplus) << 3 | (h0 is not None) << 4)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    zs = z.stride() if z is not None else (0, 0, 0)
+    err = _build.kernel("selective_scan")(
+        u.data_ptr(), delta.data_ptr(), ptr(z), A32.data_ptr(), B.data_ptr(), C.data_ptr(),
+        ptr(D32), ptr(bias32), ptr(h032), y.data_ptr(), h_out.data_ptr(),
+        bsz, dim, seqlen, n, int(u.dtype == torch.bfloat16), flags,
+        *u.stride(), *delta.stride(), *zs, *B.stride(), *C.stride(),
+        torch.cuda.current_stream(u.device).cuda_stream,
+    )
+    _build.check(err, "selective_scan_kernel")
+    selective_scan_kernel.launches += 1
+    y = y.transpose(1, 2)
+    return (y, h_out) if return_last_state else y
+
+
+selective_scan_kernel.launches = 0
+
+
+def selective_scan(u, delta, A, B, C, D=None, z=None, delta_bias=None, delta_softplus=False,
+                   return_last_state=False, h0=None, impl: str = "auto"):
+    """Dispatching front end, with the JAX package's ``impl`` values:
+    ``"pallas"`` is the hand-written forward kernel
+    (``selective_scan_kernel``: CUDA on the card, the plain version on the
+    CPU, no backward); ``"ref"`` the plain per-step loop.  The port has no
+    associative scan, so ``"auto"`` (the JAX package's parallel-in-time,
+    differentiable default) is the plain, differentiable
+    ``selective_scan_ref`` here."""
+    kw = dict(D=D, z=z, delta_bias=delta_bias, delta_softplus=delta_softplus,
+              return_last_state=return_last_state, h0=h0)
+    if impl == "pallas":
+        return selective_scan_kernel(u, delta, A, B, C, **kw)
+    if impl in ("auto", "ref"):
+        return selective_scan_ref(u, delta, A, B, C, **kw)
+    raise ValueError(f"selective_scan: impl {impl!r} (auto, ref, pallas)")
 
 
 def selective_state_update(

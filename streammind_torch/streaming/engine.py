@@ -5,7 +5,11 @@ projector step, the gate LM on the new memory token, and a write into the
 memory ring.  When the gate fires, ``StreamSession._cognify`` builds a
 splice plan, prefills the Mistral decoder from a bucketed suffix into the
 persistent KV cache, and decodes greedily (or sampled) until EOS, a stop
-sequence or the token budget.
+sequence or the token budget.  After a stall, ``perceive_burst`` catches a
+stream up on T frames at once (one ViT batch, one chunked Mamba scan through
+the scan kernel).  The engine serves the JAX package's tiers: an int8 or int4
+gate (``quantize_gate``), the bf16-attention or int8 ViT (``fast_vision``)
+and a decoder quantized by ``utils.quantize.quantize_text_params``.
 
 Many streams: ``perceive_step_batch`` runs one frame of each of S streams
 at once, and ``prefill_batch`` / ``generate_from_prefill_batch`` one turn of
@@ -71,31 +75,45 @@ class StreamMindEngine:
         kv_capacity: Optional[int] = None,
         attn_impl: str = "auto",
         quantize_gate=False,
+        fast_vision=False,
         device="cuda",
     ):
         """params: the JAX package's tree layout, as tensors (moved to
-        ``device`` if they lie elsewhere).  quantize_gate: False or "int4"
-        (the int8 tier is not ported)."""
-        if quantize_gate not in (False, None, "int4"):
-            raise NotImplementedError(f"quantize_gate={quantize_gate!r} is not ported "
-                                      f"(False or 'int4')")
+        ``device`` if they lie elsewhere).  The serving tiers, as the JAX
+        package's: quantize_gate False/None, True or "int8" (per-channel
+        int8 gate, read by the int8 matvec kernel) or "int4" (per-channel
+        int4, the int4 kernel); fast_vision False, True (the ViT's attention
+        in bf16 where attn_impl is "auto") or "int8" (that, and the int8
+        ViT).  A text tree quantized by ``quantize_text_params`` (the
+        ``load_8bit`` / ``load_4bit`` transforms) is served as it is."""
+        if quantize_gate not in (False, None, True, "int8", "int4"):
+            raise ValueError(f"quantize_gate must be True/'int8' or 'int4', got {quantize_gate!r}")
+        if fast_vision not in (False, None, True, "int8"):
+            raise ValueError(f"fast_vision must be False, True or 'int8', got {fast_vision!r}")
+        if fast_vision and attn_impl == "auto":
+            attn_impl = "bf16"
         self.device = torch.device(device)
         params = tree_map(lambda t: t.to(self.device), params)
-        if quantize_gate == "int4" and "cls_net" in params.get("projector", {}):
+        if fast_vision == "int8" and "vision" in params:
+            from ..utils.quantize import quantize_vit_params
+
+            params["vision"] = quantize_vit_params(params["vision"])
+        if quantize_gate and "cls_net" in params.get("projector", {}):
             from ..utils.quantize import quantize_gate_params
 
             params["projector"] = dict(params["projector"])
             params["projector"]["cls_net"] = quantize_gate_params(
-                params["projector"]["cls_net"], bits=4)
+                params["projector"]["cls_net"], bits=4 if quantize_gate == "int4" else 8)
         if "vision" in params:
             params["vision"] = fuse_vit_qkv(params["vision"])
         if "text" in params:
-            # q/k/v → qkv and gate/up → gateup; quantized trees always, plain
-            # trees only under 2 GiB (a bf16 Mistral-7B stays unfused).  The
-            # gate LM (projector.cls_net) is never fused: its single-token
-            # shortcut reads only v.
+            # q/k/v → qkv and gate/up → gateup; quantized trees (any scheme)
+            # always, plain trees only under 2 GiB (a bf16 Mistral-7B stays
+            # unfused).  The gate LM (projector.cls_net) is never fused: its
+            # single-token shortcut reads only v.
             q_leaf = params["text"].get("layers", {}).get("q", {})
-            quantized = isinstance(q_leaf, dict) and "w_int4pc" in q_leaf
+            quantized = isinstance(q_leaf, dict) and bool(
+                {"w_int8", "w_int4", "w_int4pc"} & set(q_leaf))
             if quantized or param_bytes(params["text"]) < 2 << 30:
                 params["text"] = lm.fuse_text_linears(params["text"])
         self.params = params
@@ -120,6 +138,33 @@ class StreamMindEngine:
         state.memory[:, slot] = mem_tok.to(state.memory.dtype)
         new_state = StreamState(mamba=mamba_state, memory=state.memory,
                                 frame_idx=state.frame_idx + 1, last_fire=state.last_fire)
+        return gate_probs, new_state
+
+    @torch.no_grad()
+    def perceive_burst(self, pixels: torch.Tensor, state: StreamState):
+        """Catch-up after a stall: a burst of T frames (T, 3, H, W) of one
+        stream at once, equal to T perceive_steps — one ViT batch, one
+        chunked Mamba scan through the scan kernel (``mamba_project_chunk``,
+        impl="pallas"), the gate on the last memory token.  Frame j goes to
+        ring slot min(frame_idx + j, M - 1), as the steps would put it (the
+        last frame wins the clamped slot); the ring is written in place.
+        Returns (the last frame's gate_probs (2,) fp32, new_state)."""
+        p, cfg = self.params, self.cfg
+        pixels = pixels.to(self.device)
+        t = pixels.shape[0]
+        feats = vit_forward(p["vision"], cfg.vision, pixels, attn_impl=self.attn_impl)
+        mem_toks, mamba_state = proj.mamba_project_chunk(p["projector"], cfg, feats[None],
+                                                         state.mamba, impl="pallas")
+        logits = proj.gate_decision_step(p["projector"], cfg, mem_toks[:, -1])
+        gate_probs = torch.softmax(logits[0].float(), dim=-1)
+        last_slot = cfg.max_stream_frames - 1
+        n_free = max(0, min(t, last_slot - state.frame_idx))
+        mem = mem_toks.to(state.memory.dtype)
+        state.memory[:, state.frame_idx:state.frame_idx + n_free] = mem[:, :n_free]
+        if n_free < t:
+            state.memory[:, last_slot] = mem[:, -1]
+        new_state = StreamState(mamba=mamba_state, memory=state.memory,
+                                frame_idx=state.frame_idx + t, last_fire=state.last_fire)
         return gate_probs, new_state
 
     # -- cognition --------------------------------------------------------

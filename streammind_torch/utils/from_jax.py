@@ -4,7 +4,8 @@ The two packages share one tree layout, so the conversion is leaf by
 leaf: nested dicts (and the Mamba ``blocks`` list) of numpy arrays become
 the same structure of tensors.  Both the separate ``q/k/v`` and ``gate/up``
 leaves and the fused ``qkv``/``gateup`` leaves pass through unchanged, as
-do quantized ``w_int4pc``/``scale`` leaves.  This module never imports JAX:
+do quantized leaves (``w_int8``, ``w_int4``, ``w_int4pc`` and their
+scales).  This module never imports JAX:
 the caller hands in numpy arrays (``jax.tree.map(np.asarray, params)``).
 """
 from __future__ import annotations
@@ -15,8 +16,8 @@ import numpy as np
 import torch
 
 # Leaves the JAX package keeps in fp32 whatever the tree's dtype:
-# Mamba's A_log and D, and per-channel quantization scales.
-_KEEP_FP32 = frozenset({"A_log", "D", "scale"})
+# Mamba's A_log and D, and quantization scales (per channel and per group).
+_KEEP_FP32 = frozenset({"A_log", "D", "scale", "scale4"})
 
 
 def _tensor(a, device, dtype: Optional[torch.dtype], name: str) -> torch.Tensor:
@@ -37,7 +38,7 @@ def _tensor(a, device, dtype: Optional[torch.dtype], name: str) -> torch.Tensor:
 def params_from_numpy(tree, device="cuda", dtype: Optional[torch.dtype] = None,
                       _name: str = ""):
     """Numpy param tree → tensor tree on ``device``.  ``dtype`` casts the
-    floating leaves (except A_log, D and scales, which stay fp32); None
+    floating leaves (except A_log, D and the scales, which stay fp32); None
     keeps each leaf's own dtype."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype, k) for k, v in tree.items()}

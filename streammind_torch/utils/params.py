@@ -14,8 +14,9 @@ from typing import Iterator, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..ops.int4_matvec import int4_matvec
-from .quantize import dequantize_linear_weight_int4_pc
+from ..ops.int4_matvec import MAX_TOKENS, int4_matvec
+from ..ops.int8_matvec import int8_matvec
+from .quantize import dequantize_linear_weight_int4, dequantize_linear_weight_int4_pc
 
 
 def _normal(g: torch.Generator, shape, std: float, device, dtype) -> torch.Tensor:
@@ -54,15 +55,26 @@ def ones(shape, device="cuda", dtype=torch.float32) -> torch.Tensor:
 def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
     """x @ W.T + b with (out, in)-layout weights.
 
-    Also takes the gate's int4 leaves ({"w_int4pc", "scale"} from
-    utils.quantize): with at most 8 tokens on a CUDA tensor the fused
-    int4 kernel (ops/int4_matvec.py) reads the packed bytes directly;
-    everything else goes through the dequantized matmul, as the JAX
-    package does off the TPU.
+    Also takes the quantized leaves of utils.quantize.  With at most 8
+    tokens on a CUDA tensor, int8 ({"w_int8", "scale"}) and per-channel int4
+    ({"w_int4pc", "scale"}) leaves go through their fused matvec kernels
+    (ops/int8_matvec.py, ops/int4_matvec.py), which read the quantized
+    bytes directly and round once; otherwise int8 takes the JAX package's
+    formula (a product in x's dtype, then the scale in x's dtype), and int4
+    the matmul with the dequantized weight.
     """
-    if "w_int4pc" in p:
-        t = x.numel() // x.shape[-1]
-        if x.is_cuda and t <= 8:
+    t = x.numel() // x.shape[-1]
+    fused = x.is_cuda and t <= MAX_TOKENS
+    if "w_int8" in p:
+        if fused:
+            y = int8_matvec(x.reshape(t, x.shape[-1]).contiguous(), p["w_int8"], p["scale"]
+                            ).reshape(*x.shape[:-1], -1)
+        else:
+            y = (x @ p["w_int8"].T.to(x.dtype)) * p["scale"].to(x.dtype)
+    elif "w_int4" in p:
+        y = F.linear(x, dequantize_linear_weight_int4(p, x.dtype))
+    elif "w_int4pc" in p:
+        if fused:
             y = int4_matvec(
                 x.reshape(t, x.shape[-1]).contiguous(), p["w_int4pc"], p["scale"]
             ).reshape(*x.shape[:-1], -1)

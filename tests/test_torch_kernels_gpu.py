@@ -12,7 +12,9 @@ outputs 4e-3 + 1e-2·|ref| (one bf16 rounding step either way, plus about
 twice the largest error measured on an H100 at the main path's shapes, as
 in chip_smoke.py); the paged pool write is a copy and must be bitwise.  The
 training kernels get the same output limits (kernel and plain version read
-the same inputs and both accumulate in fp32); the fp32 lse 1e-4.
+the same inputs and both accumulate in fp32); the fp32 lse 1e-4.  The int8
+matvec and the selective scan take the same limits: each sums in fp32 in
+another order than its plain version, and rounds once to the output dtype.
 """
 import numpy as np
 import pytest
@@ -20,8 +22,10 @@ import torch
 
 from streammind_torch.ops import attention as A
 from streammind_torch.ops import paged_attention as PA
+from streammind_torch.ops import scan as S
 from streammind_torch.ops.int4_matvec import int4_matvec, int4_matvec_ref
-from streammind_torch.utils.quantize import quantize_linear_weight_int4_pc
+from streammind_torch.ops.int8_matvec import int8_matvec, int8_matvec_ref
+from streammind_torch.utils.quantize import quantize_linear_weight, quantize_linear_weight_int4_pc
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (4e-3, 1e-2)}
@@ -166,6 +170,81 @@ def test_int4_quantize_bytes_do_not_depend_on_the_device(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,din,dout", [
+    (1, 4096, 1024), (8, 4096, 6144), (4, 14336, 4096),   # the gate's v, fused qkv, down
+    (2, 4096, 28672),                                      # the fused gate/up
+    (3, 30, 17), (5, 200, 40), (7, 1000, 9),               # rows not a multiple of 16 bytes
+])
+def test_int8_kernel_matches_plain(dev, dtype, b, din, dout):
+    rng = np.random.default_rng(9)
+    q = quantize_linear_weight(_r(rng, (dout, din), torch.float32, 0.02))
+    x = _r(rng, (b, din), dtype)
+    n0 = int8_matvec.launches
+    out = int8_matvec(x, q["w_int8"], q["scale"])
+    torch.cuda.synchronize()
+    assert int8_matvec.launches == n0 + 1 and out.dtype == dtype and out.shape == (b, dout)
+    _close(out, int8_matvec_ref(x, q["w_int8"], q["scale"]), dtype)
+
+
+def test_int8_quantize_bytes_do_not_depend_on_the_device(dev):
+    rng = np.random.default_rng(10)
+    w = torch.tensor(rng.standard_normal((4, 512, 1024)) * 0.02, dtype=torch.float32)
+    on_cpu, on_card = quantize_linear_weight(w), quantize_linear_weight(w.to(dev))
+    assert torch.equal(on_card["w_int8"].cpu(), on_cpu["w_int8"])
+    assert torch.equal(on_card["scale"].cpu(), on_cpu["scale"])
+
+
+def _scan_case(rng, dtype, b, d, length, n, with_h0):
+    """u, dt, z as the Mamba mixer hands them over: (B, D, L) views of the
+    projections' (B, L, D) products, channels contiguous; B and C (B, N, L)
+    views of the (B, L, R + 2N) product; A, D, dt_bias fp32, as the tree
+    keeps them."""
+    xz = _r(rng, (b, length, 2 * d), dtype)
+    x_dbl = _r(rng, (b, length, 8 + 2 * n), dtype)
+    dt = _r(rng, (b, length, d), dtype, 0.5)
+    u, z = xz[..., :d].transpose(1, 2), xz[..., d:].transpose(1, 2)
+    Bm, Cm = x_dbl[..., 8:8 + n].transpose(1, 2), x_dbl[..., 8 + n:].transpose(1, 2)
+    A = -torch.exp(_r(rng, (d, n), torch.float32, 0.5))
+    h0 = _r(rng, (b, d, n), torch.float32) if with_h0 else None
+    return (u, dt.transpose(1, 2), A, Bm, Cm), dict(
+        D=_r(rng, (d,), torch.float32), z=z, delta_bias=_r(rng, (d,), torch.float32),
+        delta_softplus=True, return_last_state=True, h0=h0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d,length", [(1, 8192, 32), (2, 384, 1), (1, 200, 8), (3, 64, 64),
+                                        (1, 96, 150)])   # 150 steps: three shared-memory chunks
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_selective_scan_kernel_matches_plain(dev, dtype, b, d, length, with_h0):
+    rng = np.random.default_rng(11)
+    args, kw = _scan_case(rng, dtype, b, d, length, 16, with_h0)
+    n0 = S.selective_scan_kernel.launches
+    y, h = S.selective_scan(*args, **kw, impl="pallas")
+    torch.cuda.synchronize()
+    assert S.selective_scan_kernel.launches == n0 + 1
+    ref_y, ref_h = S.selective_scan_ref(*args, **kw)
+    assert y.dtype == dtype and y.shape == (b, d, length) and h.dtype == torch.float32
+    _close(y, ref_y, dtype)
+    torch.testing.assert_close(h, ref_h, atol=1e-4, rtol=1e-4)
+
+
+def test_selective_scan_kernel_without_z_d_or_bias(dev):
+    rng = np.random.default_rng(12)
+    args, _ = _scan_case(rng, torch.float32, 2, 100, 20, 4, False)
+    y = S.selective_scan(*args, impl="pallas")
+    torch.cuda.synchronize()
+    _close(y, S.selective_scan_ref(*args), torch.float32)
+
+
+def test_selective_scan_kernel_has_no_backward(dev):
+    rng = np.random.default_rng(13)
+    args, kw = _scan_case(rng, torch.float32, 1, 64, 4, 16, True)
+    u = args[0].detach().clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        S.selective_scan(u, *args[1:], **kw, impl="pallas")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k", [1, 4, 8])
 def test_paged_write_kernel_is_bitwise_the_plain_copy(dev, dtype, k):
     rng = np.random.default_rng(4)
@@ -224,6 +303,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="rows"):
         pk = quantize_linear_weight_int4_pc(torch.zeros(8, 16, device=dev))
         int4_matvec(torch.zeros(9, 16, device=dev), pk["w_int4pc"], pk["scale"])
+    q8 = quantize_linear_weight(torch.zeros(8, 16, device=dev))
+    with pytest.raises(ValueError, match="rows"):
+        int8_matvec(torch.zeros(9, 16, device=dev), q8["w_int8"], q8["scale"])
+    with pytest.raises(ValueError, match="do not agree"):
+        int8_matvec(torch.zeros(1, 32, device=dev), q8["w_int8"], q8["scale"])
+    with pytest.raises(ValueError, match="share one dtype"):
+        S.selective_scan(q, q.bfloat16(), torch.zeros(8, 4, device=dev), q, q, impl="pallas")
     pool = torch.zeros(2, 3, 8, 32, device=dev)
     table = torch.ones(1, 2, dtype=torch.int32, device=dev)
     length = torch.ones(1, dtype=torch.int32, device=dev)

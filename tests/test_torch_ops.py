@@ -165,7 +165,8 @@ def test_quantize_gate_params_stacked_bytes_match_jax(rng):
 
     tree = init_text_params(jax.random.PRNGKey(3), tiny_text_config(vocab_size=2))
     jq = jquant.quantize_gate_params(tree, bits=4)
-    tq = tquant.quantize_gate_params(params_from_numpy(jax.tree.map(np.asarray, tree), "cpu"))
+    tq = tquant.quantize_gate_params(params_from_numpy(jax.tree.map(np.asarray, tree), "cpu"),
+                                     bits=4)
     for name in ("q", "k", "v", "o"):
         np.testing.assert_array_equal(tq["layers"][name]["w_int4pc"].numpy(),
                                       _np(jq["layers"][name]["w_int4pc"]))

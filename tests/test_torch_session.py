@@ -132,3 +132,5 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert res.returncode == 0, res.stdout + res.stderr
     assert "streammind_torch.streaming.engine" in mods and "streammind_torch.ops._build" in mods
     assert "streammind_torch.train.run" in mods and "streammind_torch.train.trainer" in mods
+    assert "streammind_torch.ops.int8_matvec" in mods and "streammind_torch.ops.scan" in mods
+    assert "streammind_torch.utils.quantize" in mods

@@ -9,8 +9,11 @@ regions under ``torch.profiler``: six per-frame ticks
 (``StreamMindEngine.perceive_step``), one cached prefill of a turn,
 sixteen greedy decode steps over the dense cache, then the multi-stream
 server's batched turn over the paged KV pool (page 64): one prefill of
-K = 3 dialogues and sixteen lockstep decode steps; last, after a warm-up,
-one training microbatch of the adapter stage (``make_grad_step`` of the
+K = 3 dialogues and sixteen lockstep decode steps; then the fast serving
+tier (int8 decoder through the load_8bit transform, quantize_gate="int8",
+fast_vision="int8"): six ticks, sixteen int8 decode steps and one burst
+catch-up of 32 frames (``perceive_burst``); last, after a warm-up, one
+training microbatch of the adapter stage (``make_grad_step`` of the
 stage-1 loss: a 1,980-token prompt with 64 frames of pre-extracted
 features, spliced into the 2048 bucket, remat, the flash training
 kernels in every layer; forward, recompute and backward, no optimizer
@@ -35,6 +38,7 @@ import torch  # noqa: E402
 FRAMES = 6    # ticks profiled
 DECODE = 16   # decode steps profiled
 PAGED_K = 3   # dialogues in the paged lockstep decode
+BURST = 32    # frames of the profiled burst catch-up
 SEED = 0
 
 
@@ -164,8 +168,58 @@ def main() -> int:
                           decode_tokens=int(buf.shape[1]))), flush=True)
     del engine, pd, memory
     torch.cuda.empty_cache()
+    fast_tier(cfg, dev)
+    torch.cuda.empty_cache()
     train_microbatch(cfg, dev)
     return 0
+
+
+def fast_tier(cfg, dev):
+    """The fast serving tier on a fresh seeded tree: ticks, int8 decode
+    steps and one burst of BURST frames, each after a warm-up."""
+    from streammind_torch.constants import VIDEO_TOKEN_INDEX
+    from streammind_torch.models.meta import init_streammind_params
+    from streammind_torch.streaming import StreamMindEngine
+    from streammind_torch.streaming.engine import build_turn_plan, turn_suffix_ids
+    from streammind_torch.utils.quantize import quantize_text_params
+
+    from chip_smoke import StandInTokenizer, clone_state
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_streammind_params(g, cfg, device=dev, dtype=torch.bfloat16)
+    params["text"] = quantize_text_params(params["text"], bits=8, free_source=True)
+    engine = StreamMindEngine(params, cfg, quantize_gate="int8", fast_vision="int8", device=dev)
+    del params
+    size = cfg.vision.image_size
+    frames = [torch.empty((1, 3, size, size), device=dev, dtype=torch.bfloat16).normal_(
+        generator=g) for _ in range(FRAMES + 2)]
+    burst = torch.empty((BURST, 3, size, size), device=dev, dtype=torch.bfloat16).normal_(
+        generator=g)
+    state = engine.new_stream_state()
+    cache = engine.new_kv_cache()
+    tok = StandInTokenizer()
+    for f in frames[:2]:
+        _, state = engine.perceive_step(f, state)
+    span = list(range(state.frame_idx))
+    plan = build_turn_plan(engine, tok, span, turn_suffix_ids(tok, [1, 10, VIDEO_TOKEN_INDEX]))
+    last, cache = engine.prefill(plan, state.memory, cache)
+    _, cache = engine.generate_from_prefill(last, cache, max_new_tokens=4)
+    engine.perceive_burst(burst, clone_state(state))  # warm-up
+    torch.cuda.synchronize()
+
+    it = iter(frames[2:])
+
+    def tick():
+        nonlocal state
+        _, state = engine.perceive_step(next(it), state)
+
+    profiled("fast_tick", tick, reps=FRAMES)
+    eos = engine.eos_token_id
+    engine.eos_token_id = -1
+    profiled("fast_decode_step", lambda: engine.generate_from_prefill(
+        last, cache, max_new_tokens=DECODE), units=DECODE)
+    engine.eos_token_id = eos
+    profiled(f"fast_burst_{BURST}", lambda: engine.perceive_burst(burst, clone_state(state)))
 
 
 def train_microbatch(cfg, dev):
