@@ -6,15 +6,21 @@
 Phases, each of which raises (exit code != 0) on failure:
   1. the card (nvidia-smi name and power limit) and the torch build;
   2. the kernel build: every ``streammind_torch/csrc/*.cu`` with nvcc for
-     sm_90a, one process per source, all at once;
+     sm_90a, one process per source, all at once; the count of HGMMA
+     (wgmma) instructions in the SASS of the two tensor-core sources, which
+     must not be 0;
   3. each kernel against its plain PyTorch version on the card at the main
      paths' shapes, with its tolerance; times of the kernel, its plain
-     version and one PyTorch yardstick call, beside the card's bound;
+     version and one PyTorch yardstick call, beside the card's bound (the
+     bf16 flash forward, lse forward and exact attention, tensor-core
+     kernels, and their yardsticks are timed by replaying a CUDA graph of
+     the launches, the kernels eagerly too; their kernel / bound is printed);
   4. the full-width StreamMind-7B session (random bf16 weights from a seed):
      ViT-L/14-336 under attn_impl="exact", Mamba d_model 4096, the 4-layer
      gate under quantize_gate="int4", Mistral-7B; 10 frames with two forced
      gate fires and 16 new tokens a turn; the launch counts show the path ran
-     through the flash, exact and int4 kernels;
+     through the flash, exact and int4 kernels (their tensor-core
+     instantiations: 23 exact a frame, 32 flash a turn);
   5. multi-stream serving on the same engine: a BatchedSessionBroker over
      MultiStreamServer(kv_mode="paged", page_size=64) with four client
      threads for 8 ticks; three gates fire together on one tick (one
@@ -57,9 +63,11 @@ Phases, each of which raises (exit code != 0) on failure:
      the tower's features);
 then the ``kernels`` JSON line (``launches`` from the serving phase for the
 inference kernels, from the training phase for the training kernels and from
-the fast phase for int8_matvec and selective_scan) and, last, the ``ok`` JSON
-line.  It uses nothing of JAX; without a CUDA card it exits with an error
-before any result.
+the fast phase for int8_matvec and selective_scan; ``tc_launches``, ``hgmma``
+and ``ms_over_bound`` for the three tensor-core kernels) and, last, the ``ok``
+JSON line.  The fp32 parity phases must launch no tensor-core kernel.  It
+uses nothing of JAX; without a CUDA card it exits with an error before any
+result.
 """
 from __future__ import annotations
 
@@ -116,7 +124,10 @@ WRAPPERS = {
 }
 TRAIN_KERNELS = ("flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv")
 FAST_KERNELS = ("int8_matvec", "selective_scan")
-
+# the kernels with a bf16 tensor-core (wgmma) instantiation beside the fp32
+# CUDA-core one; each wrapper counts its bf16 launches again in .tc_launches,
+# read here as "<name>_tc"
+TC_KERNELS = ("flash_attention", "exact_attention", "flash_attention_lse")
 
 
 def log(tag: str, msg: str) -> None:
@@ -130,12 +141,40 @@ def wrappers():
 
 
 def reset_launches() -> None:
-    for fn in wrappers().values():
+    for n, fn in wrappers().items():
         fn.launches = 0
+        if n in TC_KERNELS:
+            fn.tc_launches = 0
 
 
 def read_launches() -> dict:
-    return {n: fn.launches for n, fn in wrappers().items()}
+    fns = wrappers()
+    return {**{n: fn.launches for n, fn in fns.items()},
+            **{f"{n}_tc": fns[n].tc_launches for n in TC_KERNELS}}
+
+
+def kernel_of(count: str) -> str:
+    """The kernel a launch count belongs to ("flash_attention_tc" -> "flash_attention")."""
+    return count[:-3] if count.endswith("_tc") else count
+
+
+def fp32_only(counts: dict, what: str) -> None:
+    """An fp32 run on the card must launch the CUDA-core instantiations only."""
+    tc = {n: counts[f"{n}_tc"] for n in TC_KERNELS}
+    log(what, f"fp32 instantiation launches {({n: counts[n] - tc[n] for n in TC_KERNELS})}, "
+              f"tensor-core {tc}")
+    if any(tc.values()):
+        raise RuntimeError(f"{what}: an fp32 run launched a tensor-core kernel: {tc}")
+
+
+def hgmma_count(name: str) -> int:
+    """HGMMA (wgmma) instructions in the SASS of kernel ``name``'s library."""
+    from streammind_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(_build._lib_path(name))], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
 
 
 def sync() -> float:
@@ -143,19 +182,37 @@ def sync() -> float:
     return time.perf_counter()
 
 
-def cuda_ms(fns, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fns, iters: int = 20, warmup: int = 3, graph: bool = False) -> float:
     """Mean ms per call over ``iters`` calls cycling through ``fns`` (several
-    buffers where one would sit in L2), timed with CUDA events."""
+    buffers where one would sit in L2), timed with CUDA events.  With
+    ``graph`` the calls are captured once into a CUDA graph and the graph is
+    replayed, so the time is the device's alone: a kernel that runs in less
+    time than its wrapper's host work is otherwise timed by the host."""
     for i in range(warmup):
         fns[i % len(fns)]()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if not graph:
+        start.record()
+        for i in range(warmup, warmup + iters):
+            fns[i % len(fns)]()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(iters):
+            fns[i % len(fns)]()
+    g.replay()
     start.record()
-    for i in range(warmup, warmup + iters):
-        fns[i % len(fns)]()
+    for _ in range(GRAPH_REPLAYS):
+        g.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / (iters * GRAPH_REPLAYS)
+
+
+GRAPH_REPLAYS = 3
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -190,59 +247,78 @@ def check_kernels(dev):
     def randn(*shape, std=1.0):
         return torch.empty(shape, device=dev, dtype=bf16).normal_(0.0, std, generator=g)
 
-    # flash: Mistral-7B prefill over a capacity-8192 cache (B 1, H 32/8, D 128).
-    # Sets of inputs: the caches are overlapping views of one buffer, each
+    # flash: Mistral-7B prefill over a capacity-8192 cache (H 32/8, D 128) at
+    # the buckets 64 and 2048 (B 1), and 32 and 512 with B 2 and a ragged,
+    # nonzero q_offset (the second row's bucket padded by a few tokens).  Sets
+    # of inputs: the caches are overlapping views of one buffer, each
     # starting past the rows the previous one reads, so nothing is read warm.
+    # Kernel and library are timed by graph replay (the bf16 kernel runs in
+    # less time than its wrapper's host work), the kernel eagerly as well.
     cases = []
-    for sq, q_off, kv_len in ((64, 100, 150), (2048, 0, 2048)):
-        visible = sum(min(kv_len, q_off + i + 1) for i in range(sq))
-        rows = min(kv_len, q_off + sq)
-        nbytes = 2 * (2 * sq * 32 * 128 + 2 * rows * 8 * 128)
-        n, step = n_sets(nbytes), 64 * math.ceil(rows / 64)
-        kbuf, vbuf = (randn(1, (n - 1) * step + 8192, 8, 128) for _ in range(2))
-        sets = [(randn(1, sq, 32, 128), kbuf[:, i * step:i * step + 8192],
+    for sq, q_offs, kv_lens in ((64, [100], [150]), (2048, [0], [2048]),
+                                (32, [100, 1517], [132, 1544]), (512, [388, 2000], [900, 2505])):
+        b = len(q_offs)
+        visible = sum(min(n, off + i + 1) for off, n in zip(q_offs, kv_lens) for i in range(sq))
+        rows = [min(n, off + sq) for off, n in zip(q_offs, kv_lens)]
+        nbytes = 2 * (2 * b * sq * 32 * 128 + 2 * sum(rows) * 8 * 128)
+        n, step = n_sets(nbytes), 64 * math.ceil(max(rows) / 64)
+        kbuf, vbuf = (randn(b, (n - 1) * step + 8192, 8, 128) for _ in range(2))
+        sets = [(randn(b, sq, 32, 128), kbuf[:, i * step:i * step + 8192],
                  vbuf[:, i * step:i * step + 8192]) for i in range(n)]
-        lens = torch.tensor([kv_len], dtype=torch.int32, device=dev)
-        offs = torch.tensor([q_off], dtype=torch.int32, device=dev)
+        lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+        offs = torch.tensor(q_offs, dtype=torch.int32, device=dev)
         q, kc, vc = sets[0]
         out = A.flash_attention(q, kc, vc, causal=True, kv_len=lens, q_offset=offs)
         ref = A.flash_attention_ref(q, kc, vc, causal=True, kv_len=lens, q_offset=offs)
         err, over = excess(out, ref, *BF16_TOL)
-        ms = cuda_ms([lambda s=s: A.flash_attention(*s, True, lens, offs) for s in sets])
+        fns = [lambda s=s: A.flash_attention(*s, True, lens, offs) for s in sets]
+        ms, eager = cuda_ms(fns, graph=True), cuda_ms(fns)
         plain = cuda_ms([lambda s=s: A.flash_attention_ref(*s, True, lens, offs) for s in sets],
                         iters=5)
-        # yardstick: SDPA on the visible keys with the same causal-offset mask
-        mask = (torch.arange(kv_len, device=dev)[None, :]
-                <= torch.arange(sq, device=dev)[:, None] + q_off)
+        # yardstick: SDPA on the keys up to the longest kv_len, with the same
+        # causal-offset and length mask
+        top = max(kv_lens)
+        kpos = torch.arange(top, device=dev)[None, None, :]
+        qpos = torch.arange(sq, device=dev)[None, :, None] + offs[:, None, None]
+        mask = ((kpos <= qpos) & (kpos < lens[:, None, None]))[:, None]
         lib_sets = [(q.transpose(1, 2),
-                     *(c[:, :kv_len].repeat_interleave(4, dim=2).transpose(1, 2).contiguous()
+                     *(c[:, :top].repeat_interleave(4, dim=2).transpose(1, 2).contiguous()
                        for c in (kc, vc))) for q, kc, vc in sets]
         lib = cuda_ms([lambda s=s: F.scaled_dot_product_attention(*s, attn_mask=mask)
-                       for s in lib_sets])
+                       for s in lib_sets], graph=True)
         del sets, lib_sets, kbuf, vbuf
         b_ms, b_by = bound(nbytes, 4.0 * 128 * 32 * visible, BF16_FLOPS)
-        cases.append(dict(shape=f"q(1,{sq},32,128) cache(1,8192,8,128) q_offset={q_off} "
-                                f"kv_len={kv_len}", max_abs_err=err, ok=over <= 0, ms=ms,
-                          plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by))
+        cases.append(dict(shape=f"q({b},{sq},32,128) cache({b},8192,8,128) q_offset={q_offs} "
+                                f"kv_len={kv_lens}", max_abs_err=err, ok=over <= 0, ms=ms,
+                          eager_ms=eager, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                          bound_by=b_by))
     results["flash_attention"] = (cases, BF16_TOL_TEXT)
 
-    # exact: the ViT-L/14-336 attention, q/k/v strided views of the fused qkv
+    # exact: the ViT-L/14-336 attention, q/k/v strided views of the fused qkv,
+    # at B 1 (a session's frame), 4 (the serving tick) and 8
     cases = []
-    for b in (1, 8):
+    for b in (1, 4, 8):
         nbytes = 4 * 2 * b * 577 * 16 * 64
         qkvs = [randn(b, 577, 3, 16, 64) for _ in range(n_sets(nbytes))]
         sets = [(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]) for qkv in qkvs]
         out = A.exact_attention(*sets[0])
         ref = A.exact_attention_ref(*sets[0])
         err, over = excess(out, ref, *BF16_TOL)
-        ms = cuda_ms([lambda s=s: A.exact_attention(*s) for s in sets])
+        fns = [lambda s=s: A.exact_attention(*s) for s in sets]
+        ms, eager = cuda_ms(fns, graph=True), cuda_ms(fns)
         plain = cuda_ms([lambda s=s: A.exact_attention_ref(*s) for s in sets])
         lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in s) for s in sets]
-        lib = cuda_ms([lambda s=s: F.scaled_dot_product_attention(*s) for s in lib_sets])
+        lib = cuda_ms([lambda s=s: F.scaled_dot_product_attention(*s) for s in lib_sets],
+                      graph=True)
+        # what the second pass costs: the one-pass flash forward (non-causal:
+        # one Q K^T and one ex2 a score, P rounded before the division) on the
+        # same inputs
+        one_pass = cuda_ms([lambda s=s: A.flash_attention(*s) for s in sets], graph=True)
         del qkvs, sets, lib_sets
         b_ms, b_by = bound(nbytes, 4.0 * b * 16 * 577 * 577 * 64, BF16_FLOPS)
         cases.append(dict(shape=f"({b},577,16,64)", max_abs_err=err, ok=over <= 0, ms=ms,
-                          plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by))
+                          eager_ms=eager, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                          bound_by=b_by, one_pass_flash_ms=one_pass))
     results["exact_attention"] = (cases, BF16_TOL_TEXT)
 
     # int4: the gate LM's five per-layer linears at one token (four shapes)
@@ -276,11 +352,19 @@ def check_kernels(dev):
     for name, (cases, tol) in results.items():
         for c in cases:
             lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f} ms"
+            eager = f" (eager {c['eager_ms']:.4f} ms)" if "eager_ms" in c else ""
             log("kernel", f"{name} {c['shape']}: max_abs_err={c['max_abs_err']:.3e} "
                           f"{'(each output: ' + str(c['errs']) + ') ' if 'errs' in c else ''}"
-                          f"within [{tol}]={c['ok']} kernel={c['ms']:.4f} ms "
+                          f"within [{tol}]={c['ok']} kernel={c['ms']:.4f} ms{eager} "
                           f"plain={c['plain_ms']:.4f} ms library={lib} "
                           f"bound={c['bound_ms']:.4f} ms ({c['bound_by']})")
+    for name in TC_KERNELS:
+        for c in results[name][0]:
+            c["ms_over_bound"] = c["ms"] / c["bound_ms"]
+            one_pass = (f"; the one-pass flash forward on the same inputs: "
+                        f"{c['one_pass_flash_ms']:.4f} ms" if "one_pass_flash_ms" in c else "")
+            log("kernel", f"{name} {c['shape']}: kernel / bound = {c['ms_over_bound']:.2f} "
+                          f"(tensor-core kernel, graph-timed){one_pass}")
     bad = [(n, c["shape"]) for n, (cs, _) in results.items() for c in cs if not c["ok"]]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: {bad}")
@@ -369,9 +453,13 @@ def check_paged_kernels(dev, randn):
 
 
 # the fp32 lse of the training forward against its plain version: about
-# twice the largest error measured on an H100 (9.5e-7 at |lse| ~ 8), as
-# the bf16 limits above were set; the bf16 dQ, dK and dV take BF16_TOL (one
-# bf16 step, 1.56e-2 at |ref| in [2, 4), is the largest error measured)
+# twice the largest error measured on an H100 with the CUDA-core kernel
+# (9.5e-7 at |lse| ~ 8), as the bf16 limits above were set.  The bf16
+# tensor-core forward scales the fp32 q.k after the product where the plain
+# version scales q first, and exponentiates with ex2: it measured 1.9e-6 on
+# an H100, still inside the limit, which stays.  The bf16 dQ, dK and dV take
+# BF16_TOL (one bf16 step, 1.56e-2 at |ref| in [2, 4), is the largest error
+# measured), fed either lse
 LSE_TOL = (2e-6, 1e-7)
 LSE_TOL_TEXT = "|err| <= 2e-6 + 1e-7*|ref| (fp32 lse)"
 
@@ -406,12 +494,16 @@ def check_train_kernels(dev, randn):
         dk, dv = A.flash_bwd_dkv(q, k, v, do, ref_lse, delta, True, lens)
         ref_dq = A.flash_bwd_dq_ref(q, k, v, do, ref_lse, delta, True, lens)
         ref_dk, ref_dv = A.flash_bwd_dkv_ref(q, k, v, do, ref_lse, delta, True, lens)
+        # the backward kernels fed the tensor-core forward's lse, as training feeds them
+        dq_fwd = A.flash_bwd_dq(q, k, v, do, lse, delta, True, lens)
+        dk_fwd, dv_fwd = A.flash_bwd_dkv(q, k, v, do, lse, delta, True, lens)
         checks = {
             "flash_attention_lse": [excess(out, ref_out, *BF16_TOL), excess(lse, ref_lse, *LSE_TOL)],
-            "flash_bwd_dq": [excess(dq, ref_dq, *BF16_TOL)],
-            "flash_bwd_dkv": [excess(dk, ref_dk, *BF16_TOL), excess(dv, ref_dv, *BF16_TOL)],
+            "flash_bwd_dq": [excess(dq, ref_dq, *BF16_TOL), excess(dq_fwd, ref_dq, *BF16_TOL)],
+            "flash_bwd_dkv": [excess(dk, ref_dk, *BF16_TOL), excess(dv, ref_dv, *BF16_TOL),
+                              excess(dk_fwd, ref_dk, *BF16_TOL), excess(dv_fwd, ref_dv, *BF16_TOL)],
         }
-        del out, lse, dq, dk, dv, ref_out, ref_dq, ref_dk, ref_dv
+        del out, lse, dq, dk, dv, ref_out, ref_dq, ref_dk, ref_dv, dq_fwd, dk_fwd, dv_fwd
         fns = {
             "flash_attention_lse": (lambda z: A.flash_attention_lse(z[0], z[1], z[2], True, lens),
                                     lambda z: A.flash_attention_ref(z[0], z[1], z[2], True, lens,
@@ -435,6 +527,7 @@ def check_train_kernels(dev, randn):
 
         with torch.no_grad():
             lib_fwd = cuda_ms([lambda z=z: sdpa(z) for z in lib_sets])
+            lib_fwd_graph = cuda_ms([lambda z=z: sdpa(z) for z in lib_sets], graph=True)
         lib_both = cuda_ms([lambda z=z: torch.autograd.grad(sdpa(z), z[:3], z[3])
                             for z in lib_sets])
         # bytes: each input read once, each output written once
@@ -443,7 +536,9 @@ def check_train_kernels(dev, randn):
                 "flash_bwd_dkv": (qb * 2 + kvb * 4 + 2 * rowb, 8.0 * d * pairs)}
         for name in TRAIN_KERNELS:
             kern, plain = fns[name]
-            ms = cuda_ms([lambda z=z: kern(z) for z in sets])
+            # the tensor-core forward and its yardstick by graph replay (see check_kernels)
+            tc = name in TC_KERNELS
+            ms = cuda_ms([lambda z=z: kern(z) for z in sets], graph=tc)
             plain_ms = cuda_ms([lambda z=z: plain(z) for z in sets], iters=3, warmup=1)
             b_ms, b_by = bound(*work[name], BF16_FLOPS)
             errs = checks[name]
@@ -451,14 +546,18 @@ def check_train_kernels(dev, randn):
                 shape=shape, max_abs_err=max(e for e, _ in errs), ok=all(o <= 0 for _, o in errs),
                 errs=[e for e, _ in errs],
                 ms=ms, plain_ms=plain_ms,
-                library_ms=lib_fwd if name == "flash_attention_lse" else lib_both - lib_fwd,
+                library_ms=lib_fwd_graph if tc else lib_both - lib_fwd,
                 bound_ms=b_ms, bound_by=b_by))
+            if tc:
+                rows[name][-1]["eager_ms"] = cuda_ms([lambda z=z: kern(z) for z in sets])
         del sets, lib_sets
         torch.cuda.empty_cache()
     return {"flash_attention_lse": (rows["flash_attention_lse"],
                                     f"out {BF16_TOL_TEXT}; lse {LSE_TOL_TEXT}"),
-            "flash_bwd_dq": (rows["flash_bwd_dq"], BF16_TOL_TEXT),
-            "flash_bwd_dkv": (rows["flash_bwd_dkv"], f"dK and dV {BF16_TOL_TEXT}")}
+            "flash_bwd_dq": (rows["flash_bwd_dq"], f"{BF16_TOL_TEXT}, fed the plain lse and "
+                                                   f"the kernel's"),
+            "flash_bwd_dkv": (rows["flash_bwd_dkv"], f"dK and dV {BF16_TOL_TEXT}, fed the plain "
+                                                     f"lse and the kernel's")}
 
 
 # int8 against its plain version: fp32 sums in another order, then one
@@ -721,11 +820,14 @@ def full_width_session(engine, g, dev):
     expect = {"exact_attention": n_vit * n_frames, "int4_matvec": 5 * cfg.gate.num_layers * n_frames,
               "flash_attention": cfg.text.num_layers * turns, "paged_write": 0,
               "paged_attention": 0, **{n: 0 for n in TRAIN_KERNELS + FAST_KERNELS}}
+    expect.update({f"{n}_tc": expect[n] for n in TC_KERNELS})  # bf16: every launch
     probs = torch.stack(engine.probs)
     n_tok = sum(len(t) for t in engine.decoded)
     decode_ms_tok = sum(engine.decode_ms) / max(n_tok, 1)
     log("session", f"frames={n_frames} turns={turns} tokens={[len(t) for t in engine.decoded]} "
                    f"launches={counts} expected={expect}")
+    log("session", f"tensor-core launches: exact {counts['exact_attention_tc'] / n_frames:g} a "
+                   f"frame, flash {counts['flash_attention_tc'] / max(turns, 1):g} a turn")
     log("session", f"median tick (silent frames after the first) = "
                    f"{statistics.median(ticks[1:]):.3f} ms; ticks ms = "
                    f"{[round(t, 3) for t in ticks]}")
@@ -817,12 +919,15 @@ def serving_phase(engine, g, dev):
               "int4_matvec": 5 * cfg.gate.num_layers * SERVE_TICKS,
               "flash_attention": L * len(pd.decodes), "paged_write": L * steps,
               "paged_attention": L * steps, **{n: 0 for n in TRAIN_KERNELS + FAST_KERNELS}}
+    expect.update({f"{n}_tc": expect[n] for n in TC_KERNELS})
     ticks = srv.tick_log
     log("serve", f"ticks={broker.ticks} frames={broker.frames_seen} fired per tick="
                  f"{[t['fired'] for t in ticks]}")
     log("serve", f"lockstep turns (K, steps, ms) = "
                  f"{[(d['k'], d['steps'], round(d['ms'], 3)) for d in pd.decodes]}; "
                  f"launches={counts} expected={expect}")
+    log("serve", f"tensor-core launches: exact {counts['exact_attention_tc'] / SERVE_TICKS:g} a "
+                 f"tick, flash {counts['flash_attention_tc'] / len(pd.decodes):g} a batched prefill")
     silent = [t["ms"] for t in ticks[1:] if not t["fired"]]
     fire_ticks = [t for t in ticks if t["fired"]]
     per_step = {d["k"]: d["ms"] / max(d["steps"], 1) for d in pd.decodes}
@@ -849,7 +954,7 @@ def serving_phase(engine, g, dev):
         raise RuntimeError(f"expected {SERVE_TICKS} ticks with one K=3 and one K=1 turn, got "
                            f"{broker.ticks} ticks and turns {pd.decodes}")
     if counts != expect or not all(counts[n] for n in counts
-                                   if n not in TRAIN_KERNELS + FAST_KERNELS):
+                                   if kernel_of(n) not in TRAIN_KERNELS + FAST_KERNELS):
         raise RuntimeError(f"launch counts {counts} differ from the path's {expect}")
     probs = torch.cat(engine.probs[-SERVE_TICKS:])
     if not (torch.isfinite(probs).all() and (probs.sum(-1) - 1).abs().max() < 1e-5):
@@ -892,10 +997,16 @@ def parity(dev):
         t0 = time.perf_counter()
         eng = Engine(params, cfg, attn_impl="exact", quantize_gate="int4", kv_capacity=1024,
                      device=where)
+        reset_launches()
         session, _, _ = run_session(eng, [f.to(where) for f in frames], fire, max_new=8)
+        counts = read_launches()
         out[run] = dict(probs=torch.stack(eng.probs), memory=session.state.memory[0, :4].cpu(),
                         logits=torch.cat(eng.prefill_logits), tokens=eng.decoded)
         log("parity", f"{run}: {time.perf_counter() - t0:.1f} s, tokens {eng.decoded}")
+        if where != "cpu":
+            fp32_only(counts, "parity")
+            if not (counts["exact_attention"] and counts["flash_attention"]):
+                raise RuntimeError(f"the card's session missed the exact or flash kernel: {counts}")
         del eng, session
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -960,6 +1071,8 @@ def multistream_parity(cfg, params, dev, probs_tol):
         if where != "cpu" and kv_mode == "paged" and not (
                 counts["paged_attention"] and counts["paged_write"]):
             raise RuntimeError(f"the paged run on the card missed the paged kernels: {counts}")
+        if where != "cpu":
+            fp32_only(counts, "parity")
         del eng, srv
     ref = out["paged_cpu"]
     errs = {run: float((ref["probs"] - out[run]["probs"]).abs().max())
@@ -1073,6 +1186,7 @@ def fast_phase(dev):
     per_decode = 4 * cfg.text.num_layers
     expect = {n: 0 for n in counts}
     expect.update(flash_attention=cfg.text.num_layers * turns,
+                  flash_attention_tc=cfg.text.num_layers * turns,
                   int8_matvec=gate_per_tick * n_frames + per_decode * dc.n)
     n_tok = sum(len(t) for t in engine.decoded)
     decode_ms_tok = sum(engine.decode_ms) / max(n_tok, 1)
@@ -1181,6 +1295,7 @@ def fast_parity(dev):
                 "burst_ssm": float((steps.mamba.ssm.cpu() - out[run]["burst_ssm"]).abs().max())}
             if not (counts["int8_matvec"] and counts["selective_scan"] == cfg.mamba.n_layers):
                 raise RuntimeError(f"the card's run missed the fast tier's kernels: {counts}")
+            fp32_only(counts, "fast-parity")
         log("fast-parity", f"{run}: {time.perf_counter() - t0:.1f} s, tokens {eng.decoded}, "
                            f"launches {counts}")
         del eng, session, state, bs, fs
@@ -1335,7 +1450,8 @@ def training_phase(dev):
     per_micro = {n: c / micro for n, c in counts.items()}
     expect = {n: 0 for n in counts}
     expect.update(flash_attention_lse=2 * cfg.text.num_layers, flash_bwd_dq=cfg.text.num_layers,
-                  flash_bwd_dkv=cfg.text.num_layers)
+                  flash_bwd_dkv=cfg.text.num_layers,
+                  flash_attention_lse_tc=2 * cfg.text.num_layers)
     tokens = 2 * (TRAIN_ANSWER + 1)
     log("train", f"adapter stage, 2048 bucket, remat, B 1 x accumulation 2: losses {losses}; "
                  f"grad norms {[r['train/grad_norm'] for r in recs]}")
@@ -1452,6 +1568,8 @@ def training_parity(dev):
                                       counts[n] == 3 * cfg.text.num_layers
                                       for n in TRAIN_KERNELS):
             raise RuntimeError(f"the card's run missed the training kernels: {counts}")
+        if where != "cpu":
+            fp32_only(counts, "train-parity")
         del p, state, grads, batch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1515,6 +1633,11 @@ def main() -> int:
     for name, info in logs.items():
         ptx = [l.strip() for l in info["log"].splitlines() if "Used" in l or "spill" in l]
         log("build", f"{name}: {info['seconds']:.1f} s; " + " | ".join(ptx))
+    hgmma = {name: hgmma_count(name) for name in ("flash_attention", "exact_attention")}
+    for name, n in hgmma.items():
+        log("build", f"{name}: {n} HGMMA instructions in its SASS (cuobjdump --dump-sass)")
+    if not all(hgmma.values()):
+        raise RuntimeError(f"a tensor-core kernel holds no HGMMA instruction: {hgmma}")
 
     kernels = check_kernels(dev)
     engine, g = build_engine(dev)
@@ -1546,6 +1669,14 @@ def main() -> int:
             bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"], tolerance=tol,
             cases=cases))
+        if name in TC_KERNELS:
+            entries[-1].update(
+                tc_launches=main_path["launches"][f"{name}_tc"],
+                tc_launches_by_path={p: r["launches"][f"{name}_tc"] for p, r in (
+                    ("session", session), ("serving", serving), ("fast", fast),
+                    ("train", training))},
+                hgmma=hgmma[src.split("/")[-1][:-3]], ms_over_bound=head["ms_over_bound"],
+                timing="CUDA graph replay (device time); eager_ms in cases")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled on
 its own with ``nvcc`` for ``sm_90a`` into a shared library, loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds).  Libraries go
-into ``streammind_torch/_kernels/``, named by a hash of their source and
-flags, at first use; ``build_all`` starts one ``nvcc`` per source, all at once.
+into ``streammind_torch/_kernels/``, named by a hash of their source, the
+``csrc`` headers it includes and the flags, at first use; ``build_all``
+starts one ``nvcc`` per source, all at once.
 Nothing here runs when the module is imported.
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,10 +48,27 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _sources(name: str, csrc: Path = CSRC) -> list:
+    """``csrc/<name>.cu`` and every header beside it that it includes, directly
+    or through another header."""
+    todo, seen = [csrc / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path not in seen:
+            seen.append(path)
+            todo += [path.parent / inc for inc in _INCLUDE.findall(path.read_text())
+                     if (path.parent / inc).exists()]
+    return seen
+
+
+def _lib_path(name: str, csrc: Path = CSRC) -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name, csrc):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str, out: Path) -> subprocess.Popen:

@@ -24,7 +24,10 @@
 
 Each kernel wrapper takes its plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.  ``<wrapper>.launches``
-counts the kernel's launches.
+counts the kernel's launches.  The flash forward and exact attention have
+two instantiations, chosen by dtype: bf16 runs the tensor-core (wgmma)
+kernel, counted again in ``<wrapper>.tc_launches``; fp32 (the CPU-vs-card
+parity runs) the CUDA-core one.
 """
 from __future__ import annotations
 
@@ -36,10 +39,11 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-_EXACT_MAX_KEYS = 4096     # the logits rows of a query tile live in shared memory
+_EXACT_MAX_KEYS = 4096     # the fp32 kernel keeps a query tile's logits rows in shared memory
 _EXACT_MAX_QUERIES = 4096  # as the TPU kernel, which holds all query rows resident
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+_TC_ROWS = 128  # (query, head) rows of a bf16 flash block: a GQA group must divide it
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -124,8 +128,25 @@ def _check_cuda_qkv(name: str, q, k, v, max_keys: Optional[int] = None):
 
 
 def _strides(t: torch.Tensor):
-    """Element strides of the (batch, seq, head) dims."""
-    return list(t.stride()[:3])
+    """Element strides of the (batch, seq, head) dims; 0 for a dim of size 1,
+    which is only ever read at index 0."""
+    return [st if n > 1 else 0 for n, st in zip(t.shape[:3], t.stride()[:3])]
+
+
+def _check_tc(name: str, q, k, v, group: int = 1):
+    """What the bf16 tensor-core kernels take beyond ``_check_cuda_qkv``:
+    they load rows 16 bytes at a time, so q, k and v must be 16-byte aligned
+    with (batch, seq, head) strides that are multiples of 8 elements (the
+    ViT's slices of its fused qkv are); the flash kernel packs the ``group``
+    query heads of a kv head into its 128-row block."""
+    for t, n in ((q, "q"), (k, "k"), (v, "v")):
+        if t.data_ptr() % 16 or any(st % 8 for st in _strides(t)):
+            raise ValueError(f"{name}: bf16 {n} must be 16-byte aligned with strides that "
+                             f"are multiples of 8 elements, got strides {tuple(t.stride())}; "
+                             f"pass a contiguous copy")
+    if _TC_ROWS % group:
+        raise ValueError(f"{name}: {group} query heads a kv head do not divide the bf16 "
+                         f"kernel's {_TC_ROWS} rows")
 
 
 # ---------------------------------------------------------------------------
@@ -187,10 +208,14 @@ def flash_attention_ref(
 
 
 def _flash_forward(name, q, k, v, causal, kv_len, q_offset, softmax_scale, with_lse):
-    """Launch ``csrc/flash_attention.cu``: (out, lse or None)."""
+    """Launch ``csrc/flash_attention.cu``, its tensor-core instantiation for
+    bf16 and its CUDA-core one for fp32: (out, lse or None)."""
     _check_cuda_qkv(name, q, k, v)
     b, sq, h, d = q.shape
     _, sk, hkv, _ = k.shape
+    is_bf16 = q.dtype == torch.bfloat16
+    if is_bf16:
+        _check_tc(name, q, k, v, group=h // hkv)
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     lens = _rows(kv_len, b, sk, q.device)
     offs = _rows(q_offset, b, 0, q.device)
@@ -200,7 +225,7 @@ def _flash_forward(name, q, k, v, causal, kv_len, q_offset, softmax_scale, with_
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
         lens.data_ptr(), offs.data_ptr(), b, sq, sk, h, hkv, d, int(causal),
-        int(q.dtype == torch.bfloat16), *_strides(q), *_strides(k), *_strides(v),
+        int(is_bf16), *_strides(q), *_strides(k), *_strides(v),
         scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, name)
@@ -236,10 +261,12 @@ def flash_attention(
     out, _ = _flash_forward("flash_attention", q, k, v, causal, kv_len, q_offset,
                             softmax_scale, with_lse=False)
     flash_attention.launches += 1
+    flash_attention.tc_launches += q.dtype == torch.bfloat16
     return out
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0
 
 
 def flash_attention_lse(q, k, v, causal: bool = False, kv_len=None, q_offset=0,
@@ -255,10 +282,12 @@ def flash_attention_lse(q, k, v, causal: bool = False, kv_len=None, q_offset=0,
     out_lse = _flash_forward("flash_attention_lse", q, k, v, causal, kv_len, q_offset,
                              softmax_scale, with_lse=True)
     flash_attention_lse.launches += 1
+    flash_attention_lse.tc_launches += q.dtype == torch.bfloat16
     return out_lse
 
 
 flash_attention_lse.launches = 0
+flash_attention_lse.tc_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -496,21 +525,26 @@ def exact_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         raise ValueError(f"exact_attention: no kernel for device {q.device}")
     _check_cuda_qkv("exact_attention", q, k, v)
+    is_bf16 = q.dtype == torch.bfloat16
+    if is_bf16:
+        _check_tc("exact_attention", q, k, v)
     hkv = k.shape[2]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     err = _build.kernel("exact_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, sk, h, hkv, d, int(q.dtype == torch.bfloat16),
+        b, sq, sk, h, hkv, d, int(is_bf16),
         *_strides(q), *_strides(k), *_strides(v),
         scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "exact_attention")
     exact_attention.launches += 1
+    exact_attention.tc_launches += is_bf16
     return out
 
 
 exact_attention.launches = 0
+exact_attention.tc_launches = 0
 
 
 def attention(

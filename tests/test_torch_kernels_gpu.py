@@ -15,6 +15,9 @@ training kernels get the same output limits (kernel and plain version read
 the same inputs and both accumulate in fp32); the fp32 lse 1e-4.  The int8
 matvec and the selective scan take the same limits: each sums in fp32 in
 another order than its plain version, and rounds once to the output dtype.
+The flash forward and exact attention run bf16 on their tensor-core
+instantiation and fp32 on the CUDA-core one; ``.tc_launches`` counts the
+former.
 """
 import numpy as np
 import pytest
@@ -54,6 +57,9 @@ def _close(out, ref, dtype):
         (1, 70, 300, 8, 2, 128, [250], [180]),
         (2, 33, 128, 4, 4, 64, [100, 0], [67, 0]),   # kv_len 0 gives zeros
         (1, 64, 8192, 32, 8, 128, [164], [100]),      # the 7B prefill over its cache
+        (1, 1, 577, 8, 1, 128, [577], [576]),         # one query, GQA 8 (16 queries a block)
+        (3, 37, 64, 8, 2, 128, [64, 37, 1], [27, 0, 63]),  # a q_offset per row
+        (2, 130, 8192, 16, 16, 64, [130, 97], [0, 0]),     # GQA 1, diagonal tiles
     ],
 )
 def test_flash_kernel_matches_plain(dev, dtype, b, sq, sk, h, hkv, d, kv_len, q_off):
@@ -62,10 +68,11 @@ def test_flash_kernel_matches_plain(dev, dtype, b, sq, sk, h, hkv, d, kv_len, q_
     k, v = _r(rng, (b, sk, hkv, d), dtype), _r(rng, (b, sk, hkv, d), dtype)
     lens = torch.tensor(kv_len, dtype=torch.int32, device=dev)
     offs = torch.tensor(q_off, dtype=torch.int32, device=dev)
-    n0 = A.flash_attention.launches
+    n0, tc0 = A.flash_attention.launches, A.flash_attention.tc_launches
     out = A.flash_attention(q, k, v, causal=True, kv_len=lens, q_offset=offs)
     torch.cuda.synchronize()
     assert A.flash_attention.launches == n0 + 1
+    assert A.flash_attention.tc_launches == tc0 + (dtype == torch.bfloat16)
     _close(out, A.flash_attention_ref(q, k, v, causal=True, kv_len=lens, q_offset=offs), dtype)
     if 0 in kv_len:
         assert float(out[kv_len.index(0)].abs().max()) == 0.0
@@ -88,6 +95,7 @@ def test_flash_lse_and_backward_kernels_match_plain(dev, dtype, b, s, h, hkv, d,
     q, do = _r(rng, (b, s, h, d), dtype), _r(rng, (b, s, h, d), dtype)
     k, v = _r(rng, (b, s, hkv, d), dtype), _r(rng, (b, s, hkv, d), dtype)
     lens = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    tc0 = A.flash_attention_lse.tc_launches
     n0 = (A.flash_attention_lse.launches, A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches)
     out, lse = A.flash_attention(q, k, v, causal=causal, kv_len=lens, return_lse=True)
     ref_out, ref_lse = A.flash_attention_ref(q, k, v, causal=causal, kv_len=lens,
@@ -98,13 +106,21 @@ def test_flash_lse_and_backward_kernels_match_plain(dev, dtype, b, s, h, hkv, d,
     torch.cuda.synchronize()
     assert (A.flash_attention_lse.launches, A.flash_bwd_dq.launches,
             A.flash_bwd_dkv.launches) == tuple(n + 1 for n in n0)
+    assert A.flash_attention_lse.tc_launches == tc0 + (dtype == torch.bfloat16)
     _close(out, ref_out, dtype)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
     assert torch.isfinite(lse).all()
+    # dQ and dK/dV fed the kernel's own lse stay within the same limits
+    dq_k = A.flash_bwd_dq(q, k, v, do, lse, delta, causal, lens)
+    dk_k, dv_k = A.flash_bwd_dkv(q, k, v, do, lse, delta, causal, lens)
+    for got, ref in ((dq_k, dq), (dk_k, dk), (dv_k, dv)):
+        _close(got, ref, dtype)
     ref_dq = A.flash_bwd_dq_ref(q, k, v, do, ref_lse, delta, causal, lens)
     ref_dk, ref_dv = A.flash_bwd_dkv_ref(q, k, v, do, ref_lse, delta, causal, lens)
     assert dq.dtype == q.dtype and dk.shape == k.shape and dv.dtype == v.dtype
     for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        _close(got, ref, dtype)
+    for got, ref in ((dq_k, ref_dq), (dk_k, ref_dk), (dv_k, ref_dv)):
         _close(got, ref, dtype)
     if 0 in kv_len:
         i = kv_len.index(0)
@@ -134,7 +150,9 @@ def test_flash_mha_gradients_on_the_card_match_autograd_of_the_reference(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,hkv,d", [(2, 577, 16, 16, 64), (1, 37, 4, 2, 128),
-                                         (1, 3000, 2, 2, 64)])  # > 2048 keys: 8-row tiles
+                                         (1, 3000, 2, 2, 64),   # > 2048 keys: 8-row fp32 tiles
+                                         (1, 4096, 2, 2, 128), (4, 577, 16, 16, 64),
+                                         (1, 1, 8, 1, 64)])
 def test_exact_kernel_matches_plain(dev, dtype, b, s, h, hkv, d):
     rng = np.random.default_rng(1)
     if h == hkv:  # the ViT's layout: strided views of one fused qkv
@@ -142,9 +160,60 @@ def test_exact_kernel_matches_plain(dev, dtype, b, s, h, hkv, d):
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     else:
         q, k, v = (_r(rng, (b, s, n, d), dtype) for n in (h, hkv, hkv))
+    n0, tc0 = A.exact_attention.launches, A.exact_attention.tc_launches
     out = A.exact_attention(q, k, v)
     torch.cuda.synchronize()
+    assert A.exact_attention.launches == n0 + 1
+    assert A.exact_attention.tc_launches == tc0 + (dtype == torch.bfloat16)
     _close(out, A.exact_attention_ref(q, k, v), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_at_the_grid_limit(dev, dtype):
+    """B*H near the 65535 the wrappers allow: the first and last batch rows
+    (the largest block indices) against the plain versions."""
+    rng = np.random.default_rng(14)
+    b, h, hkv, d = 2047, 32, 8, 64                          # B*H = 65504
+    q = _r(rng, (b, 3, h, d), dtype)
+    k, v = _r(rng, (b, 70, hkv, d), dtype), _r(rng, (b, 70, hkv, d), dtype)
+    lens = torch.tensor(rng.integers(3, 71, b), dtype=torch.int32, device=dev)
+    offs = lens - 3
+    out = A.flash_attention(q, k, v, causal=True, kv_len=lens, q_offset=offs)
+    qkv = _r(rng, (4095, 5, 3, 16, 64), dtype)              # B*H = 65520
+    ex = A.exact_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+    torch.cuda.synchronize()
+    for rows in (slice(0, 3), slice(b - 3, b)):
+        _close(out[rows], A.flash_attention_ref(q[rows], k[rows], v[rows], causal=True,
+                                                kv_len=lens[rows], q_offset=offs[rows]), dtype)
+    for rows in (slice(0, 3), slice(4092, 4095)):
+        x = qkv[rows]
+        _close(ex[rows], A.exact_attention_ref(x[:, :, 0], x[:, :, 1], x[:, :, 2]), dtype)
+
+
+def test_bf16_wrappers_refuse_what_the_tensor_core_kernels_do_not_take(dev):
+    """bf16 rows are loaded 16 bytes at a time: a view whose head stride is
+    not a multiple of 8 elements is refused (no silent copy), as is a GQA
+    group that does not divide the flash kernel's 128 rows; fp32 takes both
+    on the CUDA-core instantiation."""
+    base = torch.zeros(1, 9, 4, 66, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = base.to(dtype)[..., :64]                        # head stride 66
+        n0 = (A.flash_attention.tc_launches, A.exact_attention.tc_launches)
+        if dtype == torch.bfloat16:
+            with pytest.raises(ValueError, match="16-byte"):
+                A.flash_attention(x, x, x, causal=True)
+            with pytest.raises(ValueError, match="16-byte"):
+                A.exact_attention(x, x, x)
+            with pytest.raises(ValueError, match="divide"):
+                A.flash_attention(torch.zeros(1, 9, 3, 64, device=dev, dtype=dtype),
+                                  x[:, :, :1], x[:, :, :1], causal=True)
+        else:
+            A.flash_attention(x, x, x, causal=True)
+            A.exact_attention(x, x, x)
+            A.flash_attention(torch.zeros(1, 9, 3, 64, device=dev), x[:, :, :1], x[:, :, :1],
+                              causal=True)
+        torch.cuda.synchronize()
+        assert (A.flash_attention.tc_launches, A.exact_attention.tc_launches) == n0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
