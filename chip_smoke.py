@@ -6,15 +6,18 @@
 Phases, each of which raises (exit code != 0) on failure:
   1. the card (nvidia-smi name and power limit) and the torch build;
   2. the kernel build: every ``streammind_torch/csrc/*.cu`` with nvcc for
-     sm_90a, one process per source, all at once; the count of HGMMA
-     (wgmma) instructions in the SASS of the two tensor-core sources, which
-     must not be 0;
+     sm_90a, one process per source, all at once; ptxas registers and
+     spills; the count of HGMMA (wgmma) instructions in the SASS of the four
+     tensor-core sources (flash, exact, dQ, dK/dV), none of which may be 0;
   3. each kernel against its plain PyTorch version on the card at the main
      paths' shapes, with its tolerance; times of the kernel, its plain
      version and one PyTorch yardstick call, beside the card's bound (the
-     bf16 flash forward, lse forward and exact attention, tensor-core
-     kernels, and their yardsticks are timed by replaying a CUDA graph of
-     the launches, the kernels eagerly too; their kernel / bound is printed);
+     bf16 flash forward, lse forward, dQ, dK/dV and exact attention,
+     tensor-core kernels, and their yardsticks are timed by replaying a CUDA
+     graph of the launches, the kernels eagerly too; their kernel / bound
+     is printed, and dQ + dK/dV beside SDPA's backward); the GQA group of
+     7 (Qwen2-7B's 28 / 4 heads) runs the flash forward at bucket 64 over
+     the ring and the three training kernels at 2048;
   4. the full-width StreamMind-7B session (random bf16 weights from a seed):
      ViT-L/14-336 under attn_impl="exact", Mamba d_model 4096, the 4-layer
      gate under quantize_gate="int4", Mistral-7B; 10 frames with two forced
@@ -40,7 +43,8 @@ Phases, each of which raises (exit code != 0) on failure:
      1,900-1,980-token prompts with one <video> slot and a 129-token
      supervised answer, so every microbatch splices into the 2048 bucket);
      step time, supervised tokens/s, losses, peak memory and launches per
-     microbatch (64 lse forwards, 32 dQ, 32 dK/dV); frozen leaves bitwise
+     microbatch (64 lse forwards, 32 dQ, 32 dK/dV, all of them on the
+     tensor-core instantiations); frozen leaves bitwise
      unchanged, trainable leaves moved, the adapter checkpoint read back
      bitwise; then 2 steps of the ``cls`` stage resumed from it;
   8. training parity in fp32 (TF32 off) at the published widths, depth cut
@@ -64,7 +68,7 @@ Phases, each of which raises (exit code != 0) on failure:
 then the ``kernels`` JSON line (``launches`` from the serving phase for the
 inference kernels, from the training phase for the training kernels and from
 the fast phase for int8_matvec and selective_scan; ``tc_launches``, ``hgmma``
-and ``ms_over_bound`` for the three tensor-core kernels) and, last, the ``ok``
+and ``ms_over_bound`` for the five tensor-core kernels) and, last, the ``ok``
 JSON line.  The fp32 parity phases must launch no tensor-core kernel.  It
 uses nothing of JAX; without a CUDA card it exits with an error before any
 result.
@@ -127,7 +131,10 @@ FAST_KERNELS = ("int8_matvec", "selective_scan")
 # the kernels with a bf16 tensor-core (wgmma) instantiation beside the fp32
 # CUDA-core one; each wrapper counts its bf16 launches again in .tc_launches,
 # read here as "<name>_tc"
-TC_KERNELS = ("flash_attention", "exact_attention", "flash_attention_lse")
+TC_KERNELS = ("flash_attention", "exact_attention", "flash_attention_lse", "flash_bwd_dq",
+              "flash_bwd_dkv")
+# the libraries that hold them, each of which must hold HGMMA instructions
+TC_LIBRARIES = ("flash_attention", "exact_attention", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def log(tag: str, msg: str) -> None:
@@ -249,21 +256,24 @@ def check_kernels(dev):
 
     # flash: Mistral-7B prefill over a capacity-8192 cache (H 32/8, D 128) at
     # the buckets 64 and 2048 (B 1), and 32 and 512 with B 2 and a ragged,
-    # nonzero q_offset (the second row's bucket padded by a few tokens).  Sets
+    # nonzero q_offset (the second row's bucket padded by a few tokens); then
+    # bucket 64 with a GQA group of 7 (Qwen2-7B's 28 / 4 heads).  Sets
     # of inputs: the caches are overlapping views of one buffer, each
     # starting past the rows the previous one reads, so nothing is read warm.
     # Kernel and library are timed by graph replay (the bf16 kernel runs in
     # less time than its wrapper's host work), the kernel eagerly as well.
     cases = []
-    for sq, q_offs, kv_lens in ((64, [100], [150]), (2048, [0], [2048]),
-                                (32, [100, 1517], [132, 1544]), (512, [388, 2000], [900, 2505])):
+    for sq, q_offs, kv_lens, h, hkv in ((64, [100], [150], 32, 8), (2048, [0], [2048], 32, 8),
+                                        (32, [100, 1517], [132, 1544], 32, 8),
+                                        (512, [388, 2000], [900, 2505], 32, 8),
+                                        (64, [100], [150], 28, 4)):
         b = len(q_offs)
         visible = sum(min(n, off + i + 1) for off, n in zip(q_offs, kv_lens) for i in range(sq))
         rows = [min(n, off + sq) for off, n in zip(q_offs, kv_lens)]
-        nbytes = 2 * (2 * b * sq * 32 * 128 + 2 * sum(rows) * 8 * 128)
+        nbytes = 2 * (2 * b * sq * h * 128 + 2 * sum(rows) * hkv * 128)
         n, step = n_sets(nbytes), 64 * math.ceil(max(rows) / 64)
-        kbuf, vbuf = (randn(b, (n - 1) * step + 8192, 8, 128) for _ in range(2))
-        sets = [(randn(b, sq, 32, 128), kbuf[:, i * step:i * step + 8192],
+        kbuf, vbuf = (randn(b, (n - 1) * step + 8192, hkv, 128) for _ in range(2))
+        sets = [(randn(b, sq, h, 128), kbuf[:, i * step:i * step + 8192],
                  vbuf[:, i * step:i * step + 8192]) for i in range(n)]
         lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
         offs = torch.tensor(q_offs, dtype=torch.int32, device=dev)
@@ -282,13 +292,13 @@ def check_kernels(dev):
         qpos = torch.arange(sq, device=dev)[None, :, None] + offs[:, None, None]
         mask = ((kpos <= qpos) & (kpos < lens[:, None, None]))[:, None]
         lib_sets = [(q.transpose(1, 2),
-                     *(c[:, :top].repeat_interleave(4, dim=2).transpose(1, 2).contiguous()
+                     *(c[:, :top].repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
                        for c in (kc, vc))) for q, kc, vc in sets]
         lib = cuda_ms([lambda s=s: F.scaled_dot_product_attention(*s, attn_mask=mask)
                        for s in lib_sets], graph=True)
         del sets, lib_sets, kbuf, vbuf
-        b_ms, b_by = bound(nbytes, 4.0 * 128 * 32 * visible, BF16_FLOPS)
-        cases.append(dict(shape=f"q({b},{sq},32,128) cache({b},8192,8,128) q_offset={q_offs} "
+        b_ms, b_by = bound(nbytes, 4.0 * 128 * h * visible, BF16_FLOPS)
+        cases.append(dict(shape=f"q({b},{sq},{h},128) cache({b},8192,{hkv},128) q_offset={q_offs} "
                                 f"kv_len={kv_lens}", max_abs_err=err, ok=over <= 0, ms=ms,
                           eager_ms=eager, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                           bound_by=b_by))
@@ -457,26 +467,37 @@ def check_paged_kernels(dev, randn):
 # (9.5e-7 at |lse| ~ 8), as the bf16 limits above were set.  The bf16
 # tensor-core forward scales the fp32 q.k after the product where the plain
 # version scales q first, and exponentiates with ex2: it measured 1.9e-6 on
-# an H100, still inside the limit, which stays.  The bf16 dQ, dK and dV take
-# BF16_TOL (one bf16 step, 1.56e-2 at |ref| in [2, 4), is the largest error
-# measured), fed either lse
+# an H100, still inside the limit, which stays.
 LSE_TOL = (2e-6, 1e-7)
 LSE_TOL_TEXT = "|err| <= 2e-6 + 1e-7*|ref| (fp32 lse)"
+# the bf16 dQ, dK and dV (fed either lse) against their plain versions.  The
+# tensor-core kernels round each dS and P term to bf16 before its product
+# (the plain versions keep them fp32), so an output moves by about 2**-9 of
+# the root-mean-square of its terms, whatever its own size.  Their CPU
+# emulation (tests/test_torch_attention_tc.py, run as a script) needs, beside
+# rtol 1e-2, an atol of up to 1.54e-2 at the shapes timed below (dV at the
+# group-7 shape; 1.01e-2 at the 32/8 one); the limit is twice that
+# (BF16_TOL's 4e-3 holds the emulation nowhere at these shapes).
+BWD_TOL = (3e-2, 1e-2)
+BWD_TOL_TEXT = "|err| <= 3e-2 + 1e-2*|ref| (bf16 output; bf16 dS and P terms)"
 
 
 def check_train_kernels(dev, randn):
     """The training kernels at the adapter stage's shape: Mistral-7B
     attention (32 q / 8 kv heads, D 128) over the 2048 bucket, causal;
-    a ragged batch (B 2, kv_len 2048 and 1531) and one D 64 case.  The lse
-    forward, dQ and dK/dV each against its plain version on the same
-    inputs; SDPA (causal, enable_gqa) is the yardstick: its forward, and its
-    forward+backward less the forward (which computes dQ, dK and dV at once)."""
+    a ragged batch (B 2, kv_len 2048 and 1531), one D 64 case and a GQA
+    group of 7 (28 / 4 heads).  The lse forward, dQ and dK/dV each against
+    its plain version on the same inputs; SDPA (causal, enable_gqa) is the
+    yardstick: its forward, and its forward+backward less the forward (which
+    computes dQ, dK and dV at once).  Kernels and yardsticks are timed by
+    graph replay, the kernels eagerly too."""
     from streammind_torch.ops import attention as A
 
     rows = {n: [] for n in TRAIN_KERNELS}
     for b, s, h, hkv, d, kv_len in ((1, 2048, 32, 8, 128, [2048]),
                                     (2, 2048, 32, 8, 128, [2048, 1531]),
-                                    (1, 2048, 32, 8, 64, [2048])):
+                                    (1, 2048, 32, 8, 64, [2048]),
+                                    (1, 2048, 28, 4, 128, [2048])):
         shape = f"q({b},{s},{h},{d}) kv({b},{s},{hkv},{d}) causal kv_len={kv_len}"
         lens = torch.tensor(kv_len, dtype=torch.int32, device=dev)
         pairs = h * sum(sum(min(i + 1, n) for i in range(s)) for n in kv_len)
@@ -499,9 +520,9 @@ def check_train_kernels(dev, randn):
         dk_fwd, dv_fwd = A.flash_bwd_dkv(q, k, v, do, lse, delta, True, lens)
         checks = {
             "flash_attention_lse": [excess(out, ref_out, *BF16_TOL), excess(lse, ref_lse, *LSE_TOL)],
-            "flash_bwd_dq": [excess(dq, ref_dq, *BF16_TOL), excess(dq_fwd, ref_dq, *BF16_TOL)],
-            "flash_bwd_dkv": [excess(dk, ref_dk, *BF16_TOL), excess(dv, ref_dv, *BF16_TOL),
-                              excess(dk_fwd, ref_dk, *BF16_TOL), excess(dv_fwd, ref_dv, *BF16_TOL)],
+            "flash_bwd_dq": [excess(dq, ref_dq, *BWD_TOL), excess(dq_fwd, ref_dq, *BWD_TOL)],
+            "flash_bwd_dkv": [excess(dk, ref_dk, *BWD_TOL), excess(dv, ref_dv, *BWD_TOL),
+                              excess(dk_fwd, ref_dk, *BWD_TOL), excess(dv_fwd, ref_dv, *BWD_TOL)],
         }
         del out, lse, dq, dk, dv, ref_out, ref_dq, ref_dk, ref_dv, dq_fwd, dk_fwd, dv_fwd
         fns = {
@@ -528,35 +549,38 @@ def check_train_kernels(dev, randn):
         with torch.no_grad():
             lib_fwd = cuda_ms([lambda z=z: sdpa(z) for z in lib_sets])
             lib_fwd_graph = cuda_ms([lambda z=z: sdpa(z) for z in lib_sets], graph=True)
-        lib_both = cuda_ms([lambda z=z: torch.autograd.grad(sdpa(z), z[:3], z[3])
-                            for z in lib_sets])
+        both = [lambda z=z: torch.autograd.grad(sdpa(z), z[:3], z[3]) for z in lib_sets]
+        lib_bwd_eager = cuda_ms(both) - lib_fwd
+        lib_bwd = cuda_ms(both, graph=True) - lib_fwd_graph
         # bytes: each input read once, each output written once
         work = {"flash_attention_lse": (2 * qb + 2 * kvb + rowb, 4.0 * d * pairs),
                 "flash_bwd_dq": (qb * 3 + kvb * 2 + 2 * rowb, 6.0 * d * pairs),
                 "flash_bwd_dkv": (qb * 2 + kvb * 4 + 2 * rowb, 8.0 * d * pairs)}
         for name in TRAIN_KERNELS:
             kern, plain = fns[name]
-            # the tensor-core forward and its yardstick by graph replay (see check_kernels)
-            tc = name in TC_KERNELS
-            ms = cuda_ms([lambda z=z: kern(z) for z in sets], graph=tc)
+            # tensor-core kernels and their yardsticks by graph replay (see check_kernels)
+            ms = cuda_ms([lambda z=z: kern(z) for z in sets], graph=True)
             plain_ms = cuda_ms([lambda z=z: plain(z) for z in sets], iters=3, warmup=1)
             b_ms, b_by = bound(*work[name], BF16_FLOPS)
             errs = checks[name]
+            fwd = name == "flash_attention_lse"
             rows[name].append(dict(
                 shape=shape, max_abs_err=max(e for e, _ in errs), ok=all(o <= 0 for _, o in errs),
-                errs=[e for e, _ in errs],
-                ms=ms, plain_ms=plain_ms,
-                library_ms=lib_fwd_graph if tc else lib_both - lib_fwd,
-                bound_ms=b_ms, bound_by=b_by))
-            if tc:
-                rows[name][-1]["eager_ms"] = cuda_ms([lambda z=z: kern(z) for z in sets])
+                errs=[e for e, _ in errs], ms=ms, plain_ms=plain_ms,
+                eager_ms=cuda_ms([lambda z=z: kern(z) for z in sets]),
+                library_ms=lib_fwd_graph if fwd else lib_bwd, bound_ms=b_ms, bound_by=b_by))
+        dq_row, dkv_row = rows["flash_bwd_dq"][-1], rows["flash_bwd_dkv"][-1]
+        log("kernel", f"backward {shape}: dQ + dK/dV = {dq_row['ms'] + dkv_row['ms']:.4f} ms "
+                      f"(graph replay; eager {dq_row['eager_ms'] + dkv_row['eager_ms']:.4f} ms) "
+                      f"beside SDPA's backward {lib_bwd:.4f} ms (graph replay; eager "
+                      f"{lib_bwd_eager:.4f} ms); bound {dq_row['bound_ms'] + dkv_row['bound_ms']:.4f} ms")
         del sets, lib_sets
         torch.cuda.empty_cache()
     return {"flash_attention_lse": (rows["flash_attention_lse"],
                                     f"out {BF16_TOL_TEXT}; lse {LSE_TOL_TEXT}"),
-            "flash_bwd_dq": (rows["flash_bwd_dq"], f"{BF16_TOL_TEXT}, fed the plain lse and "
+            "flash_bwd_dq": (rows["flash_bwd_dq"], f"{BWD_TOL_TEXT}, fed the plain lse and "
                                                    f"the kernel's"),
-            "flash_bwd_dkv": (rows["flash_bwd_dkv"], f"dK and dV {BF16_TOL_TEXT}, fed the plain "
+            "flash_bwd_dkv": (rows["flash_bwd_dkv"], f"dK and dV {BWD_TOL_TEXT}, fed the plain "
                                                      f"lse and the kernel's")}
 
 
@@ -1450,8 +1474,8 @@ def training_phase(dev):
     per_micro = {n: c / micro for n, c in counts.items()}
     expect = {n: 0 for n in counts}
     expect.update(flash_attention_lse=2 * cfg.text.num_layers, flash_bwd_dq=cfg.text.num_layers,
-                  flash_bwd_dkv=cfg.text.num_layers,
-                  flash_attention_lse_tc=2 * cfg.text.num_layers)
+                  flash_bwd_dkv=cfg.text.num_layers)
+    expect.update({f"{n}_tc": expect[n] for n in TRAIN_KERNELS})  # bf16: every launch
     tokens = 2 * (TRAIN_ANSWER + 1)
     log("train", f"adapter stage, 2048 bucket, remat, B 1 x accumulation 2: losses {losses}; "
                  f"grad norms {[r['train/grad_norm'] for r in recs]}")
@@ -1633,7 +1657,7 @@ def main() -> int:
     for name, info in logs.items():
         ptx = [l.strip() for l in info["log"].splitlines() if "Used" in l or "spill" in l]
         log("build", f"{name}: {info['seconds']:.1f} s; " + " | ".join(ptx))
-    hgmma = {name: hgmma_count(name) for name in ("flash_attention", "exact_attention")}
+    hgmma = {name: hgmma_count(name) for name in TC_LIBRARIES}
     for name, n in hgmma.items():
         log("build", f"{name}: {n} HGMMA instructions in its SASS (cuobjdump --dump-sass)")
     if not all(hgmma.values()):

@@ -391,7 +391,7 @@ extern "C" int sm_exact_attention(const void* q, const void* k, const void* v, v
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (!hopper::aligned16(q, k, v, o, st)) return (int)cudaErrorInvalidValue;
+    if (!hopper::aligned16({q, k, v, o}, st, 9)) return (int)cudaErrorInvalidValue;
     if (D == 64) return tc::launch<64>(q, k, v, o, B, Sq, Sk, H, Hkv, st, scale, s);
     if (D == 128) return tc::launch<128>(q, k, v, o, B, Sq, Sk, H, Hkv, st, scale, s);
   } else {

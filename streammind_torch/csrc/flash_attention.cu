@@ -24,9 +24,11 @@
 // operation-bound; at the small prefill buckets it is bound by reading the
 // visible K/V rows.  Design: a block is two warpgroups, 128 rows; a row is
 // one (query, head) pair, and the H / Hkv query heads of one kv group are
-// packed into the rows (query-major), so a block covers 128 / (H / Hkv)
+// packed into the rows (query-major), so a block covers floor(128 / group)
 // queries of all heads of its group and each K/V tile is loaded once for
-// the whole group.  Q is loaded once; K and V tiles of 64 keys go through a
+// the whole group; any group of 1 to 128 heads fits, the rows past the
+// last whole group (2 of 128 for Qwen2-7B's group of 7) load zeros and
+// are not stored.  Q is loaded once; K and V tiles of 64 keys go through a
 // two-stage ring in shared memory, loaded a tile ahead with 16-byte cp.async
 // by all 256 threads into the 128-byte swizzle of hopper_attention.cuh
 // (cp.async rather than TMA: any 16-byte-aligned strides load as they are,
@@ -253,7 +255,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
 
   const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32, warp = (tid % 128) / 32;
-  const int G = H / Hkv, QB = kRows / G;  // heads packed per query, queries a block
+  const int G = H / Hkv, QB = kRows / G, RU = QB * G;  // heads a query, queries a block, rows in use
   const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
   const int q0 = (n_qt - 1 - blockIdx.y) * QB;  // the heaviest causal tiles first
   const int L = min(kv_len[b], Sk);
@@ -266,13 +268,13 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q_last = min(q0 + QB, Sq) - 1;
   const int lim = causal ? min(q_last + off + 1, L) : L;
   const int n_t = lim > 0 ? (lim + kBN - 1) / kBN : 0;
-  const int wg_q0 = q0 + wg * 64 / G, wg_q1 = min(q0 + (wg * 64 + 63) / G, Sq - 1);
-  const int wg_lim = wg_q0 >= Sq ? 0 : causal ? min(wg_q1 + off + 1, L) : L;
+  const int wg_q0 = q0 + wg * 64 / G, wg_q1 = min(q0 + min(wg * 64 + 63, RU - 1) / G, Sq - 1);
+  const int wg_lim = (wg * 64 >= RU || wg_q0 >= Sq) ? 0 : causal ? min(wg_q1 + off + 1, L) : L;
 
   constexpr int CH = D / 8;  // 16-byte chunks a row
   for (int e = tid; e < kRows * CH; e += kThreads) {
     const int r = e / CH, c = e % CH, qi = q0 + r / G;
-    const bool ok = qi < Sq;
+    const bool ok = r < RU && qi < Sq;
     cp_async_16(base + Lay::kQ + tile_offset(r, c, kRows),
                 ok ? qb + qi * qss + (r % G) * qsh + c * 8 : q, ok);
   }
@@ -382,7 +384,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = half ? r1 : r0, qi = q0 + r / G, h = hk * G + r % G;
-    if (qi >= Sq) continue;
+    if (r >= RU || qi >= Sq) continue;
     const float den = half ? den1 : den0;
     const long long row = ((long long)b * Sq + qi) * H + h;
     bf16* orow = o + row * D;
@@ -423,7 +425,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, cons
 // (batch, seq, head) and a contiguous head dim; kv_len and q_offset (B,)
 // int32 on the device; o (B, Sq, H, D) contiguous in q's dtype; lse null
 // or (B, Sq, H) fp32 contiguous.  D in {64, 128}; B*H <= 65535.  kv_len is
-// clamped to Sk.  bf16 (tensor cores) also needs 128 % (H / Hkv) == 0,
+// clamped to Sk.  bf16 (tensor cores) also needs H / Hkv <= 128,
 // 16-byte-aligned q, k, v, o and strides that are multiples of 8 elements.
 extern "C" int sm_flash_attention(const void* q, const void* k, const void* v, void* o,
                                   void* lse, const void* kv_len, const void* q_offset,
@@ -439,7 +441,7 @@ extern "C" int sm_flash_attention(const void* q, const void* k, const void* v, v
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (tc::kRows % (H / Hkv) || !hopper::aligned16(q, k, v, o, st)) return (int)cudaErrorInvalidValue;
+    if (H / Hkv > tc::kRows || !hopper::aligned16({q, k, v, o}, st, 9)) return (int)cudaErrorInvalidValue;
     if (D == 64)
       return tc::launch<64>(q, k, v, o, lse, kv_len, q_offset, B, Sq, Sk, H, Hkv, causal, st, scale, s);
     if (D == 128)

@@ -1,5 +1,6 @@
 // Hopper building blocks of the tensor-core attention kernels
-// (flash_attention.cu, exact_attention.cu): 16-byte cp.async loads into
+// (flash_attention.cu, exact_attention.cu, flash_bwd_dq.cu,
+// flash_bwd_dkv.cu): 16-byte cp.async loads into
 // 128-byte-swizzled shared-memory tiles, wgmma descriptors over those tiles,
 // the three warpgroup products the kernels run, and quad reductions over
 // the accumulator's rows.
@@ -15,6 +16,9 @@
 //  * MN-major (B = V of O = P V): a panel's rows are K (keys) and its 64
 //    columns are N (head dim); SBO = 1024 bytes (8 keys), LBO = the panel
 //    stride; the k-th 16-key step starts 16 * 128 bytes further on.
+//    The backward kernels read K (dQ = dS K), Q and dO (dK = dS^T Q,
+//    dV = P^T dO) the same way, from the tiles that served them as
+//    K-major operands of S and dP.
 // Panels start on 1024-byte boundaries (the swizzle repeats every 8 rows).
 //
 // Accumulator layout of m64nNk16 (fp32): thread t of the warpgroup holds
@@ -27,19 +31,19 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 namespace hopper {
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// what the 16-byte loads need: q, k, v and o 16-byte aligned, and every
-// (batch, seq, head) stride st[0..8] a multiple of 8 elements
-inline bool aligned16(const void* q, const void* k, const void* v, const void* o,
-                      const long long* st) {
-  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) & 15)
-    return false;
-  for (int i = 0; i < 9; ++i)
+// what the 16-byte loads need: every pointer 16-byte aligned, and every
+// (batch, seq, head) stride st[0..n_st) a multiple of 8 elements
+inline bool aligned16(std::initializer_list<const void*> ptrs, const long long* st, int n_st) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) & 15) return false;
+  for (int i = 0; i < n_st; ++i)
     if (st[i] % 8) return false;
   return true;
 }
@@ -61,6 +65,11 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
+// 4 bytes global -> shared, asynchronous; zero-filled when !valid
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
@@ -74,6 +83,11 @@ __device__ __forceinline__ void fence_async_shared() {
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo_bytes, uint32_t sbo_bytes) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// barrier of one warpgroup's 128 threads (named barrier 1 + wg; 0 is __syncthreads)
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }

@@ -24,10 +24,11 @@
 
 Each kernel wrapper takes its plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.  ``<wrapper>.launches``
-counts the kernel's launches.  The flash forward and exact attention have
-two instantiations, chosen by dtype: bf16 runs the tensor-core (wgmma)
-kernel, counted again in ``<wrapper>.tc_launches``; fp32 (the CPU-vs-card
-parity runs) the CUDA-core one.
+counts the kernel's launches.  The flash forward, its backward (dQ and
+dK/dV) and exact attention have two instantiations, chosen by dtype: bf16
+runs the tensor-core (wgmma) kernel, counted again in
+``<wrapper>.tc_launches``; fp32 (the CPU-vs-card parity runs) the
+CUDA-core one.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ _EXACT_MAX_KEYS = 4096     # the fp32 kernel keeps a query tile's logits rows in
 _EXACT_MAX_QUERIES = 4096  # as the TPU kernel, which holds all query rows resident
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-_TC_ROWS = 128  # (query, head) rows of a bf16 flash block: a GQA group must divide it
+_TC_ROWS = 128  # (query, head) rows of a bf16 flash or dQ block: a GQA group must fit
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -133,19 +134,21 @@ def _strides(t: torch.Tensor):
     return [st if n > 1 else 0 for n, st in zip(t.shape[:3], t.stride()[:3])]
 
 
-def _check_tc(name: str, q, k, v, group: int = 1):
+def _check_tc(name: str, q, k, v, group: int = 1, do=None):
     """What the bf16 tensor-core kernels take beyond ``_check_cuda_qkv``:
-    they load rows 16 bytes at a time, so q, k and v must be 16-byte aligned
-    with (batch, seq, head) strides that are multiples of 8 elements (the
-    ViT's slices of its fused qkv are); the flash kernel packs the ``group``
-    query heads of a kv head into its 128-row block."""
-    for t, n in ((q, "q"), (k, "k"), (v, "v")):
+    they load rows 16 bytes at a time, so q, k, v (and the backward's dO)
+    must be 16-byte aligned with (batch, seq, head) strides that are
+    multiples of 8 elements (the ViT's slices of its fused qkv are); the
+    flash and dQ kernels pack the ``group`` query heads of a kv head into
+    their 128-row block, floor(128 / group) whole groups of them."""
+    named = ((q, "q"), (k, "k"), (v, "v")) + (() if do is None else ((do, "dO"),))
+    for t, n in named:
         if t.data_ptr() % 16 or any(st % 8 for st in _strides(t)):
             raise ValueError(f"{name}: bf16 {n} must be 16-byte aligned with strides that "
                              f"are multiples of 8 elements, got strides {tuple(t.stride())}; "
                              f"pass a contiguous copy")
-    if _TC_ROWS % group:
-        raise ValueError(f"{name}: {group} query heads a kv head do not divide the bf16 "
+    if group > _TC_ROWS:
+        raise ValueError(f"{name}: {group} query heads a kv head do not fit the bf16 "
                          f"kernel's {_TC_ROWS} rows")
 
 
@@ -401,21 +404,26 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True, kv_len=None,
     _check_cuda_bwd("flash_bwd_dq", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
     _, sk, hkv, _ = k.shape
+    is_bf16 = q.dtype == torch.bfloat16
+    if is_bf16:
+        _check_tc("flash_bwd_dq", q, k, v, group=h // hkv, do=do)
     scale = 1.0 / math.sqrt(d)
     lens = _rows(kv_len, b, sk, q.device)
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     err = _build.kernel("flash_bwd_dq")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), lens.data_ptr(), b, sq, sk, h, hkv, d, int(causal),
-        int(q.dtype == torch.bfloat16), *_strides(q), *_strides(k), *_strides(v),
+        int(is_bf16), *_strides(q), *_strides(k), *_strides(v),
         *_strides(do), scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.tc_launches += is_bf16
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.tc_launches = 0
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True, kv_len=None,
@@ -429,6 +437,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True, kv_len=None,
     _check_cuda_bwd("flash_bwd_dkv", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
     _, sk, hkv, _ = k.shape
+    is_bf16 = q.dtype == torch.bfloat16
+    if is_bf16:
+        _check_tc("flash_bwd_dkv", q, k, v, do=do)
     scale = 1.0 / math.sqrt(d)
     lens = _rows(kv_len, b, sk, q.device)
     dk = torch.empty((b, sk, hkv, d), dtype=k.dtype, device=q.device)
@@ -436,15 +447,17 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True, kv_len=None,
     err = _build.kernel("flash_bwd_dkv")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), lens.data_ptr(), b, sq, sk, h, hkv, d,
-        int(causal), int(q.dtype == torch.bfloat16), *_strides(q), *_strides(k),
+        int(causal), int(is_bf16), *_strides(q), *_strides(k),
         *_strides(v), *_strides(do), scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.tc_launches += is_bf16
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.tc_launches = 0
 
 
 class _FlashMHA(torch.autograd.Function):

@@ -35,6 +35,7 @@ from ..models import projector as proj
 from ..models.mamba import MambaState
 from ..models.meta import SplicePlan, bucket_length, build_splice_plan, splice_embeds
 from ..models.vit import fuse_vit_qkv, vit_forward
+from ..utils.from_jax import array_to_tensor
 from ..utils.params import param_bytes, tree_leaves, tree_map
 from .logit_filters import (
     sample_first_token,
@@ -661,8 +662,8 @@ class StreamSession:
                 sample_type=str(blob.get("sample_type", "all")),
                 sample_per=float(blob.get("sample_per", 0.5)))
 
-        def dev(a, like):
-            return torch.as_tensor(np.asarray(a)).to(device=like.device, dtype=like.dtype)
+        def dev(a, like):  # a blob exported by either package: bf16 arrays are ml_dtypes'
+            return array_to_tensor(a).to(device=like.device, dtype=like.dtype)
 
         s.state = StreamState(
             mamba=MambaState(conv=dev(blob["mamba_conv"], s.state.mamba.conv),

@@ -20,16 +20,20 @@ import torch
 _KEEP_FP32 = frozenset({"A_log", "D", "scale", "scale4"})
 
 
-def _tensor(a, device, dtype: Optional[torch.dtype], name: str) -> torch.Tensor:
+def array_to_tensor(a) -> torch.Tensor:
+    """A numpy array (or anything ``np.asarray`` takes) as a CPU tensor of the
+    same dtype, ``ml_dtypes.bfloat16`` included."""
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:  # torch.from_numpy shares memory, which must be writable
         a = a.copy()
     if a.dtype.name == "bfloat16":
         # ml_dtypes bfloat16: reinterpret the bits, torch has no numpy bf16
-        t = torch.from_numpy(a.view(np.int16))
-        t = t.view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(a)
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _tensor(a, device, dtype: Optional[torch.dtype], name: str) -> torch.Tensor:
+    t = array_to_tensor(a)
     if dtype is not None and t.is_floating_point() and name not in _KEEP_FP32:
         t = t.to(dtype)
     return t.to(device)

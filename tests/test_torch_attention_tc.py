@@ -1,13 +1,15 @@
 """The arithmetic of the bf16 tensor-core attention kernels, on the CPU.
 
-``csrc/flash_attention.cu`` and ``csrc/exact_attention.cu`` run bf16 inputs
-on Hopper's tensor cores, with other rounding points than their plain
+``csrc/flash_attention.cu``, ``csrc/exact_attention.cu``,
+``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` run bf16 inputs on
+Hopper's tensor cores, with other rounding points than their plain
 versions (which keep the TPU kernels' arithmetic).  The CUDA kernels cannot
 run here, so this file holds a test-local emulation of those rounding
 points against the port's plain versions (``flash_attention_ref``,
-``exact_attention_ref``), the JAX package's Pallas kernels in interpret mode
-and its ``mha_reference`` (on the same values in fp32), on bf16 inputs made
-by numpy from a seed.
+``exact_attention_ref``, ``flash_bwd_dq_ref``, ``flash_bwd_dkv_ref``), the
+JAX package's Pallas kernels in interpret mode (the backward through
+``jax.vjp`` of ``flash_mha``) and its ``mha_reference`` (on the same values
+in fp32), on bf16 inputs made by numpy from a seed.
 The card holds the kernels against the plain versions
 (``tests/test_torch_kernels_gpu.py``, ``chip_smoke.py``).
 
@@ -20,6 +22,12 @@ Rounding points emulated:
   * exact: the same S; pass 1 the row max and an fp32 sum with an online
     rescale over 64-key tiles; pass 2 p = exp(s - m) / l, rounded to bf16
     AFTER the division, then an fp32 P V rounded once.
+  * backward (dQ and dK/dV): the same S, the scale after the product;
+    P = 2^(s·scale·log2e − lse·log2e), 0 where unseen; dP = dO Vᵀ in fp32;
+    dS = P (dP − delta) in fp32, rounded to bf16 before dQ = dS K and
+    dK = dSᵀ q; P rounded to bf16 before dV = Pᵀ dO; fp32 sums (dK and dV
+    over the GQA group too); dQ and dK times the scale at the end, then
+    each rounded once.
 
 Tolerances, with the margin each leaves under the card's limits
 (``chip_smoke.py``: bf16 outputs |err| <= 4e-3 + 1e-2 |ref|):
@@ -33,12 +41,24 @@ Tolerances, with the margin each leaves under the card's limits
     1.4e-6 at |lse| ~4); the card's limit is set in chip_smoke.py;
   * exact against its plain version: the same max and, up to the sum's
     order, the same l, so a prob can only flip by one bf16 step:
-    |err| <= 1e-3 + 2e-3 |ref|.
+    |err| <= 1e-3 + 2e-3 |ref|;
+  * dQ, dK and dV against the plain versions and the JAX package (which
+    agree exactly here): |err| <= 1.5e-2 + 8e-3 |ref|.  The final bf16
+    rounding takes up to 7.8e-3 |ref|; the bf16 rounding of each dS and P
+    term (2**-9 relative, random in sign) moves a sum of n terms by about
+    2**-9 of their root-mean-square, not of the sum, so an output near 0
+    beside large terms takes an absolute error: measured here, 9.1e-3 at
+    most beside 8e-3 |ref| (dV, GQA 7); the limit is half the card's
+    3e-2 + 1e-2 |ref|.  Run as a script (``PYTHONPATH=. python
+    tests/test_torch_attention_tc.py``), this file measures the emulation
+    against the plain versions at the card's timed training shapes, which
+    is where chip_smoke.py's limit for the two kernels comes from.
 """
 import importlib
 import math
 import shutil
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -50,6 +70,7 @@ from streammind_torch.ops import attention as tattn
 jattn = importlib.import_module("streammind_tpu.ops.attention")
 
 OUT_TOL = (2e-3, 8e-3)
+BWD_TOL = (1.5e-2, 8e-3)
 LSE_TOL = (2e-6, 2e-7)
 EXACT_TOL = (1e-3, 2e-3)
 TILE = 64
@@ -144,6 +165,8 @@ FLASH_CASES = [
     (1, 64, 300, 16, 2, 64, [250], [186], True),           # GQA 8, the prefill over a cache
     (1, 577, 577, 4, 1, 64, [577], [0], True),             # training-like, 577 tokens
     (2, 64, 100, 8, 2, 64, [100, 33], [0, 0], False),      # non-causal, right-padded
+    (1, 70, 150, 7, 1, 64, [150], [80], True),             # GQA 7 (H 7 / Hkv 1)
+    (2, 37, 100, 14, 2, 128, [100, 37], [63, 0], True),    # GQA 7 (H 14 / Hkv 2)
 ]
 
 
@@ -194,10 +217,80 @@ def test_exact_tc_arithmetic_matches_plain_and_jax(rng, b, s, h, hkv, d, fused):
     _assert_within(out, jattn.mha_reference(*_f32_jnp(jq, jk, jv)), OUT_TOL)
 
 
+def bwd_tc_emulation(q, k, v, do, lse, delta, causal, kv_len):
+    """The bf16 tensor-core dQ and dK/dV kernels' rounding points:
+    (dq, dk, dv) bf16, dk and dv summed over each GQA group.  Head by head,
+    so the timed shapes fit in a few hundred MB."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    log2e = 1.0 / math.log(2.0)
+    dq = torch.zeros(b, h, sq, d)
+    dk = torch.zeros(b, hkv, sk, d)
+    dv = torch.zeros(b, hkv, sk, d)
+    kpos, qpos = torch.arange(sk)[None, :], torch.arange(sq)[:, None]
+    for bi in range(b):
+        L = min(int(kv_len[bi]), sk)
+        vis = (kpos < L) & ((kpos <= qpos) if causal else True)
+        for hh in range(h):
+            qf, dof = q[bi, :, hh].float(), do[bi, :, hh].float()
+            kf, vf = k[bi, :, hh // g].float(), v[bi, :, hh // g].float()
+            s = qf @ kf.T                                              # fp32 sums, then the scale
+            p = torch.exp2(s * (scale * log2e) - lse[bi, :, hh, None].float() * log2e)
+            p = torch.where(vis, p, 0.0)
+            ds = (p * (dof @ vf.T - delta[bi, :, hh, None].float())).bfloat16().float()
+            dq[bi, hh] = (ds @ kf) * scale
+            dk[bi, hh // g] += ds.T @ qf
+            dv[bi, hh // g] += p.bfloat16().float().T @ dof
+    return (dq.transpose(1, 2).bfloat16(), (dk * scale).transpose(1, 2).bfloat16(),
+            dv.transpose(1, 2).bfloat16())
+
+
+def _bwd_case(rng, b, sq, h, hkv, d, kv_len, causal):
+    """bf16 q, k, v, dO (torch and jnp), and the plain forward's lse and
+    delta = rowsum(dO · O), as the training backward receives them."""
+    (q, jq), (k, jk), (v, jv), (do, jdo) = (_bf16(rng, s) for s in (
+        (b, sq, h, d), (b, sq, hkv, d), (b, sq, hkv, d), (b, sq, h, d)))
+    lens = torch.tensor(kv_len, dtype=torch.int32)
+    out, lse = tattn.flash_attention_ref(q, k, v, causal, lens, return_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    return (q, k, v, do, lse, delta, lens), (jq, jk, jv, jdo)
+
+
+BWD_CASES = [
+    # b, s, h, hkv, d, kv_len, causal
+    (2, 130, 8, 2, 128, [130, 0], True),     # GQA 4, Sq not a multiple of 64, a kv_len-0 row
+    (1, 97, 7, 1, 64, [97], True),           # GQA 7 (H 7 / Hkv 1)
+    (2, 70, 14, 2, 128, [70, 41], True),     # GQA 7 (H 14 / Hkv 2), ragged
+    (2, 64, 4, 4, 64, [64, 33], False),      # GQA 1, non-causal, right-padded
+    (1, 150, 14, 2, 64, [150], False),       # GQA 7, non-causal
+]
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d,kv_len,causal", BWD_CASES)
+def test_flash_bwd_tc_arithmetic_matches_plain_and_jax(rng, b, s, h, hkv, d, kv_len, causal):
+    args, (jq, jk, jv, jdo) = _bwd_case(rng, b, s, h, hkv, d, kv_len, causal)
+    got = bwd_tc_emulation(*args[:6], causal, args[-1])
+    ref_dq = tattn.flash_bwd_dq_ref(*args[:6], causal, args[-1])
+    ref_dk, ref_dv = tattn.flash_bwd_dkv_ref(*args[:6], causal, args[-1])
+    for out, ref in zip(got, (ref_dq, ref_dk, ref_dv)):
+        _assert_within(out, ref, BWD_TOL)
+    jl = jnp.asarray(kv_len, jnp.int32)
+    _, vjp = jax.vjp(lambda q, k, v: jattn.flash_mha(q, k, v, jl, causal), jq, jk, jv)
+    for out, ref in zip(got, vjp(jdo)):
+        _assert_within(out, ref.astype(jnp.float32), BWD_TOL)
+    if 0 in kv_len:  # no visible key: zero gradients
+        i = kv_len.index(0)
+        assert all(float(t[i].abs().max()) == 0.0 for t in got)
+
+
 def test_bf16_wrapper_checks_what_the_tensor_core_kernels_take():
     """The 16-byte rule and the GQA group, checked before a bf16 launch: the
     ViT's fused-qkv slices pass; a view whose seq stride is not a multiple of
-    8 elements, a misaligned start, or 3 heads a kv head are refused."""
+    8 elements, a misaligned start (of q or of the backward's dO), or more
+    than 128 heads a kv head are refused; any group up to 128 (3, 7, 128)
+    passes."""
     qkv = torch.zeros(2, 577, 3, 16, 64, dtype=torch.bfloat16)
     tattn._check_tc("exact_attention", qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
     odd = torch.zeros(1, 9, 4, 72, dtype=torch.bfloat16)[..., :64]  # head stride 72: fine
@@ -210,8 +303,13 @@ def test_bf16_wrapper_checks_what_the_tensor_core_kernels_take():
         tattn._check_tc("flash_attention", shifted, odd, odd)
     one = torch.zeros(1, 1, 1, 70, dtype=torch.bfloat16)[..., :64]  # strides 70, sizes 1
     tattn._check_tc("flash_attention", one, one, one)  # strides of size-1 dims are never used
-    with pytest.raises(ValueError, match="divide"):
-        tattn._check_tc("flash_attention", odd, odd, odd, group=3)
+    with pytest.raises(ValueError, match="16-byte"):
+        tattn._check_tc("flash_bwd_dq", odd, odd, odd, do=shifted)
+    tattn._check_tc("flash_bwd_dkv", odd, odd, odd, do=odd)
+    for group in (3, 7, 128):
+        tattn._check_tc("flash_attention", odd, odd, odd, group=group)
+    with pytest.raises(ValueError, match="fit"):
+        tattn._check_tc("flash_attention", odd, odd, odd, group=129)
 
 
 def test_lib_path_hashes_the_included_headers(tmp_path):
@@ -231,3 +329,38 @@ def test_lib_path_hashes_the_included_headers(tmp_path):
     assert after["flash_attention"] != before["flash_attention"]
     assert after["exact_attention"] != before["exact_attention"]
     assert after["int4_matvec"] == before["int4_matvec"]
+
+
+# the card's timed training shapes (chip_smoke.py::check_train_kernels):
+# b, s, h, hkv, d, kv_len, all causal
+TIMED_TRAIN_SHAPES = [
+    (1, 2048, 32, 8, 128, [2048]),
+    (2, 2048, 32, 8, 128, [2048, 1531]),
+    (1, 2048, 32, 8, 64, [2048]),
+    (1, 2048, 28, 4, 128, [2048]),
+]
+
+
+def main():
+    """The emulated dQ, dK and dV against the plain versions at the card's
+    timed shapes, with random bf16 inputs of unit scale as chip_smoke.py
+    draws them: per output the largest error, and the smallest (atol, rtol)
+    pair of the form (a, 1e-2) that holds it."""
+    torch.set_num_threads(4)
+    rng = np.random.default_rng(0)
+    for b, s, h, hkv, d, kv_len in TIMED_TRAIN_SHAPES:
+        args, _ = _bwd_case(rng, b, s, h, hkv, d, kv_len, True)
+        got = bwd_tc_emulation(*args[:6], True, args[-1])
+        refs = (tattn.flash_bwd_dq_ref(*args[:6], True, args[-1]),
+                *tattn.flash_bwd_dkv_ref(*args[:6], True, args[-1]))
+        for name, out, ref in zip(("dq", "dk", "dv"), got, refs):
+            err = (out.float() - ref.float()).abs()
+            need = float((err - 1e-2 * ref.float().abs()).max())
+            print(f"q({b},{s},{h},{d}) kv({b},{s},{hkv},{d}) kv_len={kv_len} {name}: "
+                  f"max |ref| {float(ref.float().abs().max()):.4g}, max |err| "
+                  f"{float(err.max()):.4g}, atol needed beside rtol 1e-2: {need:.4g}",
+                  flush=True)
+
+
+if __name__ == "__main__":
+    main()

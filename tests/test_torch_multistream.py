@@ -94,6 +94,32 @@ def test_perceive_step_batch_partial_feed_matches_jax(engines):
     assert tstate.frame_idx.tolist() == [2, 2, 2]
 
 
+def test_perceive_step_batch_feed_mask_over_many_ticks_matches_jax(engines):
+    """S = 3 streams over 20 ticks under a seeded feed mask: stream 0 is fed
+    on every tick but one (its ring clamps past the config's 16 frames), the
+    others on about 70 % and 40 % of ticks, and that one tick feeds none.  Probs, ring,
+    Mamba state and frame counters tick by tick against the JAX package."""
+    cfg, jeng, teng = engines
+    S, ticks = 3, 20
+    rng = np.random.default_rng(4)
+    masks = rng.random((ticks, S)) < np.asarray([1.0, 0.7, 0.4])
+    masks[7] = False
+    jstate, tstate = init_multistream_state(cfg, S), teng.new_stream_state(S)
+    size = cfg.vision.image_size
+    for mask in masks:
+        px = rng.standard_normal((S, 3, size, size)).astype(np.float32)
+        jp, jstate = jeng.perceive_step_batch(jnp.asarray(px), jstate, jnp.asarray(mask))
+        tp, tstate = teng.perceive_step_batch(_t(px), tstate, _t(mask))
+        np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(tstate.memory.numpy(), np.asarray(jstate.memory),
+                                   rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(tstate.mamba.ssm.numpy(), np.asarray(jstate.mamba.ssm),
+                                   rtol=2e-5, atol=2e-5)
+        np.testing.assert_array_equal(tstate.frame_idx.numpy(), np.asarray(jstate.frame_idx))
+    assert tstate.frame_idx.tolist() == masks.sum(0).tolist()
+    assert tstate.frame_idx[0] == ticks - 1 > cfg.max_stream_frames > tstate.frame_idx[2]
+
+
 def test_generate_from_prefill_batch_limits_and_padding_match_jax(engines):
     """Per-row limits, a padding row, and a stop matrix per row."""
     cfg, jeng, teng = engines

@@ -3,8 +3,10 @@
 Both packages get one tiny tree (the JAX package's init, carried over with
 params_from_numpy), the same frames and the same forced gate fires; the
 greedy tokens of each turn must be identical, the gate probabilities and
-the memory ring equal within fp32 tolerance.  Also: export_state/resume,
-and that importing the port loads neither jax nor streammind_tpu.
+the memory ring equal within fp32 tolerance.  Also: export_state/resume
+(within the port, and a bf16 session exported by the JAX package), the
+KV-capacity guard over many turns, and that importing the port loads
+neither jax nor streammind_tpu.
 """
 import subprocess
 import sys
@@ -112,6 +114,71 @@ def test_export_resume_round_trip(engines):
         assert (a.process_frame(torch.from_numpy(frames[i]), force_fire=fire)
                 == b.process_frame(torch.from_numpy(frames[i]), force_fire=fire))
     assert a.turns == b.turns and torch.equal(a.state.mamba.ssm, b.state.mamba.ssm)
+
+
+def test_kv_capacity_guard_matches_jax():
+    """ensure_turn_capacity and rebuild_history_pending: 24 frames with a
+    forced fire on every second one (12 turns) into a KV cache of 128
+    positions, so three turns find no room and start a fresh cache with
+    the recent turns re-carried as text; the ring clamps past the config's
+    16 frames.  Every frame's utterance, the cache length and the pending
+    ids match the JAX package's (0 mismatches), as does the ring."""
+    cfg = tiny_streammind_config()
+    jp = init_streammind_params(jax.random.PRNGKey(0), cfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    kw = dict(eos_token_id=2, prefill_buckets=(32, 64), quantize_gate="int4", kv_capacity=128)
+    jeng = JEngine(jp, cfg, **kw)
+    teng = TEngine(tp, tconfig.tiny_streammind_config(), device="cpu", **kw)
+    s = cfg.vision.image_size
+    frames = np.random.default_rng(2).standard_normal((24, 1, 3, s, s)).astype(np.float32)
+    skw = dict(prompt_ids=list(PROMPT), gate_threshold=2.0, max_new_tokens=8)
+    js, ts = JSession(jeng, FakeTokenizer(), **skw), TSession(teng, FakeTokenizer(), **skw)
+    mismatches, resets, last = 0, 0, 0
+    for i, f in enumerate(frames):
+        fire = i % 2 == 1
+        jo = js.process_frame(jnp.asarray(f), force_fire=fire)
+        to = ts.process_frame(torch.from_numpy(f), force_fire=fire)
+        n = int(ts.cache.length[0])
+        mismatches += (jo != to) + (n != int(js.cache.length[0])) + (ts.pending_ids != js.pending_ids)
+        if fire:
+            resets += n < last
+            last = n
+    assert mismatches == 0
+    assert len(ts.turns) == 12 and ts.turns == js.turns and resets == 3
+    assert int(ts.state.frame_idx) == 24 > cfg.max_stream_frames
+    np.testing.assert_allclose(ts.state.memory.numpy(), np.asarray(js.state.memory),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_jax_exported_bf16_session_resumes_in_the_port():
+    """A bf16 session exported by the JAX package (its KV cache comes out as
+    ml_dtypes.bfloat16 arrays) resumes in the port; both then take the same
+    frames under the gate's own decisions and speak the same greedy tokens
+    on the same frames."""
+    cfg = tiny_streammind_config()
+    jp = init_streammind_params(jax.random.PRNGKey(0), cfg, dtype=jnp.bfloat16)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    kw = dict(eos_token_id=2, prefill_buckets=(32, 64))
+    jeng = JEngine(jp, cfg, **kw)
+    teng = TEngine(tp, tconfig.tiny_streammind_config(), device="cpu", **kw)
+    frames = _frames(cfg)
+    js = JSession(jeng, FakeTokenizer(), prompt_ids=list(PROMPT), gate_threshold=2.0,
+                  max_new_tokens=5)
+    for i in range(4):  # one (forced) fire before the export
+        js.process_frame(jnp.asarray(frames[i]), force_fire=i == 2)
+    blob = js.export_state()
+    assert blob["kv_k"].dtype.name == "bfloat16" and len(blob["turns"]) == 1
+    ts = TSession.resume(teng, FakeTokenizer(), blob)
+    assert ts.cache.k.dtype == torch.bfloat16
+    assert torch.equal(ts.cache.k.float(), torch.from_numpy(blob["kv_k"].astype(np.float32)))
+    js.gate_threshold = ts.gate_threshold = None  # from here the gate decides: p[1] > p[0]
+    jout, tout = [], []
+    for f in frames[4:]:
+        jout.append(js.process_frame(jnp.asarray(f)))
+        tout.append(ts.process_frame(torch.from_numpy(f)))
+    assert [o is None for o in tout] == [o is None for o in jout]
+    assert tout == jout and any(o is not None for o in tout)
+    assert ts.turns == js.turns and int(ts.cache.length[0]) == int(js.cache.length[0])
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
