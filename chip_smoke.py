@@ -13,11 +13,14 @@ Phases, each of which raises (exit code != 0) on failure:
      paths' shapes, with its tolerance; times of the kernel, its plain
      version and one PyTorch yardstick call, beside the card's bound (the
      bf16 flash forward, lse forward, dQ, dK/dV and exact attention,
-     tensor-core kernels, and their yardsticks are timed by replaying a CUDA
-     graph of the launches, the kernels eagerly too; their kernel / bound
-     is printed, and dQ + dK/dV beside SDPA's backward); the GQA group of
-     7 (Qwen2-7B's 28 / 4 heads) runs the flash forward at bucket 64 over
-     the ring and the three training kernels at 2048;
+     tensor-core kernels, paged attention and the int8 matvec, and their
+     yardsticks are timed by replaying a CUDA graph of the launches, and
+     eagerly too; their kernel / bound is printed, and dQ + dK/dV beside
+     SDPA's backward); the GQA group of 7 (Qwen2-7B's 28 / 4 heads) runs
+     the flash forward at bucket 64 over the ring and the three training
+     kernels at 2048; paged attention must give the same bits twice (its
+     splits merge in a fixed order), and after phase 5 it is checked and
+     timed once more at the lengths the serving phase's K = 3 turn gave it;
   4. the full-width StreamMind-7B session (random bf16 weights from a seed):
      ViT-L/14-336 under attn_impl="exact", Mamba d_model 4096, the 4-layer
      gate under quantize_gate="int4", Mistral-7B; 10 frames with two forced
@@ -68,7 +71,8 @@ Phases, each of which raises (exit code != 0) on failure:
 then the ``kernels`` JSON line (``launches`` from the serving phase for the
 inference kernels, from the training phase for the training kernels and from
 the fast phase for int8_matvec and selective_scan; ``tc_launches``, ``hgmma``
-and ``ms_over_bound`` for the five tensor-core kernels) and, last, the ``ok``
+and ``ms_over_bound`` for the five tensor-core kernels, ``ms_over_bound`` for
+paged attention and the int8 matvec) and, last, the ``ok``
 JSON line.  The fp32 parity phases must launch no tensor-core kernel.  It
 uses nothing of JAX; without a CUDA card it exits with an error before any
 result.
@@ -127,6 +131,9 @@ WRAPPERS = {
     "selective_scan": ("streammind_torch.ops.scan", "selective_scan_kernel"),
 }
 TRAIN_KERNELS = ("flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv")
+# CUDA-core kernels that are timed by graph replay too, their kernel / bound
+# in the kernels line
+GRAPH_TIMED = ("paged_attention", "int8_matvec")
 FAST_KERNELS = ("int8_matvec", "selective_scan")
 # the kernels with a bf16 tensor-core (wgmma) instantiation beside the fp32
 # CUDA-core one; each wrapper counts its bf16 launches again in .tc_launches,
@@ -363,11 +370,15 @@ def check_kernels(dev):
         for c in cases:
             lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f} ms"
             eager = f" (eager {c['eager_ms']:.4f} ms)" if "eager_ms" in c else ""
+            if "library_eager_ms" in c:
+                lib += f" (eager {c['library_eager_ms']:.4f} ms)"
             log("kernel", f"{name} {c['shape']}: max_abs_err={c['max_abs_err']:.3e} "
                           f"{'(each output: ' + str(c['errs']) + ') ' if 'errs' in c else ''}"
                           f"within [{tol}]={c['ok']} kernel={c['ms']:.4f} ms{eager} "
                           f"plain={c['plain_ms']:.4f} ms library={lib} "
-                          f"bound={c['bound_ms']:.4f} ms ({c['bound_by']})")
+                          f"bound={c['bound_ms']:.4f} ms ({c['bound_by']})"
+                          + (f" kernel/bound={c['ms_over_bound']:.2f}"
+                             if "ms_over_bound" in c else ""))
     for name in TC_KERNELS:
         for c in results[name][0]:
             c["ms_over_bound"] = c["ms"] / c["bound_ms"]
@@ -381,53 +392,77 @@ def check_kernels(dev):
     return results
 
 
-def check_paged_kernels(dev, randn):
-    """The paged pool's two kernels at the serving path's shapes: Mistral-7B
-    (32 q / 8 kv heads, D 128), page 64, tables of 128 pages (8192 tokens),
-    in a pool of 1024 pages (268 MB of K and V, five times the L2)."""
+PAGED_SHAPE = dict(hkv=8, h=32, d=128, page=64, maxp=128, n_pages=1024)
+
+
+def paged_pool(randn):
+    """A pool of 1024 pages (268 MB of K and V, five times the L2) at the
+    serving path's shapes: Mistral-7B (32 q / 8 kv heads, D 128), page 64."""
+    sh = PAGED_SHAPE
+    return tuple(randn(sh["hkv"], sh["n_pages"] + 1, sh["page"], sh["d"]) for _ in range(2))
+
+
+def paged_attention_case(dev, randn, pool_k, pool_v, lengths):
+    """paged_decode_attention at one list of row lengths over 128-page tables,
+    against its plain version; kernel and yardstick timed by graph replay
+    (the kernel runs in less time than its wrapper's host work) and
+    eagerly."""
     from streammind_torch.ops import paged_attention as PA
 
-    hkv, h, d, page, maxp, n_pages = 8, 32, 128, 64, 128, 1024
-    pool_k, pool_v = (randn(hkv, n_pages + 1, page, d) for _ in range(2))
-    # one short row, one full 8192-token row, one past its table at a page
-    # boundary (a finished row of the lockstep loop), then ragged rows
-    all_lengths = [8192, 37, maxp * page + 1, 3000, 64, 65, 5000, 129]
-    results = {}
+    hkv, h, d, page, maxp, n_pages = (PAGED_SHAPE[k] for k in ("hkv", "h", "d", "page", "maxp",
+                                                               "n_pages"))
+    K = len(lengths)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    visible = sum(min(n, maxp * page) for n in lengths)
+    nbytes = 2 * (2 * visible * hkv * d + 2 * K * h * d) + 4 * (K + -(-visible // page))
+    # each set draws its tables from a fresh permutation of the pool, so
+    # successive launches read other pages, cold from HBM
+    sets = []
+    for _ in range(n_sets(nbytes)):
+        perm = torch.randperm(n_pages, device=dev)[: K * maxp] + 1
+        sets.append((randn(K, 1, h, d), perm.reshape(K, maxp).to(torch.int32)))
+    q, table = sets[0]
+    out = PA.paged_decode_attention(q, pool_k, pool_v, table, lens)
+    ref = PA.paged_decode_attention_ref(q, pool_k, pool_v, table, lens)
+    err, over = excess(out, ref, *BF16_TOL)
+    # the split kernel merges its partial sums in a fixed order: same bits twice
+    same = torch.equal(out, PA.paged_decode_attention(q, pool_k, pool_v, table, lens))
+    fns = [lambda s=s: PA.paged_decode_attention(s[0], pool_k, pool_v, s[1], lens) for s in sets]
+    ms, eager = cuda_ms(fns, graph=True), cuda_ms(fns)
+    plain = cuda_ms([lambda s=s: PA.paged_decode_attention_ref(s[0], pool_k, pool_v, s[1], lens)
+                     for s in sets], iters=5)
+    # yardstick: SDPA over each row's pages gathered contiguous beforehand
+    # (untimed), kv heads repeated, with a length mask
+    mask = (torch.arange(maxp * page, device=dev)[None, :] < lens[:, None])[:, None, None]
+    lib_sets = [(q.transpose(1, 2), *(PA.gather_seq(pool, table).repeat_interleave(
+        h // hkv, dim=2).transpose(1, 2).contiguous() for pool in (pool_k, pool_v)))
+        for q, table in sets[:2]]
+    lib_fns = [lambda s=s: F.scaled_dot_product_attention(*s, attn_mask=mask) for s in lib_sets]
+    lib, lib_eager = cuda_ms(lib_fns, graph=True), cuda_ms(lib_fns)
+    del lib_sets, sets
+    b_ms, b_by = bound(nbytes, 4.0 * h * d * visible, BF16_FLOPS)
+    return dict(shape=f"q({K},1,{h},{d}) pool({hkv},{n_pages + 1},{page},{d}) table({K},{maxp}) "
+                      f"lengths={list(lengths)}", max_abs_err=err, ok=over <= 0 and same,
+                same_bits_twice=same, ms=ms, eager_ms=eager, plain_ms=plain, library_ms=lib,
+                library_eager_ms=lib_eager, bound_ms=b_ms, bound_by=b_by, ms_over_bound=ms / b_ms)
 
-    cases = []
-    for K in (1, 4, 8):
-        lengths = torch.tensor(all_lengths[:K], dtype=torch.int32, device=dev)
-        visible = sum(min(n, maxp * page) for n in all_lengths[:K])
-        nbytes = 2 * (2 * visible * hkv * d + 2 * K * h * d) + 4 * (K + -(-visible // page))
-        # each set draws its tables from a fresh permutation of the pool, so
-        # successive launches read other pages, cold from HBM
-        sets = []
-        for _ in range(n_sets(nbytes)):
-            perm = torch.randperm(n_pages, device=dev)[: K * maxp] + 1
-            sets.append((randn(K, 1, h, d), perm.reshape(K, maxp).to(torch.int32)))
-        q, table = sets[0]
-        out = PA.paged_decode_attention(q, pool_k, pool_v, table, lengths)
-        ref = PA.paged_decode_attention_ref(q, pool_k, pool_v, table, lengths)
-        err, over = excess(out, ref, *BF16_TOL)
-        ms = cuda_ms([lambda s=s: PA.paged_decode_attention(s[0], pool_k, pool_v, s[1], lengths)
-                      for s in sets])
-        plain = cuda_ms([lambda s=s: PA.paged_decode_attention_ref(s[0], pool_k, pool_v, s[1],
-                                                                   lengths) for s in sets],
-                        iters=5)
-        # yardstick: SDPA over each row's pages gathered contiguous beforehand
-        # (untimed), kv heads repeated, with a length mask
-        mask = (torch.arange(maxp * page, device=dev)[None, :] < lengths[:, None])[:, None, None]
-        lib_sets = [(q.transpose(1, 2), *(PA.gather_seq(pool, table).repeat_interleave(
-            h // hkv, dim=2).transpose(1, 2).contiguous() for pool in (pool_k, pool_v)))
-            for q, table in sets[:2]]
-        lib = cuda_ms([lambda s=s: F.scaled_dot_product_attention(*s, attn_mask=mask)
-                       for s in lib_sets])
-        del lib_sets
-        b_ms, b_by = bound(nbytes, 4.0 * h * d * visible, BF16_FLOPS)
-        cases.append(dict(shape=f"q({K},1,32,128) pool(8,{n_pages + 1},64,128) table({K},128) "
-                                f"lengths={all_lengths[:K]}", max_abs_err=err, ok=over <= 0,
-                          ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by))
-    results["paged_attention"] = (cases, BF16_TOL_TEXT)
+
+# one short row, one full 8192-token row, one past its table at a page
+# boundary (a finished row of the lockstep loop), then ragged rows
+PAGED_LENGTHS = [8192, 37, 128 * 64 + 1, 3000, 64, 65, 5000, 129]
+
+
+def check_paged_kernels(dev, randn):
+    """The paged pool's two kernels at the serving path's shapes
+    (``PAGED_SHAPE``): attention at K 1, 4 and 8 over ``PAGED_LENGTHS``,
+    the write at K 1, 4 and 8."""
+    from streammind_torch.ops import paged_attention as PA
+
+    hkv, d, page, n_pages = (PAGED_SHAPE[k] for k in ("hkv", "d", "page", "n_pages"))
+    pool_k, pool_v = paged_pool(randn)
+    results = {"paged_attention": ([paged_attention_case(dev, randn, pool_k, pool_v,
+                                                         PAGED_LENGTHS[:K]) for K in (1, 4, 8)],
+                                   BF16_TOL_TEXT + "; the same bits on a second call")}
 
     cases = []
     for K in (1, 4, 8):
@@ -460,6 +495,30 @@ def check_paged_kernels(dev, randn):
                           bound_ms=b_ms, bound_by=b_by))
     results["paged_write"] = (cases, "bitwise equal pools (a copy)")
     return results
+
+
+def check_paged_serving_case(dev, lengths):
+    """paged_decode_attention at the lengths the serving phase's K = 3 turn
+    gave its first lockstep step, over the same pool and tables as
+    ``check_paged_kernels``; raises if it disagrees with its plain version."""
+    g = torch.Generator(device=dev).manual_seed(4321)
+
+    def randn(*shape):
+        return torch.empty(shape, device=dev, dtype=torch.bfloat16).normal_(generator=g)
+
+    pool_k, pool_v = paged_pool(randn)
+    c = paged_attention_case(dev, randn, pool_k, pool_v, lengths)
+    c["shape"] += " (the serving phase's K = 3 turn)"
+    log("kernel", f"paged_attention {c['shape']}: max_abs_err={c['max_abs_err']:.3e} within "
+                  f"[{BF16_TOL_TEXT}; the same bits on a second call]={c['ok']} kernel="
+                  f"{c['ms']:.4f} ms (eager {c['eager_ms']:.4f} ms) plain={c['plain_ms']:.4f} ms "
+                  f"library={c['library_ms']:.4f} ms (eager {c['library_eager_ms']:.4f} ms) "
+                  f"bound={c['bound_ms']:.4f} ms kernel/bound={c['ms_over_bound']:.2f}")
+    del pool_k, pool_v
+    torch.cuda.empty_cache()
+    if not c["ok"]:
+        raise RuntimeError(f"paged_attention disagrees with its plain version: {c['shape']}")
+    return c
 
 
 # the fp32 lse of the training forward against its plain version: about
@@ -598,6 +657,57 @@ def tol_text(tol, what):
     return f"|err| <= {tol[0]:g} + {tol[1]:g}*|ref| ({what})"
 
 
+# the int8 gate's four linears (one token a frame) and the int8 decoder's
+# three fused ones
+INT8_SHAPES = (("v", 1024, 4096), ("o", 4096, 4096), ("gate/up", 14336, 4096),
+               ("down", 4096, 14336), ("qkv (fused)", 6144, 4096),
+               ("gateup (fused)", 28672, 4096))
+
+
+def int8_cases(dev, g, shapes=INT8_SHAPES, dtypes=(torch.bfloat16, torch.float32),
+               batches=(1, 4, 8)):
+    """int8_matvec against its plain version at each (name, out, in) shape,
+    x dtype and token count; the yardstick is F.linear on the weight
+    dequantized beforehand into x's dtype."""
+    from streammind_torch.ops.int8_matvec import int8_matvec, int8_matvec_ref
+    from streammind_torch.utils.quantize import dequantize_linear_weight, quantize_linear_weight
+
+    rows = []
+    for name, dout, din in shapes:
+        n_copy = n_sets(dout * din)
+        qs = [quantize_linear_weight(torch.empty((dout, din), device=dev).normal_(
+            0.0, 0.02, generator=g)) for _ in range(n_copy)]
+        for dtype in dtypes:
+            libs = [dequantize_linear_weight(q, dtype) for q in qs]
+            esize = torch.finfo(dtype).bits // 8
+            for b in batches:
+                x = torch.empty((b, din), device=dev, dtype=dtype).normal_(generator=g)
+                q0 = qs[0]
+                out = int8_matvec(x, q0["w_int8"], q0["scale"])
+                ref = int8_matvec_ref(x, q0["w_int8"], q0["scale"])
+                err, over = excess(out, ref, *INT8_TOL[dtype])
+                # kernel and yardstick by graph replay (the kernel runs in
+                # less time than its wrapper's host work) and eagerly
+                fns = [lambda q=q: int8_matvec(x, q["w_int8"], q["scale"]) for q in qs]
+                ms, eager = cuda_ms(fns, graph=True), cuda_ms(fns)
+                plain = cuda_ms([lambda q=q: int8_matvec_ref(x, q["w_int8"], q["scale"])
+                                 for q in qs], iters=5)
+                lib_fns = [lambda w=w: F.linear(x, w) for w in libs]
+                lib, lib_eager = cuda_ms(lib_fns, graph=True), cuda_ms(lib_fns)
+                b_ms, b_by = bound(dout * din + 4 * dout + esize * b * (din + dout),
+                                   2.0 * b * dout * din,
+                                   BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+                rows.append(dict(shape=f"{name}: x({b},{din}) {str(dtype)[6:]} W({dout},{din}) "
+                                       f"int8", max_abs_err=err, ok=over <= 0, ms=ms,
+                                 eager_ms=eager, plain_ms=plain, library_ms=lib,
+                                 library_eager_ms=lib_eager, bound_ms=b_ms, bound_by=b_by,
+                                 ms_over_bound=ms / b_ms))
+            del libs
+        del qs
+        torch.cuda.empty_cache()
+    return rows
+
+
 def check_fast_kernels(dev, g):
     """The fast tier's two kernels.  int8_matvec at the int8 gate's four
     shapes (one token a frame) and the int8 decoder's three fused ones, B 1, 4
@@ -607,41 +717,9 @@ def check_fast_kernels(dev, g):
     without a carried state, bf16 and fp32, its inputs laid out as the mixer
     hands them over; no single PyTorch call computes it."""
     from streammind_torch.ops import scan as S
-    from streammind_torch.ops.int8_matvec import int8_matvec, int8_matvec_ref
-    from streammind_torch.utils.quantize import dequantize_linear_weight, quantize_linear_weight
 
-    rows = []
-    for name, dout, din in (("v", 1024, 4096), ("o", 4096, 4096), ("gate/up", 14336, 4096),
-                            ("down", 4096, 14336), ("qkv (fused)", 6144, 4096),
-                            ("gateup (fused)", 28672, 4096)):
-        n_copy = n_sets(dout * din)
-        qs = [quantize_linear_weight(torch.empty((dout, din), device=dev).normal_(
-            0.0, 0.02, generator=g)) for _ in range(n_copy)]
-        for dtype in (torch.bfloat16, torch.float32):
-            libs = [dequantize_linear_weight(q, dtype) for q in qs]
-            esize = torch.finfo(dtype).bits // 8
-            for b in (1, 4, 8):
-                x = torch.empty((b, din), device=dev, dtype=dtype).normal_(generator=g)
-                q0 = qs[0]
-                out = int8_matvec(x, q0["w_int8"], q0["scale"])
-                ref = int8_matvec_ref(x, q0["w_int8"], q0["scale"])
-                err, over = excess(out, ref, *INT8_TOL[dtype])
-                ms = cuda_ms([lambda q=q: int8_matvec(x, q["w_int8"], q["scale"]) for q in qs])
-                plain = cuda_ms([lambda q=q: int8_matvec_ref(x, q["w_int8"], q["scale"])
-                                 for q in qs], iters=5)
-                lib = cuda_ms([lambda w=w: F.linear(x, w) for w in libs])
-                b_ms, b_by = bound(dout * din + 4 * dout + esize * b * (din + dout),
-                                   2.0 * b * dout * din,
-                                   BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
-                rows.append(dict(shape=f"{name}: x({b},{din}) {str(dtype)[6:]} W({dout},{din}) "
-                                       f"int8", max_abs_err=err, ok=over <= 0, ms=ms,
-                                 plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by))
-            del libs
-        del qs
-        torch.cuda.empty_cache()
-    results = {"int8_matvec": (rows, "; ".join(tol_text(INT8_TOL[d], str(d)[6:] + " output")
-                                               for d in INT8_TOL))}
-
+    results = {"int8_matvec": (int8_cases(dev, g), "; ".join(
+        tol_text(INT8_TOL[d], str(d)[6:] + " output") for d in INT8_TOL))}
     rows = []
     b, d, n = 1, 8192, 16
     for dtype in (torch.bfloat16, torch.float32):
@@ -769,9 +847,12 @@ def recording_serving_classes():
             t0 = sync()  # the first tokens are on the host here
             self.first_token_at.append(t0)
             steps0 = self.steps
+            # the lengths the first step's paged attention is given (each
+            # row's length before the step, plus the token it appends)
+            attn_lengths = [int(n) + 1 for n in length]
             out = super()._decode(table, length, first, *a, **kw)
             self.decodes.append(dict(k=len(first), steps=self.steps - steps0,
-                                     ms=(sync() - t0) * 1e3))
+                                     ms=(sync() - t0) * 1e3, attn_lengths=attn_lengths))
             return out
 
     class RecordingServer(MultiStreamServer):
@@ -947,8 +1028,8 @@ def serving_phase(engine, g, dev):
     ticks = srv.tick_log
     log("serve", f"ticks={broker.ticks} frames={broker.frames_seen} fired per tick="
                  f"{[t['fired'] for t in ticks]}")
-    log("serve", f"lockstep turns (K, steps, ms) = "
-                 f"{[(d['k'], d['steps'], round(d['ms'], 3)) for d in pd.decodes]}; "
+    log("serve", f"lockstep turns (K, steps, ms, first step's attention lengths) = "
+                 f"{[(d['k'], d['steps'], round(d['ms'], 3), d['attn_lengths']) for d in pd.decodes]}; "
                  f"launches={counts} expected={expect}")
     log("serve", f"tensor-core launches: exact {counts['exact_attention_tc'] / SERVE_TICKS:g} a "
                  f"tick, flash {counts['flash_attention_tc'] / len(pd.decodes):g} a batched prefill")
@@ -983,12 +1064,14 @@ def serving_phase(engine, g, dev):
     probs = torch.cat(engine.probs[-SERVE_TICKS:])
     if not (torch.isfinite(probs).all() and (probs.sum(-1) - 1).abs().max() < 1e-5):
         raise RuntimeError(f"gate probs not finite or not summing to 1: {probs}")
+    attn_lengths = {d["k"]: d["attn_lengths"] for d in pd.decodes}
     del frames, broker, srv, pd
     torch.cuda.empty_cache()
     return dict(silent_tick_ms_median=statistics.median(silent),
                 event_to_first_token_ms={len(t["fired"]): t["first_token_ms"][0]
                                          for t in fire_ticks},
-                decode_ms_per_step=per_step, launches=counts, steps=steps)
+                decode_ms_per_step=per_step, launches=counts, steps=steps,
+                attn_lengths=attn_lengths)
 
 
 def parity_config():
@@ -1669,6 +1752,7 @@ def main() -> int:
     serving = serving_phase(engine, g, dev)
     del engine
     torch.cuda.empty_cache()
+    kernels["paged_attention"][0].append(check_paged_serving_case(dev, serving["attn_lengths"][3]))
     fast = fast_phase(dev)
     fast_parity(dev)
     parity(dev)
@@ -1693,6 +1777,9 @@ def main() -> int:
             bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"], tolerance=tol,
             cases=cases))
+        if name in GRAPH_TIMED:
+            entries[-1].update(ms_over_bound=head["ms_over_bound"],
+                               timing="CUDA graph replay (device time); eager_ms in cases")
         if name in TC_KERNELS:
             entries[-1].update(
                 tc_launches=main_path["launches"][f"{name}_tc"],

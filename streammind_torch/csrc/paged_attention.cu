@@ -1,4 +1,4 @@
-// One-token decode attention over the paged KV pool.
+// One-token decode attention over the paged KV pool, split over the keys.
 //
 // Replaces the TPU paged-attention kernel that the JAX package calls from
 // JAX's Pallas library (jax.experimental.pallas.ops.tpu.paged_attention,
@@ -9,38 +9,64 @@
 //
 // Arithmetic, as the JAX package's CPU branch (gather + mha_reference)
 // does it, not as the TPU path (which pre-scales q in bf16): q and the
-// keys in fp32, the scale 1/sqrt(D) applied to the fp32 dot, then an
-// online softmax in fp32 (m, l, acc per query head, masked logits -1e30)
-// and one rounding of acc / max(l, 1e-30) to q's dtype.  length is
-// clamped to the table's width (maxp x page): a finished row of the
-// lockstep loop attends at its frozen length + 1, which at a page boundary
-// points one page past its table, and the kernel never reads outside the
-// table row.
+// keys in fp32, the scale 1/sqrt(D) applied to the fp32 dot, an fp32
+// softmax (masked logits -1e30) and one rounding of acc / max(l, 1e-30) to
+// q's dtype.  length is clamped to the table's width (maxp x page): a
+// finished row of the lockstep loop attends at its frozen length + 1,
+// which at a page boundary points one page past its table, and the kernel
+// never reads outside the table row.  A row of length 0 gives 0.
 //
 // Bound on the H100: bytes — the visible K and V rows (length x Hkv x D x
 // 2 elements a row) read once; the operations (4 x H x D a position) are
-// ~100x below the tensor-core line.  This first version reads only the
-// pages the length covers, each K/V element once, with 16-byte loads, and
-// prefetches the next tile into registers while the current one is
-// computed.  Its cost: one block per (row, kv head) — K x Hkv blocks, 32
-// at K 4 for Mistral-7B on 132 SMs — each walking its row's pages alone,
-// so a long row is latency-bound on one SM; splitting the pages across
-// blocks (flash-decoding) is the next step.
+// ~100x below the tensor-core line, so the products are CUDA-core FMAs
+// from shared memory.
 //
-// Design: 256 threads per (row, kv head) block; the block holds the G =
-// H / Hkv query heads of its kv head (G <= 8).  Keys go in tiles of 64
-// logical positions (any page size): K (rows padded to D+1 floats) and V
-// tiles in shared memory as fp32; scores and probabilities in shared
-// memory; acc in registers.
+// Design (flash-decoding):
+//  * Grid: one block per (split, row, kv head), split-major, so that the
+//    first splits of all rows are dispatched first.  A split is a span of
+//    256 or 512 positions, chosen by the host from the grid's size alone
+//    (ops/paged_attention.py::_span); the number of splits comes from the
+//    table's width, ceil(maxp x page / span), never from length, which
+//    stays on the device.  A block whose span starts at or past its row's
+//    clamped length returns as soon as it has read the length.
+//  * Inside a split, two passes over its tiles of 64 positions: the K tiles
+//    give the G x span scores (thread = one position, its query heads, four
+//    partial sums a head; the G query heads of the kv head share every K
+//    row), then the exact max and sum of each head over the split, then the
+//    V tiles give acc[G x D] (thread = two dims of some heads).  No online
+//    rescaling.
+//  * The K and V tiles stream through a ring of kStages shared-memory
+//    stages in the pool's dtype (bf16 K tile at D 128: 16 KB), filled by
+//    16-byte cp.async.  The split's page ids are read once into shared
+//    memory, and each chunk's page and offset come by a shift where page is
+//    a power of two: the address arithmetic, not the loads, held the first
+//    version back.  Pages of 8 or 16 positions straddle tiles; positions
+//    past the length are zero-filled.  One __syncthreads a tile, plus two
+//    around the softmax.  Rows are padded by 16 bytes, so the 16-byte reads
+//    of 8 neighbouring rows fall on distinct banks.
+//  * Merge in a fixed order, in the same launch: a row whose length fits
+//    one split writes its output directly.  Otherwise each split leaves
+//    (m, l, acc) in fp32 in a workspace; the last block of its (row, kv
+//    head) to finish, found by an atomic counter that only counts (the
+//    values never pass through atomics), merges
+//    o = sum_s exp(m_s - M) acc_s / max(sum_s exp(m_s - M) l_s, 1e-30)
+//    (the weights once a head, acc over the splits in split order, many
+//    partials' loads at a time) and resets the counter to zero for the
+//    next call.  So two calls give the same bits.  One launch was chosen
+//    over a second merge kernel: the merge reads (G x D + 2G) floats a split
+//    (~2 KB at Mistral-7B's shape), cheaper than a second launch's ~2-3 us.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBK = 64;    // logical positions per tile
-constexpr int kMaxG = 8;   // query heads per kv head
+constexpr int kBK = 64;       // positions per tile
+constexpr int kMaxG = 8;      // query heads per kv head
+constexpr int kMaxSpan = 512;
+constexpr int kStages = 3;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -55,14 +81,27 @@ __device__ __forceinline__ void unpack(const uint4& u, float* dst, float) {
   for (int c = 0; c < 4; ++c) dst[c] = f[c];
 }
 __device__ __forceinline__ void unpack(const uint4& u, float* dst, __nv_bfloat16) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const unsigned int w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const float2 f = __bfloat1622float2(h[c]);
-    dst[2 * c] = f.x;
-    dst[2 * c + 1] = f.y;
+  for (int c = 0; c < 4; ++c) {  // bf16 → fp32 is the bf16 bits in the high half
+    dst[2 * c] = __uint_as_float(w[c] << 16);
+    dst[2 * c + 1] = __uint_as_float(w[c] & 0xFFFF0000u);
   }
 }
+// two consecutive elements of T as floats
+__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -76,138 +115,324 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 template <typename T, int D>
+struct Layout {
+  static constexpr int kVec = 16 / sizeof(T);                 // elements a 16-byte chunk
+  static constexpr int kChunks = D / kVec;                    // chunks a K/V row
+  static constexpr int kRow = D + kVec;                       // padded row, elements
+  static constexpr int kStage = kBK * kRow;                   // elements a stage
+  static constexpr int kPairs = D / 2;                        // PV: threads a head group
+  static constexpr int kGroups = kThreads / kPairs;           // PV: head groups
+  static constexpr int kHeadsPV = (kMaxG + kGroups - 1) / kGroups;
+  static constexpr int kHeadsS = kMaxG / (kThreads / kBK);    // scores: heads a thread
+  static constexpr int kMergeElems = kMaxG * D / kThreads;     // merge: outputs a thread
+  // the ring, q, then the G x span scores and (m, l) of each head
+  static constexpr size_t smem(int span) {
+    return sizeof(T) * kStages * kStage + sizeof(float) * ((size_t)kMaxG * D + 2 * kMaxG +
+                                                           (size_t)kMaxG * span);
+  }
+  static_assert(kBK * kChunks % kThreads == 0, "tile chunks must split evenly over the block");
+  static_assert(kThreads % kPairs == 0, "dim pairs must split the block");
+};
+
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
                        const T* __restrict__ pool_v, const int* __restrict__ table,
                        const int* __restrict__ length, T* __restrict__ o,
-                       int H, int Hkv, int P, int page, int maxp, float scale) {
-  constexpr int VEC = 16 / sizeof(T);          // elements per 16-byte word
-  constexpr int WPR = D / VEC;                 // words per K/V row
-  constexpr int NW = kBK * WPR / kThreads;     // words a thread fetches per tile and side
-  constexpr int R = (kMaxG * D + kThreads - 1) / kThreads;
-  static_assert(kBK * WPR % kThreads == 0, "tile words must split evenly over the block");
+                       float* __restrict__ ws_acc, float* __restrict__ ws_ml,
+                       int* __restrict__ counters, int H, int Hkv, int P, int page,
+                       int page_shift, int maxp, int span, int n_split, float scale) {
+  using Lt = Layout<T, D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  float* qs = reinterpret_cast<float*>(ring + kStages * Lt::kStage);  // G x D
+  float* m_s = qs + kMaxG * D;
+  float* l_s = m_s + kMaxG;
+  float* ps = l_s + kMaxG;                                            // G x span
+  __shared__ int last;
 
-  extern __shared__ float smem[];
-  float* qs = smem;                  // G x D
-  float* ks = qs + kMaxG * D;        // kBK x (D + 1)
-  float* vs = ks + kBK * (D + 1);    // kBK x D
-  float* ps = vs + kBK * D;          // G x kBK scores, then probs
-  float* m_s = ps + kMaxG * kBK;     // running max
-  float* l_s = m_s + kMaxG;          // running sum
-  float* a_s = l_s + kMaxG;          // this tile's rescale factor
+  __shared__ int pg_s[kMaxSpan + 1];  // the split's page ids
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
+  // split-major: the first splits of every row are dispatched first, and
+  // the empty splits of short rows, which only read their length, last
+  const int n_bh = gridDim.x / n_split;
+  const int split = blockIdx.x / n_bh, bh = blockIdx.x % n_bh;
+  const int b = bh / Hkv, hk = bh % Hkv;
   const int G = H / Hkv;
-  const int L = max(0, min(length[b], maxp * page));
-  const int* trow = table + (long long)b * maxp;
-
-  for (int e = tid; e < G * D; e += kThreads)
-    qs[e] = to_f(q[((long long)b * H + hk * G) * D + e]);
-  if (tid < G) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-
-  uint4 rk[NW], rv[NW];
-  auto fetch = [&](int k0) {
+  const int s0 = split * span;
+  // the pages the span can touch (at most kMaxSpan + 1), read while the
+  // length is read
+  const int p0 = s0 / page, n_pg = min(maxp - p0, (span + page - 1) / page + 1);
+  const int* trow = table + (long long)b * maxp + p0;
+  int pg_r[(kMaxSpan + 1 + kThreads - 1) / kThreads];
 #pragma unroll
-    for (int n = 0; n < NW; ++n) {
-      const int e = tid + n * kThreads, j = e / WPR, w = e % WPR, pos = k0 + j;
-      if (pos < L) {
-        const long long base =
-            (((long long)hk * P + trow[pos / page]) * page + pos % page) * D + w * VEC;
-        rk[n] = *reinterpret_cast<const uint4*>(pool_k + base);
-        rv[n] = *reinterpret_cast<const uint4*>(pool_v + base);
-      } else {
-        rk[n] = make_uint4(0u, 0u, 0u, 0u);
-        rv[n] = make_uint4(0u, 0u, 0u, 0u);
+  for (int r = 0; r < (kMaxSpan + 1 + kThreads - 1) / kThreads; ++r)
+    pg_r[r] = tid + r * kThreads < n_pg ? trow[tid + r * kThreads] : 0;
+  const int L = max(0, min(length[b], maxp * page));
+  const int n_active = (L + span - 1) / span;
+  T* out = o + ((long long)b * H + hk * G) * D;
+
+  if (s0 >= L) {  // an empty split; split 0 of an empty row writes its zeros
+    if (L == 0 && split == 0)
+      for (int e = tid; e < G * D; e += kThreads) store(out + e, 0.f);
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < (kMaxSpan + 1 + kThreads - 1) / kThreads; ++r)
+    if (tid + r * kThreads < n_pg) pg_s[tid + r * kThreads] = pg_r[r];
+  __syncthreads();
+  const int n_pos = min(span, L - s0);
+  const int nt = (n_pos + kBK - 1) / kBK;  // tiles of K, then as many of V
+
+  // tile u < nt: K positions s0 + 64u..; u >= nt: V positions s0 + 64(u - nt)..
+  // a thread's chunks: positions jc + n (kThreads / kChunks) of a tile, the
+  // same 16 bytes cc of each row; the page and the offset in it by a shift
+  // where page is a power of two (the usual case), else by a division
+  const int cc = tid % Lt::kChunks, jc = tid / Lt::kChunks;
+  const long long hk_base = (long long)hk * P * page * D + cc * Lt::kVec;
+  auto issue = [&](int u) {
+    if (u < 2 * nt) {
+      const T* pool = (u < nt ? pool_k : pool_v) + hk_base;
+      const int k0 = s0 + (u < nt ? u : u - nt) * kBK;
+      T* stage = ring + (u % kStages) * Lt::kStage + cc * Lt::kVec;
+#pragma unroll
+      for (int n = 0; n < kBK * Lt::kChunks / kThreads; ++n) {
+        const int j = jc + n * (kThreads / Lt::kChunks), pos = k0 + j;
+        const bool valid = pos < s0 + n_pos;
+        const int pi = page_shift >= 0 ? pos >> page_shift : pos / page;
+        const int off = page_shift >= 0 ? pos & (page - 1) : pos - pi * page;
+        const T* src = valid ? pool + ((long long)pg_s[pi - p0] * page + off) * D : pool;
+        cp_async16(stage + j * Lt::kRow, src, valid);
       }
     }
+    cp_async_commit();  // an empty group past the end keeps the count
   };
 
-  float acc[R];
 #pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.f;
+  for (int u = 0; u < kStages - 1; ++u) issue(u);
+  for (int e = tid; e < G * D; e += kThreads)
+    qs[e] = to_f(q[((long long)b * H + hk * G) * D + e]);
+
+  // PV: thread -> dims 2p, 2p+1 of heads grp, grp + kGroups, ...
+  const int pr = tid % Lt::kPairs, grp = tid / Lt::kPairs;
+  float acc[Lt::kHeadsPV][2][2];  // head, position parity, dim
+#pragma unroll
+  for (int r = 0; r < Lt::kHeadsPV; ++r) acc[r][0][0] = acc[r][0][1] = acc[r][1][0] = acc[r][1][1] = 0.f;
+  // scores: thread -> position jl of the tile, heads ig, ig + 4, ...
   const int jl = tid % kBK, ig = tid / kBK;
-  const int n_t = (L + kBK - 1) / kBK;
-  if (n_t > 0) fetch(0);
 
-  for (int t = 0; t < n_t; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();  // the previous tile's PV is done with ks/vs/ps
+  for (int u = 0; u < 2 * nt; ++u) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile u has landed for every thread; tile u - 1 is done with
+    const T* stage = ring + (u % kStages) * Lt::kStage;
+    if (u == nt) {
+      // the split's scores are complete: the exact max and sum of each head
+      if (warp < G) {
+        float* row = ps + warp * span;
+        const int n = nt * kBK;
+        float mx = kNegInf;
+        for (int j = lane; j < n; j += 32) mx = fmaxf(mx, row[j]);
+        mx = warp_max(mx);
+        float sum = 0.f;
+        for (int j = lane; j < n; j += 32) {
+          const float p = expf(row[j] - mx);
+          row[j] = p;
+          sum += p;
+        }
+        sum = warp_sum(sum);
+        if (lane == 0) {
+          m_s[warp] = mx;
+          l_s[warp] = sum;
+        }
+      }
+      __syncthreads();
+    }
+    if (u < nt) {
+      // four partial sums a head (chains of D / 4 FMAs), added at the end
+      const int k0 = u * kBK;
+      float s[Lt::kHeadsS][4];
 #pragma unroll
-    for (int n = 0; n < NW; ++n) {
-      const int e = tid + n * kThreads, j = e / WPR, w = e % WPR;
-      unpack(rk[n], ks + j * (D + 1) + w * VEC, T());
-      unpack(rv[n], vs + j * D + w * VEC, T());
-    }
-    __syncthreads();
-    if (t + 1 < n_t) fetch(k0 + kBK);  // next tile's loads fly during this tile
-
-    // scores: thread -> one position of the tile, query heads ig, ig+4, ...
-    for (int i = ig; i < G; i += kThreads / kBK) {
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) s = fmaf(qs[i * D + d], ks[jl * (D + 1) + d], s);
-      ps[i * kBK + jl] = k0 + jl < L ? s * scale : kNegInf;
-    }
-    __syncthreads();
-
-    // online-softmax row update: one warp per query head, two positions a lane
-    if (warp < G) {
-      const int i = warp;
-      const float x0 = ps[i * kBK + lane], x1 = ps[i * kBK + lane + 32];
-      const float m_prev = m_s[i];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(x0, x1)));
-      const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
-      ps[i * kBK + lane] = p0;
-      ps[i * kBK + lane + 32] = p1;
-      const float sum = warp_sum(p0 + p1);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        l_s[i] = l_s[i] * alpha + sum;
-        m_s[i] = m_new;
-        a_s[i] = alpha;
+      for (int r = 0; r < Lt::kHeadsS; ++r) s[r][0] = s[r][1] = s[r][2] = s[r][3] = 0.f;
+      const T* krow = stage + jl * Lt::kRow;
+#pragma unroll
+      for (int c = 0; c < Lt::kChunks; ++c) {
+        float kf[Lt::kVec];
+        unpack(*reinterpret_cast<const uint4*>(krow + c * Lt::kVec), kf, T());
+#pragma unroll
+        for (int r = 0; r < Lt::kHeadsS; ++r) {
+          const int i = ig + r * (kThreads / kBK);
+          if (i < G) {
+            const float4* qv = reinterpret_cast<const float4*>(qs + i * D + c * Lt::kVec);
+#pragma unroll
+            for (int v = 0; v < Lt::kVec / 4; ++v) {
+              const float4 qq = qv[v];
+              float& a = s[r][(c * (Lt::kVec / 4) + v) % 4];
+              a = fmaf(qq.x, kf[4 * v], a);
+              a = fmaf(qq.y, kf[4 * v + 1], a);
+              a = fmaf(qq.z, kf[4 * v + 2], a);
+              a = fmaf(qq.w, kf[4 * v + 3], a);
+            }
+          }
+        }
+      }
+      const bool in = k0 + jl < n_pos;
+#pragma unroll
+      for (int r = 0; r < Lt::kHeadsS; ++r) {
+        const int i = ig + r * (kThreads / kBK);
+        if (i < G)
+          ps[i * span + k0 + jl] = in ? ((s[r][0] + s[r][1]) + (s[r][2] + s[r][3])) * scale
+                                      : kNegInf;
+      }
+    } else {
+      const int k0 = (u - nt) * kBK;
+#pragma unroll 4
+      for (int j = 0; j < kBK; j += 4) {
+        float2 v[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) v[jj] = load2(stage + (j + jj) * Lt::kRow + 2 * pr);
+#pragma unroll
+        for (int r = 0; r < Lt::kHeadsPV; ++r) {
+          const int i = grp + r * Lt::kGroups;
+          if (i < G) {  // even positions into acc[r][0], odd into acc[r][1]
+            const float4 p = *reinterpret_cast<const float4*>(ps + i * span + k0 + j);
+            acc[r][0][0] = fmaf(p.x, v[0].x, acc[r][0][0]);
+            acc[r][0][1] = fmaf(p.x, v[0].y, acc[r][0][1]);
+            acc[r][1][0] = fmaf(p.y, v[1].x, acc[r][1][0]);
+            acc[r][1][1] = fmaf(p.y, v[1].y, acc[r][1][1]);
+            acc[r][0][0] = fmaf(p.z, v[2].x, acc[r][0][0]);
+            acc[r][0][1] = fmaf(p.z, v[2].y, acc[r][0][1]);
+            acc[r][1][0] = fmaf(p.w, v[3].x, acc[r][1][0]);
+            acc[r][1][1] = fmaf(p.w, v[3].y, acc[r][1][1]);
+          }
+        }
       }
     }
-    __syncthreads();
-
+    issue(u + kStages - 1);
+  }
+  cp_async_wait<0>();
+  float o2[Lt::kHeadsPV][2];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int e = tid + r * kThreads, i = e / D, d = e % D;
+  for (int r = 0; r < Lt::kHeadsPV; ++r) {
+    o2[r][0] = acc[r][0][0] + acc[r][1][0];
+    o2[r][1] = acc[r][0][1] + acc[r][1][1];
+  }
+
+  if (n_active == 1) {  // the whole row in this split: no merge
+#pragma unroll
+    for (int r = 0; r < Lt::kHeadsPV; ++r) {
+      const int i = grp + r * Lt::kGroups;
       if (i < G) {
-        float pv = 0.f;
+        store(out + i * D + 2 * pr, o2[r][0] / fmaxf(l_s[i], 1e-30f));
+        store(out + i * D + 2 * pr + 1, o2[r][1] / fmaxf(l_s[i], 1e-30f));
+      }
+    }
+    return;
+  }
+
+  // this split's partial: (m, l) and the unnormalised acc, in fp32
+  float* my_acc = ws_acc + ((long long)bh * n_split + split) * kMaxG * D;
+  float* my_ml = ws_ml + ((long long)bh * n_split + split) * 2 * kMaxG;
+#pragma unroll
+  for (int r = 0; r < Lt::kHeadsPV; ++r) {
+    const int i = grp + r * Lt::kGroups;
+    if (i < G) *reinterpret_cast<float2*>(my_acc + i * D + 2 * pr) = make_float2(o2[r][0], o2[r][1]);
+  }
+  if (tid < G) {
+    my_ml[tid] = m_s[tid];
+    my_ml[kMaxG + tid] = l_s[tid];
+  }
+  __threadfence();  // the partial is visible device-wide before it is counted
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(counters + bh, 1) == n_active - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (tid == 0) counters[bh] = 0;  // ready for the next call
+
+  // the merge, in a fixed order: M = max_s m_s and the weights
+  // w_s = exp(m_s - M) once a head, then l = sum_s w_s l_s (lanes over
+  // splits, a warp tree) and acc = sum_s w_s acc_s in split order, the
+  // partials' loads many at a time; weights in the ring, a pass of `cap`
+  // splits at a time
+  const float* base_acc = ws_acc + (long long)bh * n_split * kMaxG * D;
+  const float* base_ml = ws_ml + (long long)bh * n_split * 2 * kMaxG;
+  float* w_s = reinterpret_cast<float*>(ring);
+  constexpr int cap = kStages * Lt::kStage * (int)sizeof(T) / (int)sizeof(float) / kMaxG;
+  if (warp < G) {
+    float mx = kNegInf;
+    for (int sp = lane; sp < n_active; sp += 32) mx = fmaxf(mx, __ldcg(base_ml + sp * 2 * kMaxG + warp));
+    mx = warp_max(mx);
+    if (lane == 0) {
+      m_s[warp] = mx;
+      l_s[warp] = 0.f;
+    }
+  }
+  float a[Lt::kMergeElems];
+#pragma unroll
+  for (int r = 0; r < Lt::kMergeElems; ++r) a[r] = 0.f;
+  for (int c0 = 0; c0 < n_active; c0 += cap) {
+    const int cn = min(cap, n_active - c0);
+    __syncthreads();  // M is known; the previous pass is done with the weights
+    for (int x = tid; x < G * cn; x += kThreads) {
+      const int i = x / cn, sp = x % cn;
+      w_s[i * cap + sp] = expf(__ldcg(base_ml + (c0 + sp) * 2 * kMaxG + i) - m_s[i]);
+    }
+    __syncthreads();
+    if (warp < G) {
+      float v = 0.f;
+      for (int sp = lane; sp < cn; sp += 32)
+        v = fmaf(w_s[warp * cap + sp], __ldcg(base_ml + (c0 + sp) * 2 * kMaxG + kMaxG + warp), v);
+      v = warp_sum(v);
+      if (lane == 0) l_s[warp] += v;
+    }
+    const float* pa = base_acc + (long long)c0 * kMaxG * D;
 #pragma unroll 8
-        for (int j = 0; j < kBK; ++j) pv = fmaf(ps[i * kBK + j], vs[j * D + d], pv);
-        acc[r] = acc[r] * a_s[i] + pv;
+    for (int sp = 0; sp < cn; ++sp) {
+#pragma unroll
+      for (int r = 0; r < Lt::kMergeElems; ++r) {
+        const int e = tid + r * kThreads;
+        if (e < G * D)
+          a[r] = fmaf(w_s[(e / D) * cap + sp], __ldcg(pa + (long long)sp * kMaxG * D + e), a[r]);
       }
     }
   }
   __syncthreads();
-
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int e = tid + r * kThreads, i = e / D, d = e % D;
-    if (i < G)
-      store(o + ((long long)b * H + hk * G + i) * D + d, acc[r] / fmaxf(l_s[i], 1e-30f));
+  for (int r = 0; r < Lt::kMergeElems; ++r) {
+    const int e = tid + r * kThreads;
+    if (e < G * D) store(out + e, a[r] / fmaxf(l_s[e / D], 1e-30f));
   }
+}
+
+// Raise a kernel's dynamic shared memory limit to `bytes` (its most), once a
+// device (`done`, one array a kernel): the call costs microseconds of host
+// time, more than some launches.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kern, int bytes, bool* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* pool_k, const void* pool_v, const void* table,
-           const void* length, void* o, int K, int H, int Hkv, int P, int page, int maxp,
-           float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)kMaxG * D + (size_t)kBK * (D + 1) +
-                                       (size_t)kBK * D + (size_t)kMaxG * kBK + 3 * kMaxG);
+           const void* length, void* o, void* ws_acc, void* ws_ml, void* counters, int K, int H,
+           int Hkv, int P, int page, int maxp, int span, float scale, cudaStream_t stream) {
+  using Lt = Layout<T, D>;
   auto kern = paged_attention_kernel<T, D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static bool done[64] = {};
+  const cudaError_t err = allow_smem(kern, (int)Lt::smem(kMaxSpan), done);
   if (err != cudaSuccess) return (int)err;
-  kern<<<K * Hkv, kThreads, smem, stream>>>(
+  const int n_split = (maxp * page + span - 1) / span;
+  kern<<<(unsigned)((long long)K * Hkv * n_split), kThreads, Lt::smem(span), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(pool_k), static_cast<const T*>(pool_v),
-      static_cast<const int*>(table), static_cast<const int*>(length), static_cast<T*>(o), H,
-      Hkv, P, page, maxp, scale);
+      static_cast<const int*>(table), static_cast<const int*>(length), static_cast<T*>(o),
+      static_cast<float*>(ws_acc), static_cast<float*>(ws_ml), static_cast<int*>(counters), H,
+      Hkv, P, page, (page & (page - 1)) ? -1 : __builtin_ctz(page), maxp, span, n_split, scale);
   return (int)cudaGetLastError();
 }
 
@@ -215,29 +440,35 @@ int launch(const void* q, const void* pool_k, const void* pool_v, const void* ta
 
 // q (K, 1, H, D) contiguous; pool_k/pool_v (Hkv, P, page, D) contiguous in
 // q's dtype, 16-byte aligned; table (K, maxp) and length (K,) int32 on the
-// device; o (K, 1, H, D) contiguous.  D in {64, 128}; H / Hkv <= 8.
+// device; o (K, 1, H, D) contiguous.  D in {64, 128}; H / Hkv <= 8; span a
+// multiple of 64 in [64, 512].  ws_acc (K x Hkv x n_split x 8 x D) and
+// ws_ml (K x Hkv x n_split x 16) fp32 scratch, n_split = ceil(maxp x page /
+// span); counters (K x Hkv) int32, zero before the call and zero after it.
 extern "C" int sm_paged_attention(const void* q, const void* pool_k, const void* pool_v,
-                                  const void* table, const void* length, void* o, int K, int H,
-                                  int Hkv, int D, int P, int page, int maxp, int is_bf16,
-                                  float scale, void* stream) {
+                                  const void* table, const void* length, void* o, void* ws_acc,
+                                  void* ws_ml, void* counters, int K, int H, int Hkv, int D,
+                                  int P, int page, int maxp, int span, int is_bf16, float scale,
+                                  void* stream) {
   cudaGetLastError();  // clear a stale error so the return value is this launch's
   if (K < 1 || Hkv < 1 || H % Hkv || H / Hkv > kMaxG || P < 1 || page < 1 || maxp < 1 ||
-      (long long)K * Hkv > 2147483647LL)
+      span < kBK || span > kMaxSpan || span % kBK)
     return (int)cudaErrorInvalidValue;
+  const long long n_split = ((long long)maxp * page + span - 1) / span;
+  if ((long long)K * Hkv * n_split > 2147483647LL) return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<unsigned long long>(pool_k) % 16 ||
       reinterpret_cast<unsigned long long>(pool_v) % 16)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+#define SM_PAGED_LAUNCH(T, DD)                                                                  \
+  return launch<T, DD>(q, pool_k, pool_v, table, length, o, ws_acc, ws_ml, counters, K, H, Hkv, \
+                       P, page, maxp, span, scale, s)
   if (is_bf16) {
-    if (D == 64)
-      return launch<__nv_bfloat16, 64>(q, pool_k, pool_v, table, length, o, K, H, Hkv, P, page, maxp, scale, s);
-    if (D == 128)
-      return launch<__nv_bfloat16, 128>(q, pool_k, pool_v, table, length, o, K, H, Hkv, P, page, maxp, scale, s);
+    if (D == 64) SM_PAGED_LAUNCH(__nv_bfloat16, 64);
+    if (D == 128) SM_PAGED_LAUNCH(__nv_bfloat16, 128);
   } else {
-    if (D == 64)
-      return launch<float, 64>(q, pool_k, pool_v, table, length, o, K, H, Hkv, P, page, maxp, scale, s);
-    if (D == 128)
-      return launch<float, 128>(q, pool_k, pool_v, table, length, o, K, H, Hkv, P, page, maxp, scale, s);
+    if (D == 64) SM_PAGED_LAUNCH(float, 64);
+    if (D == 128) SM_PAGED_LAUNCH(float, 128);
   }
+#undef SM_PAGED_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

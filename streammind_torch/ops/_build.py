@@ -11,6 +11,7 @@ Nothing here runs when the module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -111,10 +112,10 @@ SIGNATURES = {
     "exact_attention": ("sm_exact_attention", [_P] * 4 + [_I] * 7 + [_L] * 9 + [_F, _P]),
     "int4_matvec": ("sm_int4_matvec", [_P] * 4 + [_I] * 4 + [_P]),
     "paged_write": ("sm_paged_write", [_P] * 6 + [_I] * 5 + [_P]),
-    "paged_attention": ("sm_paged_attention", [_P] * 6 + [_I] * 8 + [_F, _P]),
+    "paged_attention": ("sm_paged_attention", [_P] * 9 + [_I] * 9 + [_F, _P]),
     "flash_bwd_dq": ("sm_flash_bwd_dq", [_P] * 8 + [_I] * 8 + [_L] * 12 + [_F, _P]),
     "flash_bwd_dkv": ("sm_flash_bwd_dkv", [_P] * 9 + [_I] * 8 + [_L] * 12 + [_F, _P]),
-    "int8_matvec": ("sm_int8_matvec", [_P] * 4 + [_I] * 4 + [_P]),
+    "int8_matvec": ("sm_int8_matvec", [_P] * 4 + [_I] * 5 + [_P]),
     "selective_scan": ("sm_selective_scan", [_P] * 11 + [_I] * 6 + [_L] * 15 + [_P]),
 }
 
@@ -137,6 +138,14 @@ def kernel(name: str):
                 _libs[name] = lib
             lib = _libs[name]
     return getattr(lib, SIGNATURES[name][0])
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (the wrappers size grids by it)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

@@ -4,11 +4,14 @@
 int8 gate (``quantize_gate="int8"``) at one token a frame, and the int8
 decoder (``quantize_text_params(bits=8)``) at one token a decode step.
 Both are pure weight bandwidth, so the kernel reads each int8 weight byte
-once and converts it in registers right before the dot products.
+once and converts it in registers right before the products: for bf16 x on
+the tensor cores (the weights as bf16, exactly), for fp32 x on CUDA-core
+FMAs; x is staged once a block in shared memory.
 
-Numerics: x is taken at its own precision (fp32 or bf16, widened to fp32),
-the sum is fp32, the row's fp32 scale multiplies the sum, and the result
-is rounded once to x's dtype.
+Numerics: x is taken at its own precision (fp32 or bf16), every product is
+exact in fp32, the sum is fp32 (in another order than the plain version's),
+the row's fp32 scale multiplies the sum, and the result is rounded once to
+x's dtype.
 
 ``int8_matvec`` takes ``int8_matvec_ref`` only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  ``int8_matvec.launches``
@@ -16,11 +19,26 @@ counts its launches.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
 
 MAX_TOKENS = 8
+
+
+@functools.lru_cache(maxsize=None)
+def _row_tiles(dout: int, device: torch.device) -> int:
+    """Tiles of 16 rows a block of the bf16 kernel: the most, up to 8, that
+    still give every SM a block; 1 for outputs too small for that (the
+    block's 8 warps then split each tile's input columns).  Chosen by a
+    sweep of 1, 2, 4 and 8 on an H100 (``tools/decode_kernels_bench.py
+    --sweep``, PERF.md)."""
+    tiles, rt = -(-dout // 16), 8
+    while rt > 1 and -(-tiles // rt) < _build.sm_count(device):
+        rt //= 2
+    return rt
 
 
 def int8_matvec_ref(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -60,7 +78,7 @@ def int8_matvec(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor) -> t
     y = torch.empty((b, dout), dtype=x.dtype, device=x.device)
     err = _build.kernel("int8_matvec")(
         x.data_ptr(), w_int8.data_ptr(), scale.data_ptr(), y.data_ptr(),
-        b, din, dout, int(x.dtype == torch.bfloat16),
+        b, din, dout, int(x.dtype == torch.bfloat16), _row_tiles(dout, x.device),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "int8_matvec")

@@ -10,9 +10,12 @@ offset ``t % page``.  Page 0 is the write sink, never given to a dialogue.
                                  ``write_tokens_ref``.
   * ``paged_decode_attention`` — one-token GQA attention over each row's
                                  page table and length; kernel
-                                 ``csrc/paged_attention.cu``, plain version
-                                 ``paged_decode_attention_ref`` (gather, then
-                                 ``mha_reference`` with a length mask).
+                                 ``csrc/paged_attention.cu`` (split over the
+                                 keys in spans of ``_span`` positions, the
+                                 splits merged in a fixed order), plain
+                                 version ``paged_decode_attention_ref``
+                                 (gather, then ``mha_reference`` with a
+                                 length mask).
 
 Each wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``<wrapper>.launches`` counts
@@ -20,6 +23,7 @@ the kernel's launches.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -29,7 +33,28 @@ from .attention import mha_reference
 
 _ATTN_HEAD_DIMS = (64, 128)
 _ATTN_MAX_GROUP = 8         # query heads per kv head the kernel holds
+# the spans of positions a block of the attention kernel may cover
+# (multiples of 64, at most 512)
+SPANS = (256, 512)
+_MAX_BLOCKS = 2 ** 31 - 1
+# per device: the kernel's (row, kv head) counters, zero between calls (the
+# kernel's last block of each pair sets its counter back to zero), and the
+# fp32 workspace of the splits' partials; kept between calls (the launches
+# on a stream run in order), grown when a call needs more
+_scratch = {}
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=None)
+def _span(rows: int, width: int, device: torch.device) -> int:
+    """Positions a block covers: the shorter span where, were every split
+    active, the (row x kv head, split) blocks would still be at most two an
+    SM, else the longer.  From shapes alone (``rows`` = K x Hkv, ``width`` =
+    the table's positions), never from the lengths on the device.  On an
+    H100 at Mistral-7B's shapes: 256 at K 1 over 8192 positions, 512 from
+    K 2 (PERF.md)."""
+    short, long_ = SPANS
+    return short if rows * -(-width // short) <= 2 * _build.sm_count(device) else long_
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -133,7 +158,10 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.
     """q (K, 1, H, D); pools (Hkv, P, page, D) in q's dtype; table (K,
     maxp) int32 page ids; length (K,) int32 valid tokens per row, clamped
     to maxp * page.  Softmax over each row's first ``length`` positions
-    with the scale 1/sqrt(D).  Returns (K, 1, H, D) in q's dtype."""
+    with the scale 1/sqrt(D); a row of length 0 gives 0 on the card.
+    Returns (K, 1, H, D) in q's dtype.  The kernel's blocks count their
+    splits in a per-device buffer, so two calls on one device must not
+    run at once on different streams."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, pool_k, pool_v, table, length)
     if not q.is_cuda:
@@ -150,15 +178,27 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.
     if h % hkv or not 1 <= h // hkv <= _ATTN_MAX_GROUP:
         raise ValueError(f"paged_decode_attention: {h} heads over {hkv} kv heads (group of at "
                          f"most {_ATTN_MAX_GROUP})")
-    if table.dim() != 2 or table.shape[0] != K or K * hkv > 65535:
+    maxp = table.shape[1] if table.dim() == 2 else 0
+    span = _span(K * hkv, maxp * page, q.device)
+    n_split = -(-maxp * page // span)
+    if table.dim() != 2 or table.shape[0] != K or K * hkv * n_split > _MAX_BLOCKS:
         raise ValueError(f"paged_decode_attention: table {tuple(table.shape)} for {K} rows")
     table = _rows_i32("paged_decode_attention", table, q.device, tuple(table.shape))
     length = _rows_i32("paged_decode_attention", length, q.device, (K,))
     q = q.contiguous()
     out = torch.empty_like(q)
+    # each split's partial, for the merge: acc, then (m, l)
+    n_acc = K * hkv * n_split * _ATTN_MAX_GROUP * d
+    n_ws = n_acc + K * hkv * n_split * 2 * _ATTN_MAX_GROUP
+    counters, ws = _scratch.get(q.device, (None, None))
+    if counters is None or counters.numel() < K * hkv or ws.numel() < n_ws:
+        counters, ws = _scratch[q.device] = (
+            torch.zeros(max(K * hkv, 256), dtype=torch.int32, device=q.device),
+            torch.empty(max(n_ws, 1 << 20), device=q.device))
     err = _build.kernel("paged_attention")(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), table.data_ptr(), length.data_ptr(),
-        out.data_ptr(), K, h, hkv, d, n_pages, page, table.shape[1],
+        out.data_ptr(), ws.data_ptr(), ws.data_ptr() + ws.element_size() * n_acc,
+        counters.data_ptr(), K, h, hkv, d, n_pages, page, maxp, span,
         int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d), _stream(q),
     )
     _build.check(err, "paged_decode_attention")

@@ -10,7 +10,9 @@ tests/test_torch_ops.py and tests/test_torch_paged.py hold against the JAX
 package).  Tolerances: fp32 outputs 1e-4 (sums in another order); bf16
 outputs 4e-3 + 1e-2·|ref| (one bf16 rounding step either way, plus about
 twice the largest error measured on an H100 at the main path's shapes, as
-in chip_smoke.py); the paged pool write is a copy and must be bitwise.  The
+in chip_smoke.py); the paged pool write is a copy and must be bitwise;
+paged attention splits each row's keys over blocks and merges them in a
+fixed order, so a second call must give the same bits.  The
 training kernels get the same output limits (kernel and plain version read
 the same inputs and both accumulate in fp32), but for the bf16 dQ, dK and
 dV: the tensor-core kernels round each dS and P term to bf16 before its
@@ -264,6 +266,9 @@ def test_int4_quantize_bytes_do_not_depend_on_the_device(dev):
     (1, 4096, 1024), (8, 4096, 6144), (4, 14336, 4096),   # the gate's v, fused qkv, down
     (2, 4096, 28672),                                      # the fused gate/up
     (3, 30, 17), (5, 200, 40), (7, 1000, 9),               # rows not a multiple of 16 bytes
+    (8, 14336, 4096),                                      # x staged in chunks at B 8
+    (5, 2064, 40), (6, 4160, 23),                          # a partial last 64-column step, odd rows
+    *[(b, 4096, 1024) for b in (2, 3, 5, 6, 7, 8)],        # every B the kernel takes
 ])
 def test_int8_kernel_matches_plain(dev, dtype, b, din, dout):
     rng = np.random.default_rng(9)
@@ -368,9 +373,17 @@ def test_paged_write_kernel_is_bitwise_the_plain_copy(dev, dtype, k):
         (32, 8, 128, 64, 8, [1, 512, 513, 100]),   # Mistral's heads: short, full, past the table
         (4, 4, 64, 8, 5, [40, 17]),                # MHA, page 8, full row
         (16, 2, 128, 16, 6, [95, 33, 64]),         # group of 8 (the kernel's most)
+        # 128-page tables: one 8192-token row beside short, ragged and
+        # finished rows, and a row of length 0
+        (32, 8, 128, 64, 128, [8192, 37, 8193, 3000, 0, 65, 5000, 129]),
+        # lengths about a split boundary (spans of 256 and 512), pages of 8
+        (28, 4, 128, 8, 160, [255, 256, 257, 511, 512, 513, 1023, 1280]),
+        (28, 4, 128, 16, 40, [1, 300, 640, 641]),  # Qwen2-7B's group of 7, pages of 16
     ],
 )
 def test_paged_attention_kernel_matches_plain(dev, dtype, h, hkv, d, page, maxp, lengths):
+    """Against the plain version; a row of length 0 gives 0; a second call
+    gives the same bits (the splits merge in a fixed order)."""
     rng = np.random.default_rng(5)
     k = len(lengths)
     pages = k * maxp + 1
@@ -381,9 +394,14 @@ def test_paged_attention_kernel_matches_plain(dev, dtype, h, hkv, d, page, maxp,
     length = torch.tensor(lengths, dtype=torch.int32, device=dev)
     n0 = PA.paged_decode_attention.launches
     out = PA.paged_decode_attention(q, pool_k, pool_v, table, length)
+    again = PA.paged_decode_attention(q, pool_k, pool_v, table, length)
     torch.cuda.synchronize()
-    assert PA.paged_decode_attention.launches == n0 + 1 and out.shape == q.shape
-    _close(out, PA.paged_decode_attention_ref(q, pool_k, pool_v, table, length), dtype)
+    assert PA.paged_decode_attention.launches == n0 + 2 and out.shape == q.shape
+    assert torch.equal(out, again)
+    live = [i for i, n in enumerate(lengths) if n > 0]
+    ref = PA.paged_decode_attention_ref(q, pool_k, pool_v, table, length)
+    _close(out[live], ref[live], dtype)
+    assert not out[[i for i, n in enumerate(lengths) if n == 0]].any()
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

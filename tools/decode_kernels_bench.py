@@ -1,0 +1,210 @@
+#!/usr/bin/env python3
+"""Time the paged decode attention and int8 matvec kernels of one or more
+source trees on one CUDA card, in turns.
+
+    python3 tools/decode_kernels_bench.py [--tree DIR ...] [--sweep] [--others] [--fp32]
+                                          [--out FILE]
+
+Each ``--tree`` (a checkout of the repository, the directory that holds
+``streammind_torch/``; default: this repository) is measured in a process
+of its own, in the order given, so ``--tree old --tree . --tree . --tree
+old`` runs parent, change, change, parent within one call.  Each process
+builds that tree's two kernels and times them with ``chip_smoke.py``'s
+cases of this repository: ``paged_decode_attention`` at K 1, 4 and 8 over
+``PAGED_LENGTHS`` and at the serving phase's K = 3 lengths, and
+``int8_matvec`` at ``INT8_SHAPES`` for B 1, 4 and 8 (bf16 x; fp32 x with
+``--fp32``), each by CUDA graph replay and eagerly, beside its yardstick
+(SDPA over pre-gathered pages, ``F.linear`` on the dequantized weight) and
+its bound.  With ``--sweep`` a tree whose paged wrapper has ``_span`` is
+also timed at each span in ``SPANS``, and one whose int8 wrapper has
+``_row_tiles`` at each block height in ``ROW_TILES`` (bf16, B 1 and 8).
+With ``--others`` it times instead, the same two ways, the int4 matvec,
+the paged write and the selective scan at ``chip_smoke.py``'s shapes.  It
+prints one line per tree and case and, given ``--out FILE``, writes them
+all there as JSON lines.  Fails without a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+# the lengths paged_decode_attention is given in the first lockstep step of
+# chip_smoke.py's serving phase (its K = 3 turn)
+SERVING_LENGTHS = [37, 37, 37]
+SPANS = (128, 256, 512)
+ROW_TILES = (1, 2, 4, 8)
+
+
+def harness(tree: Path):
+    """This repository's chip_smoke.py as a module, with ``tree`` first on
+    the path, so that the cases come from here and the kernels from there."""
+    import importlib.util
+
+    sys.path.insert(0, str(tree))
+    spec = importlib.util.spec_from_file_location("decode_bench_cases", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def measure(tree: Path, sweep: bool, fp32: bool) -> list:
+    cs = harness(tree)
+    import torch
+
+    from streammind_torch.ops import _build
+    from streammind_torch.ops import int8_matvec as I8
+    from streammind_torch.ops import paged_attention as PA
+
+    if not torch.cuda.is_available():
+        raise SystemExit("decode_kernels_bench: no CUDA device")
+    assert Path(PA.__file__).resolve().is_relative_to(tree.resolve()), PA.__file__
+    _build.build_all(["paged_attention", "int8_matvec"])
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(1234)
+
+    def randn(*shape):
+        return torch.empty(shape, device=dev, dtype=torch.bfloat16).normal_(generator=g)
+
+    rows = []
+    pool_k, pool_v = cs.paged_pool(randn)
+    spans = (None,) + (SPANS if sweep and hasattr(PA, "_span") else ())
+    default = getattr(PA, "_span", None)
+    for span in spans:
+        if span is not None:
+            PA._span = lambda rows, width, device, span=span: span
+        for lengths in [cs.PAGED_LENGTHS[:k] for k in (1, 4, 8)] + [SERVING_LENGTHS]:
+            c = cs.paged_attention_case(dev, randn, pool_k, pool_v, lengths)
+            rows.append(dict(kernel="paged_attention", span=span, **c))
+    if default is not None:
+        PA._span = default
+    del pool_k, pool_v
+    torch.cuda.empty_cache()
+    dtypes = (torch.bfloat16, torch.float32) if fp32 else (torch.bfloat16,)
+    for c in cs.int8_cases(dev, g, dtypes=dtypes):
+        rows.append(dict(kernel="int8_matvec", **c))
+    if sweep and hasattr(I8, "_row_tiles"):
+        default = I8._row_tiles
+        for rt in ROW_TILES:
+            I8._row_tiles = lambda dout, device, rt=rt: rt
+            for c in cs.int8_cases(dev, g, dtypes=(torch.bfloat16,), batches=(1, 8)):
+                rows.append(dict(kernel="int8_matvec", row_tiles=rt, **c))
+        I8._row_tiles = default
+    return rows
+
+
+def measure_others(tree: Path) -> list:
+    """The three kernels no PR has redesigned yet, by graph replay and
+    eagerly, at chip_smoke.py's shapes: int4_matvec at the gate's four
+    linears (B 1), write_tokens at K 1, 4 and 8, selective_scan_kernel at
+    the burst's L 32 (bf16, carried state)."""
+    cs = harness(tree)
+    import torch
+
+    from streammind_torch.ops import paged_attention as PA
+    from streammind_torch.ops import scan as S
+    from streammind_torch.ops.int4_matvec import int4_matvec
+    from streammind_torch.utils.quantize import quantize_linear_weight_int4_pc
+
+    dev, rows = "cuda", []
+    g = torch.Generator(device=dev).manual_seed(99)
+
+    def randn(*shape, std=1.0, dtype=torch.bfloat16):
+        return torch.empty(shape, device=dev, dtype=dtype).normal_(0.0, std, generator=g)
+
+    def timed(kernel, shape, fns, nbytes, flops, peak):
+        b_ms, b_by = cs.bound(nbytes, flops, peak)
+        ms, eager = cs.cuda_ms(fns, graph=True), cs.cuda_ms(fns)
+        rows.append(dict(kernel=kernel, shape=shape, ms=ms, eager_ms=eager, bound_ms=b_ms,
+                         bound_by=b_by, ms_over_bound=ms / b_ms))
+
+    for name, dout, din in cs.INT8_SHAPES[:4]:
+        n_copy = max(1, -(-int(120e6) // (dout * din // 2)))
+        packs = [quantize_linear_weight_int4_pc(randn(dout, din, std=0.02)) for _ in range(n_copy)]
+        x = randn(1, din)
+        timed("int4_matvec", f"{name}: x(1,{din}) W({dout},{din}/2)",
+              [lambda p=p: int4_matvec(x, p["w_int4pc"], p["scale"]) for p in packs],
+              dout * din / 2 + 4 * dout + 2 * din + 2 * dout, 2.0 * dout * din, cs.BF16_FLOPS)
+        del packs
+    pool_k, pool_v = cs.paged_pool(randn)
+    n_pages, page = cs.PAGED_SHAPE["n_pages"], cs.PAGED_SHAPE["page"]
+    for k in (1, 4, 8):
+        sets = [(randn(k, 8, 128), randn(k, 8, 128),
+                 (torch.randperm(n_pages, device=dev)[:k] + 1).to(torch.int32),
+                 torch.randint(0, page, (k,), dtype=torch.int32, device=dev)) for _ in range(64)]
+        timed("paged_write", f"tokens({k},8,128) into pool(8,{n_pages + 1},64,128)",
+              [lambda s=s: PA.write_tokens(pool_k, pool_v, *s) for s in sets],
+              2 * (2 * 2 * k * 8 * 128) + 8 * k, 0.0, cs.BF16_FLOPS)
+    del pool_k, pool_v
+    d, n, length = 8192, 16, 32
+
+    def scan_case():  # laid out as the Mamba mixer hands them over
+        xz, dtp, x_dbl = (randn(1, length, 2 * d), randn(1, length, d, std=0.5),
+                          randn(1, length, 256 + 2 * n))
+        args = (xz[..., :d].transpose(1, 2), dtp.transpose(1, 2),
+                -torch.exp(randn(d, n, std=0.5, dtype=torch.float32)),
+                x_dbl[..., 256:256 + n].transpose(1, 2), x_dbl[..., 256 + n:].transpose(1, 2))
+        return args, dict(D=randn(d, dtype=torch.float32), z=xz[..., d:].transpose(1, 2),
+                          delta_bias=randn(d, dtype=torch.float32), delta_softplus=True,
+                          return_last_state=True, h0=randn(1, d, n, dtype=torch.float32))
+
+    nbytes = 2 * (4 * d * length + 2 * n * length) + 4 * (d * n + 2 * d) + 4 * d * n * 2
+    sets = [scan_case() for _ in range(cs.n_sets(nbytes))]
+    timed("selective_scan", f"u/dt/z (1,{d},{length}) bfloat16 A({d},{n}) h0=yes",
+          [lambda c=c: S.selective_scan(*c[0], **c[1], impl="pallas") for c in sets],
+          nbytes, (7.0 * n + 12.0) * d * length, cs.FP32_FLOPS)
+    return rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", action="append", type=Path)
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--fp32", action="store_true")
+    ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--others", action="store_true")
+    ap.add_argument("--one", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.one is not None:
+        rows = measure_others(args.one) if args.others else measure(args.one, args.sweep,
+                                                                    args.fp32)
+        for row in rows:
+            print(json.dumps(row), flush=True)
+        return 0
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+    with open(args.out or os.devnull, "w") as f:
+        for i, tree in enumerate(args.tree or [REPO]):
+            cmd = [sys.executable, __file__, "--one", str(tree.resolve())]
+            cmd += ["--sweep"] * args.sweep + ["--fp32"] * args.fp32 + ["--others"] * args.others
+            out = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+            if out.returncode:
+                sys.stderr.write(out.stdout[-4000:] + out.stderr[-8000:])
+                return out.returncode
+            for line in out.stdout.splitlines():
+                row = dict(run=i, tree=str(tree), card=smi, **json.loads(line))
+                f.write(json.dumps(row) + "\n")
+                if args.others:
+                    print(f"run {i} {tree} {row['kernel']} {row['shape']}: ms={row['ms']:.4f} "
+                          f"eager={row['eager_ms']:.4f} bound={row['bound_ms']:.4f} "
+                          f"x{row['ms_over_bound']:.2f}", flush=True)
+                    continue
+                knob = (f"span={row['span']}" if "span" in row
+                        else f"row_tiles={row.get('row_tiles')}")
+                print(f"run {i} {tree} {row['kernel']} {knob} {row['shape']}: "
+                      f"ok={row['ok']} err={row['max_abs_err']:.3e} ms={row['ms']:.4f} "
+                      f"eager={row['eager_ms']:.4f} library={row['library_ms']:.4f} "
+                      f"(eager {row['library_eager_ms']:.4f}) bound={row['bound_ms']:.4f} "
+                      f"x{row['ms'] / row['bound_ms']:.2f}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
