@@ -13,14 +13,19 @@ Phases, each of which raises (exit code != 0) on failure:
      paths' shapes, with its tolerance; times of the kernel, its plain
      version and one PyTorch yardstick call, beside the card's bound (the
      bf16 flash forward, lse forward, dQ, dK/dV and exact attention,
-     tensor-core kernels, paged attention and the int8 matvec, and their
-     yardsticks are timed by replaying a CUDA graph of the launches, and
-     eagerly too; their kernel / bound is printed, and dQ + dK/dV beside
-     SDPA's backward); the GQA group of 7 (Qwen2-7B's 28 / 4 heads) runs
-     the flash forward at bucket 64 over the ring and the three training
-     kernels at 2048; paged attention must give the same bits twice (its
-     splits merge in a fixed order), and after phase 5 it is checked and
+     tensor-core kernels, paged attention, the int8 and int4 matvecs, and
+     their yardsticks are timed by replaying a CUDA graph of the launches,
+     and eagerly too; their kernel / bound is printed, and dQ + dK/dV beside
+     SDPA's backward); the int4 matvec at the gate's four linears, B 1, 4
+     and 8, bf16 and fp32 x; the GQA group of 7 (Qwen2-7B's 28 / 4 heads)
+     runs the flash forward at bucket 64 over the ring and the three
+     training kernels at 2048; paged attention must give the same bits twice
+     (its splits merge in a fixed order), and after phase 5 it is checked and
      timed once more at the lengths the serving phase's K = 3 turn gave it;
+     with the decode step's token write folded into its launch, pools and
+     output must be bitwise those of the plain write then the write-free
+     kernel, twice, at the serving turn's K = 3, K 1 and K 8 with a row that
+     writes the sink page;
   4. the full-width StreamMind-7B session (random bf16 weights from a seed):
      ViT-L/14-336 under attn_impl="exact", Mamba d_model 4096, the 4-layer
      gate under quantize_gate="int4", Mistral-7B; 10 frames with two forced
@@ -31,7 +36,9 @@ Phases, each of which raises (exit code != 0) on failure:
      MultiStreamServer(kv_mode="paged", page_size=64) with four client
      threads for 8 ticks; three gates fire together on one tick (one
      batched paged turn, K = 3) and one alone on a later tick (K = 1); the
-     launch counts show the path ran through all five kernels;
+     launch counts show the path ran through all four inference kernels
+     (exact, int4, flash, and paged attention, which writes each step's
+     token in the same launch: one launch a layer a step, no separate write);
   6. a reduced-depth parity run at the published widths in fp32 (TF32 off):
      the same seeded weights and frames through the plain versions on the
      CPU and through the kernels on the card, for the session and for the
@@ -72,8 +79,9 @@ then the ``kernels`` JSON line (``launches`` from the serving phase for the
 inference kernels, from the training phase for the training kernels and from
 the fast phase for int8_matvec and selective_scan; ``tc_launches``, ``hgmma``
 and ``ms_over_bound`` for the five tensor-core kernels, ``ms_over_bound`` for
-paged attention and the int8 matvec) and, last, the ``ok``
-JSON line.  The fp32 parity phases must launch no tensor-core kernel.  It
+paged attention, the int8 and int4 matvecs and the paged write, whose
+launches are the paged attention's launches that wrote a token) and, last,
+the ``ok`` JSON line.  The fp32 parity phases must launch no tensor-core kernel.  It
 uses nothing of JAX; without a CUDA card it exits with an error before any
 result.
 """
@@ -109,7 +117,8 @@ KERNEL_META = {
     "flash_attention": ("streammind_torch/csrc/flash_attention.cu", "ops/attention.py:76"),
     "exact_attention": ("streammind_torch/csrc/exact_attention.cu", "ops/attention.py:255"),
     "int4_matvec": ("streammind_torch/csrc/int4_matvec.cu", "ops/int4_matvec.py:37"),
-    "paged_write": ("streammind_torch/csrc/paged_write.cu", "streaming/paged.py:89"),
+    # the token write, folded into the paged attention's launch (its write phase)
+    "paged_write": ("streammind_torch/csrc/paged_attention.cu", "streaming/paged.py:89"),
     "paged_attention": ("streammind_torch/csrc/paged_attention.cu", "streaming/paged.py:250"),
     "flash_attention_lse": ("streammind_torch/csrc/flash_attention.cu", "ops/attention.py:86"),
     "flash_bwd_dq": ("streammind_torch/csrc/flash_bwd_dq.cu", "ops/attention.py:363"),
@@ -117,12 +126,14 @@ KERNEL_META = {
     "int8_matvec": ("streammind_torch/csrc/int8_matvec.cu", "ops/int8_matvec.py:39"),
     "selective_scan": ("streammind_torch/csrc/selective_scan.cu", "ops/scan.py:150"),
 }
-# wrapper of each kernel, as (module, attribute), for its launch count
+# wrapper of each kernel, as (module, attribute), for its launch count, which
+# it keeps in .launches (the paged write: the paged attention wrapper's
+# .write_launches, its launches that also wrote the step's token)
 WRAPPERS = {
     "flash_attention": ("streammind_torch.ops.attention", "flash_attention"),
     "exact_attention": ("streammind_torch.ops.attention", "exact_attention"),
     "int4_matvec": ("streammind_torch.ops.int4_matvec", "int4_matvec"),
-    "paged_write": ("streammind_torch.ops.paged_attention", "write_tokens"),
+    "paged_write": ("streammind_torch.ops.paged_attention", "paged_decode_attention"),
     "paged_attention": ("streammind_torch.ops.paged_attention", "paged_decode_attention"),
     "flash_attention_lse": ("streammind_torch.ops.attention", "flash_attention_lse"),
     "flash_bwd_dq": ("streammind_torch.ops.attention", "flash_bwd_dq"),
@@ -131,9 +142,10 @@ WRAPPERS = {
     "selective_scan": ("streammind_torch.ops.scan", "selective_scan_kernel"),
 }
 TRAIN_KERNELS = ("flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv")
+COUNTERS = {"paged_write": "write_launches"}
 # CUDA-core kernels that are timed by graph replay too, their kernel / bound
 # in the kernels line
-GRAPH_TIMED = ("paged_attention", "int8_matvec")
+GRAPH_TIMED = ("paged_attention", "int8_matvec", "int4_matvec", "paged_write")
 FAST_KERNELS = ("int8_matvec", "selective_scan")
 # the kernels with a bf16 tensor-core (wgmma) instantiation beside the fp32
 # CUDA-core one; each wrapper counts its bf16 launches again in .tc_launches,
@@ -156,14 +168,14 @@ def wrappers():
 
 def reset_launches() -> None:
     for n, fn in wrappers().items():
-        fn.launches = 0
+        setattr(fn, COUNTERS.get(n, "launches"), 0)
         if n in TC_KERNELS:
             fn.tc_launches = 0
 
 
 def read_launches() -> dict:
     fns = wrappers()
-    return {**{n: fn.launches for n, fn in fns.items()},
+    return {**{n: getattr(fn, COUNTERS.get(n, "launches")) for n, fn in fns.items()},
             **{f"{n}_tc": fns[n].tc_launches for n in TC_KERNELS}}
 
 
@@ -251,8 +263,6 @@ def excess(out, ref, atol: float, rtol: float):
 # ---------------------------------------------------------------------------
 def check_kernels(dev):
     from streammind_torch.ops import attention as A
-    from streammind_torch.ops.int4_matvec import int4_matvec, int4_matvec_ref
-    from streammind_torch.utils.quantize import quantize_linear_weight_int4_pc
 
     g = torch.Generator(device=dev).manual_seed(1234)
     bf16 = torch.bfloat16
@@ -338,30 +348,7 @@ def check_kernels(dev):
                           bound_by=b_by, one_pass_flash_ms=one_pass))
     results["exact_attention"] = (cases, BF16_TOL_TEXT)
 
-    # int4: the gate LM's five per-layer linears at one token (four shapes)
-    cases = []
-    for name, dout, din in (("v", 1024, 4096), ("o", 4096, 4096),
-                            ("gate/up", 14336, 4096), ("down", 4096, 14336)):
-        # enough weight copies to exceed the 50 MB L2: each frame reads them cold
-        n_copy = max(1, math.ceil(120e6 / (dout * din / 2)))
-        ws = [randn(dout, din, std=0.02) for _ in range(n_copy)]
-        packs = [quantize_linear_weight_int4_pc(w) for w in ws]
-        x = randn(1, din)
-        p0 = packs[0]
-        out = int4_matvec(x, p0["w_int4pc"], p0["scale"])
-        ref = int4_matvec_ref(x, p0["w_int4pc"], p0["scale"])
-        err, over = excess(out, ref, 1e-2, 1e-2)
-        ms = cuda_ms([lambda p=p: int4_matvec(x, p["w_int4pc"], p["scale"]) for p in packs])
-        plain = cuda_ms([lambda p=p: int4_matvec_ref(x, p["w_int4pc"], p["scale"])
-                         for p in packs], iters=5)
-        lib = cuda_ms([lambda w=w: F.linear(x, w) for w in ws])
-        b_ms, b_by = bound(dout * din / 2 + 4 * dout + 2 * din + 2 * dout,
-                           2.0 * dout * din, BF16_FLOPS)
-        cases.append(dict(shape=f"{name}: x(1,{din}) W({dout},{din}/2)", max_abs_err=err,
-                          ok=over <= 0, ms=ms, plain_ms=plain, library_ms=lib,
-                          bound_ms=b_ms, bound_by=b_by))
-        del ws, packs
-    results["int4_matvec"] = (cases, "|err| <= 1e-2 + 1e-2*|ref| (bf16 output)")
+    results["int4_matvec"] = (int4_cases(dev, g), INT4_TOL_TEXT)
     results.update(check_paged_kernels(dev, randn))
     results.update(check_train_kernels(dev, randn))
     results.update(check_fast_kernels(dev, g))
@@ -450,50 +437,97 @@ def paged_attention_case(dev, randn, pool_k, pool_v, lengths):
 # one short row, one full 8192-token row, one past its table at a page
 # boundary (a finished row of the lockstep loop), then ragged rows
 PAGED_LENGTHS = [8192, 37, 128 * 64 + 1, 3000, 64, 65, 5000, 129]
+# the write folded into the attention: each row's count before its token, so
+# the attention covers the lengths above: the serving turn's K = 3 step, then
+# K 1 and K 8 (whose third row, at its table's edge, writes the sink page)
+PAGED_WRITE_LENGTHS = ([36, 36, 36], [n - 1 for n in PAGED_LENGTHS[:1]],
+                       [n - 1 for n in PAGED_LENGTHS])
+
+
+def paged_write_case(dev, randn, pool_k, pool_v, lengths):
+    """paged_decode_attention with the step's new K and V tokens (written in
+    the same launch) at one list of row lengths over 128-page tables: pools
+    and output bitwise what write_tokens_ref then the write-free kernel at
+    length + 1 give, the same bits on a second call.  The fused launch is
+    timed by graph replay and eagerly, beside the write-free launch on the
+    same inputs (graph replay; the difference is the write phase's time);
+    its bound counts the write's bytes and the attention's.  Plain: the
+    slots, the write and the attention in PyTorch.  No one PyTorch call
+    writes and attends; the write's own yardstick, its two index_put_ calls
+    at slots given, is timed beside (``write_library_ms``)."""
+    from streammind_torch.ops import paged_attention as PA
+
+    hkv, h, d, page, maxp, n_pages = (PAGED_SHAPE[k] for k in ("hkv", "h", "d", "page", "maxp",
+                                                               "n_pages"))
+    K = len(lengths)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    lens1 = lens + 1  # the write-free call's lengths, made once: no op of its own in the timing
+    visible = sum(min(n + 1, maxp * page) for n in lengths)
+    write_bytes = 2 * (2 * 2 * K * hkv * d) + 8 * K
+    attn_bytes = 2 * (2 * visible * hkv * d + 2 * K * h * d) + 4 * (K + -(-visible // page))
+    sets = []
+    for _ in range(n_sets(attn_bytes)):
+        perm = torch.randperm(n_pages, device=dev)[: K * maxp] + 1
+        sets.append((randn(K, 1, h, d), perm.reshape(K, maxp).to(torch.int32),
+                     randn(K, hkv, d), randn(K, hkv, d)))
+    q, table, kn, vn = sets[0]
+    ref_k, ref_v = pool_k.clone(), pool_v.clone()
+    PA.write_tokens_ref(ref_k, ref_v, kn, vn, *PA.token_slots(table, lens, page))
+    ref = PA.paged_decode_attention(q, ref_k, ref_v, table, lens1)
+    same, err = True, 0.0
+    for _ in range(2):
+        pk, pv = pool_k.clone(), pool_v.clone()
+        out = PA.paged_decode_attention(q, pk, pv, table, lens, k_new=kn, v_new=vn)
+        same = same and torch.equal(out, ref) and torch.equal(pk, ref_k) and torch.equal(pv, ref_v)
+        err = max(err, *(float((a.float() - b.float()).abs().max())
+                         for a, b in ((out, ref), (pk, ref_k), (pv, ref_v))))
+        del pk, pv
+    del ref_k, ref_v
+    fused = [lambda s=s: PA.paged_decode_attention(s[0], pool_k, pool_v, s[1], lens, k_new=s[2],
+                                                   v_new=s[3]) for s in sets]
+    ms, eager = cuda_ms(fused, graph=True), cuda_ms(fused)
+    free = cuda_ms([lambda s=s: PA.paged_decode_attention(s[0], pool_k, pool_v, s[1], lens1)
+                    for s in sets], graph=True)
+    plain = cuda_ms([lambda s=s: PA.paged_decode_attention_ref(s[0], pool_k, pool_v, s[1], lens,
+                                                               s[2], s[3]) for s in sets[:2]],
+                    iters=5)
+    offs = (lens % page).long()
+
+    def index_put(pages, kn, vn):  # the write's two index_put_ calls, slots given
+        pool_k[:, pages, offs] = kn.transpose(0, 1)
+        pool_v[:, pages, offs] = vn.transpose(0, 1)
+
+    lib_fns = [lambda s=s, p=s[1][:, 0].long(): index_put(p, s[2], s[3]) for s in sets]
+    lib, lib_eager = cuda_ms(lib_fns, graph=True), cuda_ms(lib_fns)
+    del sets
+    b_ms, b_by = bound(write_bytes + attn_bytes, 4.0 * h * d * visible, BF16_FLOPS)
+    write_bound, _ = bound(write_bytes, 0.0, BF16_FLOPS)
+    return dict(shape=f"tokens({K},{hkv},{d}) written at lengths={list(lengths)}, attention "
+                      f"over q({K},1,{h},{d}) pool({hkv},{n_pages + 1},{page},{d}) "
+                      f"table({K},{maxp})", max_abs_err=err, ok=same, same_bits_twice=same,
+                ms=ms, eager_ms=eager, write_free_ms=free, write_phase_ms=ms - free,
+                plain_ms=plain, library_ms=None, write_library_ms=lib,
+                write_library_eager_ms=lib_eager, bound_ms=b_ms, bound_by=b_by,
+                write_bound_ms=write_bound, ms_over_bound=ms / b_ms)
 
 
 def check_paged_kernels(dev, randn):
-    """The paged pool's two kernels at the serving path's shapes
-    (``PAGED_SHAPE``): attention at K 1, 4 and 8 over ``PAGED_LENGTHS``,
-    the write at K 1, 4 and 8."""
-    from streammind_torch.ops import paged_attention as PA
-
-    hkv, d, page, n_pages = (PAGED_SHAPE[k] for k in ("hkv", "d", "page", "n_pages"))
+    """The paged pool's kernel at the serving path's shapes (``PAGED_SHAPE``):
+    attention at K 1, 4 and 8 over ``PAGED_LENGTHS``; with the token write
+    folded in, at ``PAGED_WRITE_LENGTHS``."""
     pool_k, pool_v = paged_pool(randn)
     results = {"paged_attention": ([paged_attention_case(dev, randn, pool_k, pool_v,
                                                          PAGED_LENGTHS[:K]) for K in (1, 4, 8)],
                                    BF16_TOL_TEXT + "; the same bits on a second call")}
-
-    cases = []
-    for K in (1, 4, 8):
-        nbytes = 2 * (2 * 2 * K * hkv * d) + 8 * K
-        sets = []
-        for _ in range(64):  # 64 target sets spread over the pool
-            pages = (torch.randperm(n_pages, device=dev)[:K] + 1).to(torch.int32)
-            offs = torch.randint(0, page, (K,), dtype=torch.int32, device=dev)
-            sets.append((randn(K, hkv, d), randn(K, hkv, d), pages, offs))
-        kt, vt, pages, offs = sets[0]
-        ref_k, ref_v = pool_k.clone(), pool_v.clone()
-        PA.write_tokens_ref(ref_k, ref_v, kt, vt, pages, offs)
-        PA.write_tokens(pool_k, pool_v, kt, vt, pages, offs)
-        torch.cuda.synchronize()
-        same = torch.equal(pool_k, ref_k) and torch.equal(pool_v, ref_v)
-        err = max(float((pool_k.float() - ref_k.float()).abs().max()),
-                  float((pool_v.float() - ref_v.float()).abs().max()))
-        del ref_k, ref_v
-        ms = cuda_ms([lambda s=s: PA.write_tokens(pool_k, pool_v, *s) for s in sets])
-        plain = cuda_ms([lambda s=s: PA.write_tokens_ref(pool_k, pool_v, *s) for s in sets])
-
-        def index_put(kt, vt, pages, offs):  # yardstick: the two index_put_ calls
-            pool_k[:, pages.long(), offs.long()] = kt.transpose(0, 1)
-            pool_v[:, pages.long(), offs.long()] = vt.transpose(0, 1)
-
-        lib = cuda_ms([lambda s=s: index_put(*s) for s in sets])
-        b_ms, b_by = bound(nbytes, 0.0, BF16_FLOPS)
-        cases.append(dict(shape=f"tokens({K},8,128) into pool(8,{n_pages + 1},64,128)",
-                          max_abs_err=err, ok=same, ms=ms, plain_ms=plain, library_ms=lib,
-                          bound_ms=b_ms, bound_by=b_by))
-    results["paged_write"] = (cases, "bitwise equal pools (a copy)")
+    cases = [paged_write_case(dev, randn, pool_k, pool_v, n) for n in PAGED_WRITE_LENGTHS]
+    for c in cases:
+        log("kernel", f"paged_write {c['shape']}: one launch (write + attention) "
+                      f"{c['ms']:.4f} ms, the write-free attention {c['write_free_ms']:.4f} "
+                      f"ms (graph replay; the write phase {c['write_phase_ms']:.4f} ms, its bound "
+                      f"{c['write_bound_ms']:.7f} ms, the two index_put_ calls "
+                      f"{c['write_library_ms']:.4f} ms)")
+    results["paged_write"] = (cases, "pools and output bitwise equal to write_tokens_ref then "
+                                     "the write-free kernel; the same bits on a second call")
     return results
 
 
@@ -704,6 +738,59 @@ def int8_cases(dev, g, shapes=INT8_SHAPES, dtypes=(torch.bfloat16, torch.float32
                                  ms_over_bound=ms / b_ms))
             del libs
         del qs
+        torch.cuda.empty_cache()
+    return rows
+
+
+# int4 against its plain version, either dtype of x: the fp32 sums in another
+# order, then one rounding to the output dtype (the limit of PR 1, which the
+# acceptance of the tensor-core redesign keeps)
+INT4_TOL = (1e-2, 1e-2)
+INT4_TOL_TEXT = "|err| <= 1e-2 + 1e-2*|ref| (bf16 and fp32 output)"
+# the int4 gate's four linears (one token a frame a stream)
+INT4_SHAPES = INT8_SHAPES[:4]
+
+
+def int4_cases(dev, g, shapes=INT4_SHAPES, dtypes=(torch.bfloat16, torch.float32),
+               batches=(1, 4, 8)):
+    """int4_matvec against its plain version at each (name, out, in) shape,
+    x dtype and token count (B 4: the serving tick's four streams); kernel
+    and yardstick (F.linear on the weight dequantized beforehand into x's
+    dtype) by graph replay and eagerly."""
+    from streammind_torch.ops.int4_matvec import int4_matvec, int4_matvec_ref
+    from streammind_torch.utils.quantize import (dequantize_linear_weight_int4_pc,
+                                                 quantize_linear_weight_int4_pc)
+
+    rows = []
+    for name, dout, din in shapes:
+        # enough weight copies to exceed the 50 MB L2: each frame reads them cold
+        packs = [quantize_linear_weight_int4_pc(torch.empty((dout, din), device=dev).normal_(
+            0.0, 0.02, generator=g)) for _ in range(n_sets(dout * din / 2))]
+        for dtype in dtypes:
+            libs = [dequantize_linear_weight_int4_pc(p, dtype) for p in packs]
+            esize = torch.finfo(dtype).bits // 8
+            for b in batches:
+                x = torch.empty((b, din), device=dev, dtype=dtype).normal_(generator=g)
+                p0 = packs[0]
+                out = int4_matvec(x, p0["w_int4pc"], p0["scale"])
+                ref = int4_matvec_ref(x, p0["w_int4pc"], p0["scale"])
+                err, over = excess(out, ref, *INT4_TOL)
+                fns = [lambda p=p: int4_matvec(x, p["w_int4pc"], p["scale"]) for p in packs]
+                ms, eager = cuda_ms(fns, graph=True), cuda_ms(fns)
+                plain = cuda_ms([lambda p=p: int4_matvec_ref(x, p["w_int4pc"], p["scale"])
+                                 for p in packs], iters=5)
+                lib_fns = [lambda w=w: F.linear(x, w) for w in libs]
+                lib, lib_eager = cuda_ms(lib_fns, graph=True), cuda_ms(lib_fns)
+                b_ms, b_by = bound(dout * din / 2 + 4 * dout + esize * b * (din + dout),
+                                   2.0 * b * dout * din,
+                                   BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+                rows.append(dict(shape=f"{name}: x({b},{din}) {str(dtype)[6:]} W({dout},{din}/2) "
+                                       f"int4", max_abs_err=err, ok=over <= 0, ms=ms,
+                                 eager_ms=eager, plain_ms=plain, library_ms=lib,
+                                 library_eager_ms=lib_eager, bound_ms=b_ms, bound_by=b_by,
+                                 ms_over_bound=ms / b_ms))
+            del libs
+        del packs
         torch.cuda.empty_cache()
     return rows
 
@@ -1061,6 +1148,12 @@ def serving_phase(engine, g, dev):
     if counts != expect or not all(counts[n] for n in counts
                                    if kernel_of(n) not in TRAIN_KERNELS + FAST_KERNELS):
         raise RuntimeError(f"launch counts {counts} differ from the path's {expect}")
+    # the token write has no launch of its own: every paged attention launch
+    # wrote its step's token, one a layer a step
+    log("serve", f"paged decode: {counts['paged_attention']} launches in {steps} lockstep steps "
+                 f"({counts['paged_attention'] / max(steps, 1):g} a step), "
+                 f"{counts['paged_write']} of them writing the step's token; no separate write "
+                 f"kernel")
     probs = torch.cat(engine.probs[-SERVE_TICKS:])
     if not (torch.isfinite(probs).all() and (probs.sum(-1) - 1).abs().max() < 1e-5):
         raise RuntimeError(f"gate probs not finite or not summing to 1: {probs}")

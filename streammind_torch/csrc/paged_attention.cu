@@ -55,6 +55,22 @@
 //    next call.  So two calls give the same bits.  One launch was chosen
 //    over a second merge kernel: the merge reads (G x D + 2G) floats a split
 //    (~2 KB at Mistral-7B's shape), cheaper than a second launch's ~2-3 us.
+//
+// The token write, folded in (k_new / v_new given; the JAX package's
+// streaming/paged.py::_token_write_kernel, entry _write_tokens_dma, which
+// its decode step calls just before the attention in every layer): length
+// is then each row's count before the new token.  Split 0 of each (row, kv
+// head), which is always active, writes the row's new K and V head rows,
+// cast to the pool's dtype by the host, at slot (table[b, length / page],
+// length % page), or at (0, length % page) where length / page is past the
+// table (page 0 is the sink: a finished row keeps writing at its frozen
+// length, which at a page boundary points one page past its table).  The
+// attention then covers min(length + 1, maxp x page) positions, and the
+// block whose span holds position `length` copies that position's K and V
+// into its tile from k_new / v_new rather than from the pool, so no block
+// waits for another's write and the output has the bits of a write then an
+// attention.  A separate write kernel cost a launch a layer (~2 us, its
+// whole time) and, on the host, the slot's nine small tensor ops.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -136,9 +152,9 @@ struct Layout {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
-                       const T* __restrict__ pool_v, const int* __restrict__ table,
-                       const int* __restrict__ length, T* __restrict__ o,
+paged_attention_kernel(const T* __restrict__ q, T* __restrict__ pool_k, T* __restrict__ pool_v,
+                       const int* __restrict__ table, const int* __restrict__ length,
+                       const T* __restrict__ k_new, const T* __restrict__ v_new, T* __restrict__ o,
                        float* __restrict__ ws_acc, float* __restrict__ ws_ml,
                        int* __restrict__ counters, int H, int Hkv, int P, int page,
                        int page_shift, int maxp, int span, int n_split, float scale) {
@@ -169,9 +185,24 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
 #pragma unroll
   for (int r = 0; r < (kMaxSpan + 1 + kThreads - 1) / kThreads; ++r)
     pg_r[r] = tid + r * kThreads < n_pg ? trow[tid + r * kThreads] : 0;
-  const int L = max(0, min(length[b], maxp * page));
+  // with a new token: its position (the count before it), else -1
+  const int new_pos = k_new != nullptr ? length[b] : -1;
+  const int L = max(0, min(k_new != nullptr ? new_pos + 1 : length[b], maxp * page));
   const int n_active = (L + span - 1) / span;
   T* out = o + ((long long)b * H + hk * G) * D;
+  const long long new_row = ((long long)b * Hkv + hk) * D;  // the row's k_new / v_new head row
+
+  if (split == 0 && new_pos >= 0 && tid < 2 * Lt::kChunks) {  // the token write
+    const int pp = page_shift >= 0 ? new_pos >> page_shift : new_pos / page;
+    const int pg = pp < maxp ? table[(long long)b * maxp + pp] : 0;
+    const int off = page_shift >= 0 ? new_pos & (page - 1) : new_pos - pp * page;
+    if (pg >= 0 && pg < P) {  // never outside the pool
+      const int side = tid / Lt::kChunks, c = (tid % Lt::kChunks) * Lt::kVec;
+      const long long dst = (((long long)hk * P + pg) * page + off) * D + c;
+      *reinterpret_cast<uint4*>((side ? pool_v : pool_k) + dst) =
+          *reinterpret_cast<const uint4*>((side ? v_new : k_new) + new_row + c);
+    }
+  }
 
   if (s0 >= L) {  // an empty split; split 0 of an empty row writes its zeros
     if (L == 0 && split == 0)
@@ -202,7 +233,10 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
         const bool valid = pos < s0 + n_pos;
         const int pi = page_shift >= 0 ? pos >> page_shift : pos / page;
         const int off = page_shift >= 0 ? pos & (page - 1) : pos - pi * page;
-        const T* src = valid ? pool + ((long long)pg_s[pi - p0] * page + off) * D : pool;
+        // the new token's position comes from k_new / v_new, not the pool
+        const T* src = !valid ? pool
+                       : pos == new_pos ? (u < nt ? k_new : v_new) + new_row + cc * Lt::kVec
+                                        : pool + ((long long)pg_s[pi - p0] * page + off) * D;
         cp_async16(stage + j * Lt::kRow, src, valid);
       }
     }
@@ -419,9 +453,10 @@ cudaError_t allow_smem(Kernel kern, int bytes, bool* done) {
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* pool_k, const void* pool_v, const void* table,
-           const void* length, void* o, void* ws_acc, void* ws_ml, void* counters, int K, int H,
-           int Hkv, int P, int page, int maxp, int span, float scale, cudaStream_t stream) {
+int launch(const void* q, void* pool_k, void* pool_v, const void* table, const void* length,
+           const void* k_new, const void* v_new, void* o, void* ws_acc, void* ws_ml,
+           void* counters, int K, int H, int Hkv, int P, int page, int maxp, int span,
+           float scale, cudaStream_t stream) {
   using Lt = Layout<T, D>;
   auto kern = paged_attention_kernel<T, D>;
   static bool done[64] = {};
@@ -429,8 +464,9 @@ int launch(const void* q, const void* pool_k, const void* pool_v, const void* ta
   if (err != cudaSuccess) return (int)err;
   const int n_split = (maxp * page + span - 1) / span;
   kern<<<(unsigned)((long long)K * Hkv * n_split), kThreads, Lt::smem(span), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pool_k), static_cast<const T*>(pool_v),
-      static_cast<const int*>(table), static_cast<const int*>(length), static_cast<T*>(o),
+      static_cast<const T*>(q), static_cast<T*>(pool_k), static_cast<T*>(pool_v),
+      static_cast<const int*>(table), static_cast<const int*>(length),
+      static_cast<const T*>(k_new), static_cast<const T*>(v_new), static_cast<T*>(o),
       static_cast<float*>(ws_acc), static_cast<float*>(ws_ml), static_cast<int*>(counters), H,
       Hkv, P, page, (page & (page - 1)) ? -1 : __builtin_ctz(page), maxp, span, n_split, scale);
   return (int)cudaGetLastError();
@@ -444,24 +480,27 @@ int launch(const void* q, const void* pool_k, const void* pool_v, const void* ta
 // multiple of 64 in [64, 512].  ws_acc (K x Hkv x n_split x 8 x D) and
 // ws_ml (K x Hkv x n_split x 16) fp32 scratch, n_split = ceil(maxp x page /
 // span); counters (K x Hkv) int32, zero before the call and zero after it.
-extern "C" int sm_paged_attention(const void* q, const void* pool_k, const void* pool_v,
-                                  const void* table, const void* length, void* o, void* ws_acc,
-                                  void* ws_ml, void* counters, int K, int H, int Hkv, int D,
-                                  int P, int page, int maxp, int span, int is_bf16, float scale,
-                                  void* stream) {
+// k_new and v_new: both null (attend over length positions), or both
+// (K, Hkv, D) contiguous in the pool's dtype, 16-byte aligned (write them at
+// each row's position length, then attend over length + 1 positions).
+extern "C" int sm_paged_attention(const void* q, void* pool_k, void* pool_v, const void* table,
+                                  const void* length, const void* k_new, const void* v_new,
+                                  void* o, void* ws_acc, void* ws_ml, void* counters, int K,
+                                  int H, int Hkv, int D, int P, int page, int maxp, int span,
+                                  int is_bf16, float scale, void* stream) {
   cudaGetLastError();  // clear a stale error so the return value is this launch's
   if (K < 1 || Hkv < 1 || H % Hkv || H / Hkv > kMaxG || P < 1 || page < 1 || maxp < 1 ||
       span < kBK || span > kMaxSpan || span % kBK)
     return (int)cudaErrorInvalidValue;
   const long long n_split = ((long long)maxp * page + span - 1) / span;
   if ((long long)K * Hkv * n_split > 2147483647LL) return (int)cudaErrorInvalidValue;
-  if (reinterpret_cast<unsigned long long>(pool_k) % 16 ||
-      reinterpret_cast<unsigned long long>(pool_v) % 16)
-    return (int)cudaErrorMisalignedAddress;
+  if ((k_new == nullptr) != (v_new == nullptr)) return (int)cudaErrorInvalidValue;
+  for (const void* p : {(const void*)pool_k, (const void*)pool_v, k_new, v_new})
+    if (reinterpret_cast<unsigned long long>(p) % 16) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
 #define SM_PAGED_LAUNCH(T, DD)                                                                  \
-  return launch<T, DD>(q, pool_k, pool_v, table, length, o, ws_acc, ws_ml, counters, K, H, Hkv, \
-                       P, page, maxp, span, scale, s)
+  return launch<T, DD>(q, pool_k, pool_v, table, length, k_new, v_new, o, ws_acc, ws_ml,   \
+                       counters, K, H, Hkv, P, page, maxp, span, scale, s)
   if (is_bf16) {
     if (D == 64) SM_PAGED_LAUNCH(__nv_bfloat16, 64);
     if (D == 128) SM_PAGED_LAUNCH(__nv_bfloat16, 128);

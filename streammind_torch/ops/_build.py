@@ -25,9 +25,8 @@ from typing import Dict, Iterable, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_kernels"
-KERNELS = ("flash_attention", "exact_attention", "int4_matvec", "paged_write",
-           "paged_attention", "flash_bwd_dq", "flash_bwd_dkv", "int8_matvec",
-           "selective_scan")
+KERNELS = ("flash_attention", "exact_attention", "int4_matvec", "paged_attention",
+           "flash_bwd_dq", "flash_bwd_dkv", "int8_matvec", "selective_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -110,9 +109,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     "flash_attention": ("sm_flash_attention", [_P] * 7 + [_I] * 8 + [_L] * 9 + [_F, _P]),
     "exact_attention": ("sm_exact_attention", [_P] * 4 + [_I] * 7 + [_L] * 9 + [_F, _P]),
-    "int4_matvec": ("sm_int4_matvec", [_P] * 4 + [_I] * 4 + [_P]),
-    "paged_write": ("sm_paged_write", [_P] * 6 + [_I] * 5 + [_P]),
-    "paged_attention": ("sm_paged_attention", [_P] * 9 + [_I] * 9 + [_F, _P]),
+    "int4_matvec": ("sm_int4_matvec", [_P] * 4 + [_I] * 6 + [_P]),
+    "paged_attention": ("sm_paged_attention", [_P] * 11 + [_I] * 9 + [_F, _P]),
     "flash_bwd_dq": ("sm_flash_bwd_dq", [_P] * 8 + [_I] * 8 + [_L] * 12 + [_F, _P]),
     "flash_bwd_dkv": ("sm_flash_bwd_dkv", [_P] * 9 + [_I] * 8 + [_L] * 12 + [_F, _P]),
     "int8_matvec": ("sm_int8_matvec", [_P] * 4 + [_I] * 5 + [_P]),

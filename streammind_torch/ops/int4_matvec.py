@@ -2,10 +2,16 @@
 
 ``y = x @ unpack(packed).T * scale`` for the small-batch (≤ 8 tokens)
 regime, where the gate LM is pure weight bandwidth: the kernel reads the
-packed int4 bytes once and unpacks the nibbles in registers right before
-the dot products.  Pack layout (``utils/quantize.py``): column-halved —
-low nibbles hold input columns [0, in/2), high nibbles [in/2, in) —
-sign-extended, one fp32 scale per output row.
+packed int4 bytes once and widens the nibbles in registers right before
+the products: for bf16 x on the tensor cores (the nibbles as bf16,
+exactly), for fp32 x on CUDA-core FMAs; x is staged once a block in shared
+memory.  Pack layout (``utils/quantize.py``): column-halved — low nibbles
+hold input columns [0, in/2), high nibbles [in/2, in) — sign-extended, one
+fp32 scale per output row.
+
+Numerics: x is taken at its own precision, every product is exact in fp32,
+the sum is fp32 (in another order than the plain version's), the row's
+fp32 scale multiplies the sum, and the result is rounded once to x's dtype.
 
 ``int4_matvec`` takes ``int4_matvec_ref`` only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  ``int4_matvec.launches``
@@ -13,11 +19,31 @@ counts its launches.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
 
 MAX_TOKENS = 8
+
+
+@functools.lru_cache(maxsize=None)
+def _grid(b: int, dout: int, sms: int):
+    """The bf16 kernel's grid, from shapes alone: (tiles_a_warp,
+    row_tiles), tiles of 16 rows a warp and a block.  Two tiles a warp from
+    B 3 where there is at least a tile for every SM (they share each x
+    fragment); then the most row tiles a block, up to 8 warps' worth, that
+    leave at least ``sms`` blocks (B <= 2) or 4/5 of that (B >= 3, where a
+    block's rows share more x).  Chosen by sweeps on an H100 at the gate's
+    four linears, B 1, 4 and 8 (``tools/_probe_decode_kernels.py``,
+    PERF.md)."""
+    tiles = -(-dout // 16)
+    tw = 2 if b > 2 and tiles >= sms else 1
+    floor, rt = (sms if b <= 2 else 4 * sms // 5), tw
+    while rt < 8 * tw and -(-tiles // (2 * rt)) >= floor:
+        rt *= 2
+    return tw, rt
 
 
 def int4_matvec_ref(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -61,7 +87,7 @@ def int4_matvec(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> t
     y = torch.empty((b, dout), dtype=x.dtype, device=x.device)
     err = _build.kernel("int4_matvec")(
         x.data_ptr(), packed.data_ptr(), scale.data_ptr(), y.data_ptr(),
-        b, din, dout, int(x.dtype == torch.bfloat16),
+        b, din, dout, int(x.dtype == torch.bfloat16), *_grid(b, dout, _build.sm_count(x.device)),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "int4_matvec")

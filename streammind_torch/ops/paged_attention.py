@@ -1,30 +1,28 @@
-"""The paged KV pool's two decode-time kernels and their plain versions.
+"""The paged KV pool's decode-time kernel and its plain version.
 
 Pool layout, per layer (as the JAX package's page pool): ``(Hkv, P, page,
 D)``; a row's logical position t lives at page ``table[row, t // page]``,
 offset ``t % page``.  Page 0 is the write sink, never given to a dialogue.
 
-  * ``write_tokens``           — one new K and V token per row written in
-                                 place into its pool page and offset; kernel
-                                 ``csrc/paged_write.cu``, plain version
-                                 ``write_tokens_ref``.
-  * ``paged_decode_attention`` — one-token GQA attention over each row's
-                                 page table and length; kernel
-                                 ``csrc/paged_attention.cu`` (split over the
-                                 keys in spans of ``_span`` positions, the
-                                 splits merged in a fixed order), plain
-                                 version ``paged_decode_attention_ref``
-                                 (gather, then ``mha_reference`` with a
-                                 length mask).
+``paged_decode_attention`` is one-token GQA attention over each row's page
+table and length; kernel ``csrc/paged_attention.cu`` (split over the keys
+in spans of ``_span`` positions, the splits merged in a fixed order), plain
+version ``paged_decode_attention_ref`` (gather, then ``mha_reference`` with
+a length mask).  Given the step's new K and V tokens it first writes them in
+place at each row's ``length`` (the JAX package's token-write kernel,
+folded into the same launch; plain versions ``token_slots`` and
+``write_tokens_ref``) and attends over ``length + 1`` positions.
 
-Each wrapper takes its plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.  ``<wrapper>.launches`` counts
-the kernel's launches.
+The wrapper takes its plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises.
+``paged_decode_attention.launches`` counts the kernel's launches,
+``paged_decode_attention.write_launches`` those that also wrote a token.
 """
 from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import torch
 
@@ -81,53 +79,32 @@ def _rows_i32(name: str, t: torch.Tensor, device, shape) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the one-token pool write
+# the one-token pool write (plain versions; the kernel folds it into the
+# attention's launch)
 # ---------------------------------------------------------------------------
+def token_slots(table: torch.Tensor, length: torch.Tensor, page_size: int):
+    """Pool slot (page, offset), int32, of each row's next token at position
+    ``length``: page ``table[row, length // page]``, or sink page 0 where
+    that is past the table (a finished row of the lockstep loop keeps
+    writing at its frozen length, which at a page boundary points one page
+    past its table)."""
+    maxp = table.shape[1]
+    pos_page = length.long() // page_size
+    idx = torch.clamp(pos_page, max=maxp - 1)
+    page_idx = torch.gather(table, 1, idx[:, None])[:, 0]
+    page_idx = torch.where(pos_page < maxp, page_idx, 0).to(torch.int32)
+    return page_idx, (length % page_size).to(torch.int32)
+
+
 def write_tokens_ref(pool_k: torch.Tensor, pool_v: torch.Tensor, k_tok: torch.Tensor,
                      v_tok: torch.Tensor, page_idx: torch.Tensor, offset: torch.Tensor):
-    """Plain version of ``write_tokens``: ``pool[:, page_idx[i], offset[i]] =
-    tok[i]`` for k and v, in the pool's dtype, in place.  Where two rows
-    share a slot (finished rows on the sink page) the last one wins here,
-    and the kernel mixes their words: nothing reads the sink."""
+    """``pool[:, page_idx[i], offset[i]] = tok[i]`` for k and v, in the
+    pool's dtype, in place; k_tok/v_tok (K, Hkv, D).  Where two rows share a
+    slot (finished rows on the sink page) the last one wins here, and the
+    kernel mixes their words: nothing reads the sink."""
     for pool, tok in ((pool_k, k_tok), (pool_v, v_tok)):
         pool[:, page_idx.long(), offset.long()] = tok.transpose(0, 1).to(pool.dtype)
     return pool_k, pool_v
-
-
-def write_tokens(pool_k: torch.Tensor, pool_v: torch.Tensor, k_tok: torch.Tensor,
-                 v_tok: torch.Tensor, page_idx: torch.Tensor, offset: torch.Tensor):
-    """Write row i's (Hkv, D) k and v token into its pool slot, in place.
-    pool_k/pool_v (Hkv, P, page, D); k_tok/v_tok (K, Hkv, D), cast to the
-    pool's dtype; page_idx/offset (K,) int32, read on the device (no host
-    sync).  Returns (pool_k, pool_v)."""
-    if pool_k.device.type == "cpu":
-        return write_tokens_ref(pool_k, pool_v, k_tok, v_tok, page_idx, offset)
-    _check_pool("write_tokens", pool_k, pool_v)
-    hkv, n_pages, page, d = pool_k.shape
-    K = k_tok.shape[0]
-    if k_tok.shape != (K, hkv, d) or v_tok.shape != k_tok.shape:
-        raise ValueError(f"write_tokens: tokens {tuple(k_tok.shape)}/{tuple(v_tok.shape)} do "
-                         f"not match the pool's (Hkv, D) = ({hkv}, {d})")
-    if (d * pool_k.element_size()) % 16:
-        raise ValueError(f"write_tokens: a head row of {d} x {pool_k.element_size()} bytes is "
-                         f"not a whole number of 16-byte words")
-    if K < 1:
-        raise ValueError("write_tokens: no rows")
-    k_tok = k_tok.to(device=pool_k.device, dtype=pool_k.dtype).contiguous()
-    v_tok = v_tok.to(device=pool_k.device, dtype=pool_k.dtype).contiguous()
-    page_idx = _rows_i32("write_tokens", page_idx, pool_k.device, (K,))
-    offset = _rows_i32("write_tokens", offset, pool_k.device, (K,))
-    err = _build.kernel("paged_write")(
-        pool_k.data_ptr(), pool_v.data_ptr(), k_tok.data_ptr(), v_tok.data_ptr(),
-        page_idx.data_ptr(), offset.data_ptr(), K, hkv, n_pages, page,
-        d * pool_k.element_size(), _stream(pool_k),
-    )
-    _build.check(err, "write_tokens")
-    write_tokens.launches += 1
-    return pool_k, pool_v
-
-
-write_tokens.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -142,11 +119,19 @@ def gather_seq(pool_side: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 def paged_decode_attention_ref(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
-                               table: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``paged_decode_attention``: gather each row's
-    pages, then ``mha_reference`` (fp32 logits, the scale applied after
-    the dot in fp32, fp32 softmax) with keys at positions < length.  A
-    length past the table counts as the table's width."""
+                               table: torch.Tensor, length: torch.Tensor,
+                               k_new: Optional[torch.Tensor] = None,
+                               v_new: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of ``paged_decode_attention``: with k_new/v_new, write
+    them at ``token_slots`` (``write_tokens_ref``) and count them in the
+    length; then gather each row's pages and take ``mha_reference`` (fp32
+    logits, the scale applied after the dot in fp32, fp32 softmax) with keys
+    at positions < length.  A length past the table counts as the table's
+    width."""
+    if k_new is not None:
+        write_tokens_ref(pool_k, pool_v, k_new, v_new,
+                         *token_slots(table, length, pool_k.shape[2]))
+        length = length + 1
     k_seq = gather_seq(pool_k, table).to(q.dtype)
     v_seq = gather_seq(pool_v, table).to(q.dtype)
     kv_mask = torch.arange(k_seq.shape[1], device=q.device)[None, :] < length[:, None]
@@ -154,16 +139,22 @@ def paged_decode_attention_ref(q: torch.Tensor, pool_k: torch.Tensor, pool_v: to
 
 
 def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
-                           table: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+                           table: torch.Tensor, length: torch.Tensor,
+                           k_new: Optional[torch.Tensor] = None,
+                           v_new: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (K, 1, H, D); pools (Hkv, P, page, D) in q's dtype; table (K,
-    maxp) int32 page ids; length (K,) int32 valid tokens per row, clamped
-    to maxp * page.  Softmax over each row's first ``length`` positions
-    with the scale 1/sqrt(D); a row of length 0 gives 0 on the card.
-    Returns (K, 1, H, D) in q's dtype.  The kernel's blocks count their
-    splits in a per-device buffer, so two calls on one device must not
-    run at once on different streams."""
+    maxp) int32 page ids; length (K,) int32 valid tokens per row.  With
+    k_new/v_new (K, Hkv, D), each row's new token is first written in place
+    at position length (``token_slots``; cast to the pool's dtype) and the
+    length counts it.  Softmax over each row's first length positions,
+    clamped to maxp * page, with the scale 1/sqrt(D); a row of length 0
+    gives 0 on the card.  Returns (K, 1, H, D) in q's dtype.  The kernel's
+    blocks count their splits in a per-device buffer, so two calls on one
+    device must not run at once on different streams."""
+    if (k_new is None) != (v_new is None):
+        raise ValueError("paged_decode_attention: k_new and v_new come together")
     if q.device.type == "cpu":
-        return paged_decode_attention_ref(q, pool_k, pool_v, table, length)
+        return paged_decode_attention_ref(q, pool_k, pool_v, table, length, k_new, v_new)
     if not q.is_cuda:
         raise ValueError(f"paged_decode_attention: no kernel for device {q.device}")
     _check_pool("paged_decode_attention", pool_k, pool_v)
@@ -185,6 +176,14 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.
         raise ValueError(f"paged_decode_attention: table {tuple(table.shape)} for {K} rows")
     table = _rows_i32("paged_decode_attention", table, q.device, tuple(table.shape))
     length = _rows_i32("paged_decode_attention", length, q.device, (K,))
+    if k_new is not None:
+        if k_new.shape != (K, hkv, d) or v_new.shape != k_new.shape:
+            raise ValueError(f"paged_decode_attention: new tokens {tuple(k_new.shape)}/"
+                             f"{tuple(v_new.shape)} are not ({K}, {hkv}, {d})")
+        if k_new.device != q.device or v_new.device != q.device:
+            raise ValueError("paged_decode_attention: the new tokens must lie on q's device")
+        k_new = k_new.to(pool_k.dtype).contiguous()
+        v_new = v_new.to(pool_k.dtype).contiguous()
     q = q.contiguous()
     out = torch.empty_like(q)
     # each split's partial, for the merge: acc, then (m, l)
@@ -197,13 +196,16 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.
             torch.empty(max(n_ws, 1 << 20), device=q.device))
     err = _build.kernel("paged_attention")(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), table.data_ptr(), length.data_ptr(),
+        None if k_new is None else k_new.data_ptr(), None if v_new is None else v_new.data_ptr(),
         out.data_ptr(), ws.data_ptr(), ws.data_ptr() + ws.element_size() * n_acc,
         counters.data_ptr(), K, h, hkv, d, n_pages, page, maxp, span,
         int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d), _stream(q),
     )
     _build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
+    paged_decode_attention.write_launches += k_new is not None
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.write_launches = 0

@@ -3,8 +3,9 @@
 In place of a static ring per dialogue (capacity 8192 ≈ 1.07 GB at 7B
 bf16), one SHARED pool of fixed-size pages plus a page table per dialogue,
 so resident memory tracks the sum of the dialogues' actual lengths.  The
-decode hot path runs two hand-written kernels (``ops/paged_attention.py``):
-the one-token pool write and the one-token attention over page tables.
+decode hot path runs one hand-written kernel a layer
+(``ops/paged_attention.py``): the one-token pool write and the one-token
+attention over page tables, in one launch.
 
 Layout, per layer:
   pool.k/v: tuples of (Hkv, num_pages, page_size, D)
@@ -26,7 +27,7 @@ from ..models import mistral as lm
 from ..models.meta import SplicePlan, splice_embeds
 from ..ops.attention import flash_attention
 from ..ops.norms import rms_norm
-from ..ops.paged_attention import gather_seq, paged_decode_attention, write_tokens
+from ..ops.paged_attention import gather_seq, paged_decode_attention
 from ..ops.rotary import apply_rope, rope_cos_sin
 from ..utils.params import layer_slice, linear
 
@@ -60,20 +61,12 @@ def init_page_pool(cfg: TextConfig, num_pages: int, page_size: int = 64, dtype=t
 
 
 def _write_block(pool_k, pool_v, k_new, v_new, table, length, page_size):
-    """Write a (B, S, Hkv, D) block into the pool at positions
-    length..length+S-1 of each row, in place.  S == 1 (decode) goes
-    through the token-write kernel, with any position past the row's table
-    routed to sink page 0 (a finished row keeps writing at its frozen
-    length); prefill (S > 1, once a turn) scatters."""
-    b, s = k_new.shape[:2]
+    """Write a (B, S, Hkv, D) prefill block (S > 1, once a turn) into the
+    pool at positions length..length+S-1 of each row, in place, by a
+    scatter.  A decode step's one token a row is written by
+    ``paged_decode_attention`` in its own launch."""
+    s = k_new.shape[1]
     maxp = table.shape[1]
-    if s == 1:
-        pos_page = length.long() // page_size
-        idx = torch.clamp(pos_page, max=maxp - 1)
-        page_idx = torch.gather(table, 1, idx[:, None])[:, 0]
-        page_idx = torch.where(pos_page < maxp, page_idx, 0).to(torch.int32)
-        offset = (length % page_size).to(torch.int32)
-        return write_tokens(pool_k, pool_v, k_new[:, 0], v_new[:, 0], page_idx, offset)
     pos = length.long()[:, None] + torch.arange(s, device=length.device)[None, :]
     page_slot = torch.gather(table.long(), 1, torch.clamp(pos // page_size, max=maxp - 1))
     offset = pos % page_size
@@ -99,10 +92,11 @@ def paged_text_forward(params, cfg: TextConfig, pool: PagedKV, table: torch.Tens
         q, k, v = lm.qkv_proj(y, lp, cfg)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        pk, pv = _write_block(pool.k[i], pool.v[i], k, v, table, length, page_size)
-        if s == 1:
-            o = paged_decode_attention(q, pk, pv, table, length + 1)
+        if s == 1:  # write the token and attend, in one launch
+            o = paged_decode_attention(q, pool.k[i], pool.v[i], table, length, k_new=k[:, 0],
+                                       v_new=v[:, 0])
         else:
+            pk, pv = _write_block(pool.k[i], pool.v[i], k, v, table, length, page_size)
             k_seq = gather_seq(pk, table).to(q.dtype)
             v_seq = gather_seq(pv, table).to(q.dtype)
             o = flash_attention(q, k_seq, v_seq, causal=True, kv_len=length + s,

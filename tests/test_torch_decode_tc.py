@@ -3,7 +3,8 @@ int8 matvec, on the CPU.
 
 ``csrc/paged_attention.cu`` splits each row's keys into spans of 256 or
 512 positions (``paged_attention._span``), takes an exact softmax inside each
-split and merges the splits' (m, l, acc) in split order;
+split and merges the splits' (m, l, acc) in split order, and given a decode
+step's new token writes it into the pool and reads it from the token;
 ``csrc/int8_matvec.cu`` sums bf16 x against int8 rows through m16n8k16
 tensor-core products whose k index is permuted within each 64-column step,
 with the input columns split over the warps of a block.  The CUDA kernels
@@ -54,14 +55,18 @@ def _excess(out, ref, tol):
 # ---------------------------------------------------------------------------
 # paged decode attention, split over the keys
 # ---------------------------------------------------------------------------
-def paged_split_emulation(q, pool_k, pool_v, table, length, span):
+def paged_split_emulation(q, pool_k, pool_v, table, length, span, k_new=None, v_new=None):
     """The kernel's order of work in fp32: for each (row, kv head) the
     splits of ``span`` positions that start before the row's clamped
     length; in each, scores q.k times the scale (fp32 dot), masked at
     -1e30 past the length within the split's last 64-position tile, the
     split's exact max m and sum l and acc = p V; a row in one split is
     acc / max(l, 1e-30), otherwise the splits merge in split order; a row
-    of length 0 gives 0."""
+    of length 0 gives 0.  With k_new/v_new (K, Hkv, D), length is the count
+    before the new token: split 0 writes it into the pools at the row's
+    slot (sink page 0 past the table), the row attends over length + 1
+    positions, and the split whose span holds position length takes that
+    position's K and V from k_new/v_new, not from the pools."""
     kk, _, h, d = q.shape
     hkv, _, page, _ = pool_k.shape
     g = h // hkv
@@ -69,12 +74,20 @@ def paged_split_emulation(q, pool_k, pool_v, table, length, span):
     scale = 1.0 / np.sqrt(d)
     out = torch.zeros(kk, 1, h, d)
     for b in range(kk):
-        L = max(0, min(int(length[b]), maxp * page))
+        new_pos = int(length[b]) if k_new is not None else -1
+        L = max(0, min(new_pos + 1 if k_new is not None else int(length[b]), maxp * page))
         pos = torch.arange(L)
         pages = table[b, pos // page].long()
         for hk in range(hkv):
-            k_row = pool_k[hk, pages, pos % page].float()      # (L, D)
+            k_row = pool_k[hk, pages, pos % page].float()      # (L, D), read before the write
             v_row = pool_v[hk, pages, pos % page].float()
+            if k_new is not None:
+                pg = int(table[b, new_pos // page]) if new_pos // page < maxp else 0
+                pool_k[hk, pg, new_pos % page] = k_new[b, hk].to(pool_k.dtype)  # split 0's write
+                pool_v[hk, pg, new_pos % page] = v_new[b, hk].to(pool_v.dtype)
+                if new_pos < L:  # the span holding new_pos reads the token, not the pool
+                    k_row[new_pos] = k_new[b, hk].to(pool_k.dtype).float()
+                    v_row[new_pos] = v_new[b, hk].to(pool_v.dtype).float()
             qh = q[b, 0, hk * g:(hk + 1) * g].float()         # (G, D)
             parts = []
             for s0 in range(0, L, span):
@@ -127,6 +140,41 @@ def test_paged_split_merge_matches_plain_and_jax(rng, span, page, group):
     assert _excess(out, ref, PAGED_TOL) <= 0, _excess(out, ref, PAGED_TOL)
     assert _excess(out, jref, PAGED_TOL) <= 0, _excess(out, jref, PAGED_TOL)
     assert _excess(ref, jref, PAGED_TOL) <= 0, _excess(ref, jref, PAGED_TOL)
+
+
+@pytest.mark.parametrize("span", [128, 256])
+@pytest.mark.parametrize("page", [8, 64])
+def test_paged_split_with_the_write_is_write_then_attend(rng, span, page):
+    """The new token at position 0, at the last position of split 0, at the
+    first of split 1, at the table's last position and one past it (routed
+    to the sink): pools and outputs bitwise what ``write_tokens_ref`` then
+    the write-free emulation at length + 1 give, and within PAGED_TOL of the
+    plain version."""
+    hkv, d, group = 2, 64, 4
+    maxp = (2 * span) // page + 1
+    full = maxp * page
+    lengths = [0, span - 1, span, full - 1, full]
+    kk, h = len(lengths), hkv * group
+    n_pages = kk * maxp + 1
+    q = torch.from_numpy(rng.standard_normal((kk, 1, h, d)).astype(np.float32))
+    pool_k, pool_v = (torch.from_numpy(rng.standard_normal((hkv, n_pages, page, d))
+                                       .astype(np.float32)) for _ in range(2))
+    k_new, v_new = (torch.from_numpy(rng.standard_normal((kk, hkv, d)).astype(np.float32))
+                    for _ in range(2))
+    table = torch.from_numpy(rng.permutation(np.arange(1, n_pages)).reshape(kk, maxp)
+                             .astype(np.int32))
+    length = torch.tensor(lengths, dtype=torch.int32)
+    fk, fv = pool_k.clone(), pool_v.clone()
+    out = paged_split_emulation(q, fk, fv, table, length, span, k_new, v_new)
+    wk, wv = pool_k.clone(), pool_v.clone()
+    PA.write_tokens_ref(wk, wv, k_new, v_new, *PA.token_slots(table, length, page))
+    assert torch.equal(fk, wk) and torch.equal(fv, wv)
+    assert not torch.equal(fk[:, 0], pool_k[:, 0])   # the edge row wrote the sink
+    assert torch.equal(out, paged_split_emulation(q, wk, wv, table, length + 1, span))
+    pk, pv = pool_k.clone(), pool_v.clone()
+    ref = PA.paged_decode_attention(q, pk, pv, table, length, k_new=k_new, v_new=v_new)
+    assert torch.equal(pk, wk) and torch.equal(pv, wv)
+    assert _excess(out, ref, PAGED_TOL) <= 0, _excess(out, ref, PAGED_TOL)
 
 
 def test_paged_split_of_an_empty_row_is_zero(rng):

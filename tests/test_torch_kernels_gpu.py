@@ -10,17 +10,20 @@ tests/test_torch_ops.py and tests/test_torch_paged.py hold against the JAX
 package).  Tolerances: fp32 outputs 1e-4 (sums in another order); bf16
 outputs 4e-3 + 1e-2·|ref| (one bf16 rounding step either way, plus about
 twice the largest error measured on an H100 at the main path's shapes, as
-in chip_smoke.py); the paged pool write is a copy and must be bitwise;
-paged attention splits each row's keys over blocks and merges them in a
-fixed order, so a second call must give the same bits.  The
+in chip_smoke.py); paged attention splits each row's keys over blocks and
+merges them in a fixed order, so a second call must give the same bits, and
+with a decode step's new token (written in the same launch) pools and
+output must be bitwise what the plain write then the write-free kernel
+give.  The
 training kernels get the same output limits (kernel and plain version read
 the same inputs and both accumulate in fp32), but for the bf16 dQ, dK and
 dV: the tensor-core kernels round each dS and P term to bf16 before its
 product, which their CPU emulation (tests/test_torch_attention_tc.py) puts
 at up to 1.54e-2 beside rtol 1e-2 at the training shapes, so they take
-3e-2 + 1e-2·|ref|, as in chip_smoke.py; the fp32 lse 1e-4.  The int8
-matvec and the selective scan take the same limits: each sums in fp32 in
-another order than its plain version, and rounds once to the output dtype.
+3e-2 + 1e-2·|ref|, as in chip_smoke.py; the fp32 lse 1e-4.  The int8 and
+int4 matvecs and the selective scan take the same limits: each sums in
+fp32 in another order than its plain version, and rounds once to the
+output dtype.
 The flash forward, its backward (dQ and dK/dV) and exact attention run
 bf16 on their tensor-core instantiation and fp32 on the CUDA-core one;
 ``.tc_launches`` counts the former.  GQA groups that do not divide 128
@@ -240,13 +243,22 @@ def test_bf16_wrappers_refuse_what_the_tensor_core_kernels_do_not_take(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,din,dout", [(1, 4096, 1024), (8, 14336, 64), (3, 30, 17)])
+@pytest.mark.parametrize("b,din,dout", [
+    *[(b, 4096, 1024) for b in (1, 4, 8)],                 # the gate's v at B 1, 4, 8
+    (1, 4096, 4096), (4, 4096, 14336), (8, 14336, 4096),   # o, gate/up, down (7 chunks at B 8)
+    (8, 14336, 64), (4, 14336, 40),                        # x staged in chunks at B 8 and 4
+    (3, 30, 17), (5, 200, 40),                             # packed rows not a multiple of 16 bytes
+    (5, 2080, 40), (6, 4160, 23),                          # a partial last step, odd rows
+    *[(b, 4096, 1024) for b in (2, 3, 5, 6, 7)],           # every other B the kernel takes
+])
 def test_int4_kernel_matches_plain(dev, dtype, b, din, dout):
     rng = np.random.default_rng(2)
     pk = quantize_linear_weight_int4_pc(_r(rng, (dout, din), torch.float32, 0.02))
     x = _r(rng, (b, din), dtype)
+    n0 = int4_matvec.launches
     out = int4_matvec(x, pk["w_int4pc"], pk["scale"])
     torch.cuda.synchronize()
+    assert int4_matvec.launches == n0 + 1 and out.dtype == dtype and out.shape == (b, dout)
     _close(out, int4_matvec_ref(x, pk["w_int4pc"], pk["scale"]), dtype)
 
 
@@ -340,30 +352,49 @@ def test_selective_scan_kernel_has_no_backward(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", [1, 4, 8])
-def test_paged_write_kernel_is_bitwise_the_plain_copy(dev, dtype, k):
+@pytest.mark.parametrize(
+    "h,hkv,d,page,maxp,lengths",
+    [
+        (32, 8, 128, 64, 128, [36, 36, 36]),       # the serving turn's K = 3 step
+        (32, 8, 128, 64, 128, [8191]),              # one row filling its 8192-token table
+        # K 8: the write at 0, inside and at the end of a table, and one row
+        # at its table's edge (its token goes to the sink page)
+        (32, 8, 128, 64, 128, [8191, 36, 8192, 2999, 63, 64, 4999, 0]),
+        (28, 4, 128, 16, 40, [255, 256, 511, 639, 640]),  # Qwen2-7B's group of 7, pages of 16
+        (4, 4, 64, 8, 5, [39, 17]),                 # MHA, page 8, D 64
+    ],
+)
+def test_paged_attention_with_the_write_is_bitwise_write_then_attend(dev, dtype, h, hkv, d,
+                                                                     page, maxp, lengths):
+    """paged_decode_attention with k_new/v_new writes each row's token at
+    its slot and attends over length + 1 positions in one launch: pools and
+    output bitwise what ``write_tokens_ref`` then the write-free kernel
+    give, and the same bits on a second call."""
     rng = np.random.default_rng(4)
-    hkv, pages, page, d = 8, 40, 64, 128
-    pool_k, pool_v = _r(rng, (hkv, pages, page, d), dtype), _r(rng, (hkv, pages, page, d), dtype)
-    k_tok, v_tok = _r(rng, (k, hkv, d), torch.float32), _r(rng, (k, hkv, d), torch.float32)
-    page_idx = rng.choice(np.arange(1, pages), k, replace=False)
-    offset = rng.integers(0, page, k)
-    if k > 1:  # two finished rows race on one sink slot; nothing else moves
-        page_idx[-2:], offset[-2:] = 0, 3
-    pi = torch.tensor(page_idx, dtype=torch.int32, device=dev)
-    off = torch.tensor(offset, dtype=torch.int32, device=dev)
+    k = len(lengths)
+    pages = k * maxp + 1
+    pool_k, pool_v = (_r(rng, (hkv, pages, page, d), dtype) for _ in range(2))
+    q = _r(rng, (k, 1, h, d), dtype)
+    k_new, v_new = _r(rng, (k, hkv, d), torch.float32), _r(rng, (k, hkv, d), torch.float32)
+    table = torch.tensor(rng.permutation(np.arange(1, pages)).reshape(k, maxp),
+                         dtype=torch.int32, device=dev)
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
     ref_k, ref_v = pool_k.clone(), pool_v.clone()
-    PA.write_tokens_ref(ref_k, ref_v, k_tok, v_tok, pi, off)
-    n0 = PA.write_tokens.launches
-    out = PA.write_tokens(pool_k, pool_v, k_tok, v_tok, pi, off)
+    PA.write_tokens_ref(ref_k, ref_v, k_new, v_new, *PA.token_slots(table, length, page))
+    ref = PA.paged_decode_attention(q, ref_k, ref_v, table, length + 1)
+    runs = []
+    for _ in range(2):
+        pk, pv = pool_k.clone(), pool_v.clone()
+        n0 = PA.paged_decode_attention.write_launches
+        runs.append((PA.paged_decode_attention(q, pk, pv, table, length, k_new=k_new,
+                                               v_new=v_new), pk, pv))
+        assert PA.paged_decode_attention.write_launches == n0 + 1
     torch.cuda.synchronize()
-    assert PA.write_tokens.launches == n0 + 1 and out[0] is pool_k
-    for got, ref in ((pool_k, ref_k), (pool_v, ref_v)):
-        assert torch.equal(got[:, 1:], ref[:, 1:])
-        assert torch.equal(got[:, 0, :3], ref[:, 0, :3]) and torch.equal(got[:, 0, 4:], ref[:, 0, 4:])
-    if k > 1:  # each element of the sink slot comes from one of the two rows
-        sink = pool_k[:, 0, 3]
-        assert ((sink == k_tok[k - 2].to(dtype)) | (sink == k_tok[k - 1].to(dtype))).all()
+    for out, pk, pv in runs:
+        assert torch.equal(pk, ref_k) and torch.equal(pv, ref_v)
+        assert torch.equal(out, ref)
+    _close(ref, PA.paged_decode_attention_ref(q, pool_k.clone(), pool_v.clone(), table, length,
+                                              k_new, v_new), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -426,9 +457,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     pool = torch.zeros(1, 3, 8, 64, device=dev)
     with pytest.raises(ValueError, match="group"):
         PA.paged_decode_attention(torch.zeros(1, 1, 16, 64, device=dev), pool, pool, table, length)
-    with pytest.raises(ValueError, match="int32"):
-        PA.write_tokens(pool, pool, torch.zeros(1, 1, 64, device=dev),
-                        torch.zeros(1, 1, 64, device=dev), table[0, :1].long(), table[0, :1])
+    with pytest.raises(ValueError, match="new tokens"):
+        PA.paged_decode_attention(torch.zeros(1, 1, 4, 64, device=dev), pool, pool, table,
+                                  length, k_new=torch.zeros(1, 2, 64, device=dev),
+                                  v_new=torch.zeros(1, 2, 64, device=dev))
+    with pytest.raises(ValueError, match="together"):
+        PA.paged_decode_attention(torch.zeros(1, 1, 4, 64, device=dev), pool, pool, table,
+                                  length, k_new=torch.zeros(1, 1, 64, device=dev))
     q = torch.zeros(1, 8, 4, 64, device=dev)
     lse = torch.zeros(1, 8, 4, device=dev)
     with pytest.raises(ValueError, match="lse"):

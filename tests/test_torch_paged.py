@@ -4,7 +4,9 @@ Both packages get the same numpy inputs (from a seed) and one tiny tree
 (the JAX package's init, carried over with params_from_numpy).  The JAX
 token-write kernel runs interpreted, as the JAX package's own tests run
 it; its paged attention takes its CPU branch (gather + mha_reference).
-The port's wrappers take their plain versions on CPU tensors.
+The port's wrapper takes its plain version on CPU tensors; a decode step
+writes its token and attends in one call (``paged_decode_attention`` with
+``k_new``/``v_new``), which is held against JAX's write then attention.
 Tolerances: the pool write is a copy, so pools must be bitwise equal;
 fp32 attention 1e-5 (sums in another order); whole forwards 1e-4.
 """
@@ -71,10 +73,8 @@ def test_write_tokens_ref_bitwise_matches_jax(rng, page_idx, offset):
                                       jnp.asarray(k_tok), jnp.asarray(v_tok),
                                       jnp.asarray(pi), jnp.asarray(off))
     tk, tv = _t(pool_k), _t(pool_v)
-    n0 = tpa.write_tokens.launches
-    out = tpa.write_tokens(tk, tv, _t(k_tok), _t(v_tok), _t(pi), _t(off))
+    out = tpa.write_tokens_ref(tk, tv, _t(k_tok), _t(v_tok), _t(pi), _t(off))
     assert out[0] is tk and out[1] is tv                  # in place
-    assert tpa.write_tokens.launches == n0                # no kernel on the CPU
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     untouched = np.ones((pages, page), bool)
@@ -85,21 +85,60 @@ def test_write_tokens_ref_bitwise_matches_jax(rng, page_idx, offset):
 def test_write_block_routes_out_of_table_rows_to_the_sink(rng):
     """A finished row at its frozen length past its table, or in a
     zero-padded table entry, writes sink page 0 only — as in the JAX
-    package (tests/test_paged.py)."""
+    package (tests/test_paged.py).  The port writes a decode step's token
+    in ``paged_decode_attention``, the S = 1 path of its forward."""
     hkv, pages, page, d = 2, 8, 8, 16
     pool = rng.standard_normal((hkv, pages, page, d)).astype(np.float32)
     table = np.asarray([[5, 2, 0, 0], [1, 3, 4, 7]], np.int32)
     k_new = rng.standard_normal((2, 1, hkv, d)).astype(np.float32)
+    q = rng.standard_normal((2, 1, 2 * hkv, d)).astype(np.float32)
     for length in ([4 * page, 4 * page + 3], [2 * page, 31]):
         ln = np.asarray(length, np.int32)
         jk, _ = jpaged._write_block(jnp.asarray(pool), jnp.asarray(pool), jnp.asarray(k_new),
                                     jnp.asarray(k_new), jnp.asarray(table), jnp.asarray(ln),
                                     page)
         tk, tv = _t(pool), _t(pool)
-        tpaged._write_block(tk, tv, _t(k_new), _t(k_new), _t(table), _t(ln), page)
+        tpa.paged_decode_attention(_t(q), tk, tv, _t(table), _t(ln), k_new=_t(k_new[:, 0]),
+                                   v_new=_t(k_new[:, 0]))
         np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
         changed = np.where(np.any(tk.numpy() != pool, axis=(0, 2, 3)))[0]
         assert set(changed.tolist()) <= {0, 7}  # the sink, or row 1's last real page
+
+
+@pytest.mark.parametrize("lengths,frozen", [
+    ([5, 20, 9], False),        # rows inside their tables, one at a page boundary
+    ([5, 32, 17], False),       # a row at its table's edge: its token goes to the sink
+    ([31, 12, 32], True),       # finished rows at frozen lengths, written twice
+])
+def test_fused_write_and_attend_matches_jax_write_then_attend(rng, lengths, frozen):
+    """paged_decode_attention with k_new/v_new (its plain version on the
+    CPU) against JAX's decode step in a layer: ``_write_block`` (S = 1, the
+    interpreted token-write kernel), then ``_paged_decode_attention`` at
+    length + 1.  Pools bitwise, outputs 1e-5.  ``frozen`` runs the step
+    twice at the same lengths, as the lockstep loop does for rows that have
+    finished."""
+    h, hkv, pages, page, d, maxp = 8, 2, 14, 8, 32, 4
+    k = len(lengths)
+    pool_k = rng.standard_normal((hkv, pages, page, d)).astype(np.float32)
+    pool_v = rng.standard_normal((hkv, pages, page, d)).astype(np.float32)
+    table = np.stack([rng.permutation(np.arange(1, pages))[:maxp] for _ in range(k)]).astype(
+        np.int32)
+    ln = np.asarray(lengths, np.int32)
+    jk, jv, tk, tv = jnp.asarray(pool_k), jnp.asarray(pool_v), _t(pool_k), _t(pool_v)
+    for _ in range(1 + frozen):
+        q = rng.standard_normal((k, 1, h, d)).astype(np.float32)
+        k_new, v_new = (rng.standard_normal((k, 1, hkv, d)).astype(np.float32) for _ in range(2))
+        jk, jv = jpaged._write_block(jk, jv, jnp.asarray(k_new), jnp.asarray(v_new),
+                                     jnp.asarray(table), jnp.asarray(ln), page)
+        ref = jpaged._paged_decode_attention(jnp.asarray(q), jk, jv, jnp.asarray(table),
+                                             jnp.asarray(ln + 1))
+        out = tpa.paged_decode_attention(_t(q), tk, tv, _t(table), _t(ln),
+                                         k_new=_t(k_new[:, 0]), v_new=_t(v_new[:, 0]))
+        np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    if 32 in lengths:  # the edge row wrote the sink page and nothing of its own
+        assert not np.array_equal(tk.numpy()[:, 0], pool_k[:, 0])
 
 
 @pytest.mark.parametrize("h,hkv,lengths", [

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Probe where the paged attention and int8 matvec kernels spend their time,
+"""Probe where the paged attention, int8 and int4 matvec kernels spend their time,
 on one CUDA card, by building variants of their sources in which one part
 is changed or removed, and timing each with chip_smoke.py's cases.
 
-    python3 tools/_probe_decode_kernels.py [--variants NAME ...]
+    python3 tools/_probe_decode_kernels.py [--variants NAME ...] [--kernels NAME ...]
 
 Variants (text replacements in ``streammind_torch/csrc/*.cu``; one that no
 longer applies to the source is reported and skipped):
@@ -12,10 +12,18 @@ longer applies to the source is reported and skipped):
   the merge alone); stages4, stages6 (a deeper cp.async ring);
   int8_matvec: base; u2, u4, u8 (2, 4 or 8 steps of 64 columns a batch at
   every B); ldg
-  (weights through __ldg, kept in L1).
+  (weights through __ldg, kept in L1);
+  int4_matvec: base; one_chain (every product of a tile into one
+  accumulator); no_stage (x not staged: the weights and the products
+  alone); u1, u4 (1 or 4 steps a batch); lb2 (at most 128 registers, two
+  blocks an SM); b1_as_b4, b1_as_b8 (B
+  1 through the B 4 or B 8 instantiation); chunk16, chunk64 (x staged in
+  chunks of 16 or 64 KB).
 Paged attention is timed at K 1 [8192], K 8 over PAGED_LENGTHS and the
 serving phase's K 3 [37, 37, 37] at spans 256 and 512; the int8 matvec at
-INT8_SHAPES for B 1 and 8, bf16 x.  The no_* variants compute wrong values
+INT8_SHAPES for B 1 and 8, bf16 x; the int4 matvec at the gate's four
+linears for B 1, 4 and 8, bf16 x, at each grid of INT4_GRIDS (tiles a
+warp, warps a tile).  The no_* variants compute wrong values
 (their ``ok`` is False): they are timings only.  Builds go to
 ``streammind_torch/_kernels/probe/``.  Fails without a CUDA card.
 """
@@ -23,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -34,6 +43,13 @@ SCORES = "for (int c = 0; c < Lt::kChunks; ++c) {"
 PV = "for (int j = 0; j < kBK; j += 4) {"
 STAGES = "constexpr int kStages = 3;"
 UNROLL = "constexpr int kUnrollB1 = 2, kUnroll = 4;"
+I4_CHUNK = "constexpr int kTcChunkBytes = 32768;"
+I4_STAGE = "stage_x(xs, x, B, din, 0, min(kCols, half), xrow, width);"
+I4_B1 = "if (B == 1) SM_INT4_TC(1, 1);"
+I4_KU = "constexpr int kSteps = 2;"
+I4_LB = "__launch_bounds__(kThreads)\nint4_matvec_tc_kernel"
+# (tiles a warp, warps splitting a tile's columns); two tiles a warp from B 3
+INT4_GRIDS = tuple((tw, wk) for tw in (1, 2) for wk in (8, 4, 2, 1))
 VARIANTS = {
     "paged_attention": {
         "base": [],
@@ -51,14 +67,30 @@ VARIANTS = {
         "ldg": [("ld_stream(w0 + c0 + col)", "__ldg(reinterpret_cast<const uint4*>(w0 + c0 + col))"),
                 ("ld_stream(w1 + c0 + col)", "__ldg(reinterpret_cast<const uint4*>(w1 + c0 + col))")],
     },
+    "int4_matvec": {
+        "base": [],
+        "one_chain": [("mma_bf16(acc[j][q], ", "mma_bf16(acc[j][0], ")],
+        "no_stage": [(I4_STAGE, "")],
+        "u1": [(I4_KU, I4_KU.replace("2", "1"))],
+        "u4": [(I4_KU, I4_KU.replace("2", "4"))],
+        "lb2": [(I4_LB, I4_LB.replace("(kThreads)", "(kThreads, 2)"))],
+        "b1_as_b4": [(I4_B1, I4_B1.replace("(1, 1)", "(4, 1)"))],
+        "b1_as_b8": [(I4_B1, I4_B1.replace("(1, 1)", "(8, 1)"))],
+        "chunk16": [(I4_CHUNK, I4_CHUNK.replace("32768", "16384"))],
+        "chunk64": [(I4_CHUNK, I4_CHUNK.replace("32768", "65536"))],
+    },
 }
 
 
-def build(out: Path, wanted) -> dict:
+def build(out: Path, wanted, kernels=None) -> dict:
+    """Every variant named in ``wanted`` (all where it is empty) of the
+    kernels in ``kernels`` (all where empty)."""
     from streammind_torch.ops import _build
 
     procs, built = {}, {}
     for kern, variants in VARIANTS.items():
+        if kernels and kern not in kernels:
+            continue
         src = (_build.CSRC / f"{kern}.cu").read_text()
         for name, reps in variants.items():
             if wanted and name not in wanted:
@@ -81,6 +113,9 @@ def build(out: Path, wanted) -> dict:
         if proc.returncode:
             raise RuntimeError(f"{key}: build failed\n{log}")
         built[key] = lib
+        # registers and spill bytes of each entry point, in ptxas order
+        print(f"{key[0]} {key[1]}: registers {re.findall(r'Used (\d+) registers', log)}, spill "
+              f"stores {re.findall(r'(\d+) bytes spill stores', log)}", flush=True)
     return built
 
 
@@ -94,9 +129,45 @@ def use(kern: str, lib: Path) -> None:
     _build._libs[kern] = handle
 
 
+def int4_probe(cs, built, dev, g) -> None:
+    """Each int4 variant at the gate's four linears, B 1 and 8, at each
+    grid of INT4_GRIDS: the kernel alone, by graph replay, on one set of
+    weights per shape (cycled to read them cold from HBM)."""
+    import torch
+
+    from streammind_torch.ops import int4_matvec as I4
+    from streammind_torch.utils.quantize import quantize_linear_weight_int4_pc
+
+    libs = {name: lib for (kern, name), lib in built.items() if kern == "int4_matvec"}
+    default = I4._grid
+    for shape, dout, din in cs.INT4_SHAPES:
+        packs = [quantize_linear_weight_int4_pc(torch.empty((dout, din), device=dev).normal_(
+            0.0, 0.02, generator=g)) for _ in range(cs.n_sets(dout * din / 2))]
+        for b in (1, 4, 8):
+            x = torch.empty((b, din), device=dev, dtype=torch.bfloat16).normal_(generator=g)
+            ref = I4.int4_matvec_ref(x, packs[0]["w_int4pc"], packs[0]["scale"])
+            for name, lib in libs.items():
+                use("int4_matvec", lib)
+                line = []
+                for tw, wk in INT4_GRIDS:
+                    if tw > 1 and b <= 2:
+                        continue
+                    I4._grid = lambda b_, d_, sms, tw=tw, wk=wk: (tw, 8 * tw // wk)
+                    out = I4.int4_matvec(x, packs[0]["w_int4pc"], packs[0]["scale"])
+                    ok = cs.excess(out, ref, *cs.INT4_TOL)[1] <= 0
+                    ms = cs.cuda_ms([lambda p=p: I4.int4_matvec(x, p["w_int4pc"], p["scale"])
+                                     for p in packs], graph=True)
+                    line.append(f"tw{tw}wk{wk}={ms:.4f}{'' if ok else '!'}")
+                print(f"int4_matvec {name} {shape} B {b}: " + " ".join(line), flush=True)
+        del packs
+        torch.cuda.empty_cache()
+    I4._grid = default
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", nargs="*", default=None)
+    ap.add_argument("--kernels", nargs="*", default=None)
     args = ap.parse_args()
     import torch
 
@@ -109,7 +180,7 @@ def main() -> int:
         raise SystemExit("_probe_decode_kernels: no CUDA device")
     out = _build.BUILD_DIR / "probe"
     out.mkdir(parents=True, exist_ok=True)
-    built = build(out, args.variants)
+    built = build(out, args.variants, args.kernels)
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(1)
 
@@ -137,6 +208,7 @@ def main() -> int:
         use(kern, lib)
         for c in cs.int8_cases(dev, g, dtypes=(torch.bfloat16,), batches=(1, 8)):
             print(f"int8_matvec {name} {c['shape']} ms={c['ms']:.4f} ok={c['ok']}", flush=True)
+    int4_probe(cs, built, dev, g)
     _build._libs.clear()
     return 0
 

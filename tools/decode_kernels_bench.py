@@ -18,14 +18,20 @@ cases of this repository: ``paged_decode_attention`` at K 1, 4 and 8 over
 its bound.  With ``--sweep`` a tree whose paged wrapper has ``_span`` is
 also timed at each span in ``SPANS``, and one whose int8 wrapper has
 ``_row_tiles`` at each block height in ``ROW_TILES`` (bf16, B 1 and 8).
-With ``--others`` it times instead, the same two ways, the int4 matvec,
-the paged write and the selective scan at ``chip_smoke.py``'s shapes.  It
-prints one line per tree and case and, given ``--out FILE``, writes them
-all there as JSON lines.  Fails without a CUDA card.
+With ``--others`` it times instead, the same two ways, the int4 matvec
+(``chip_smoke.py``'s ``int4_cases``: bf16 x, fp32 too with ``--fp32``; with
+``--sweep`` also at each grid of ``INT4_GRIDS``), a
+decode step's token write and paged attention at ``PAGED_WRITE_LENGTHS``
+(one launch where the tree folds the write into the attention, else the
+write kernel then the attention; beside it the write-free attention alone)
+and the selective scan.  It prints one line per tree and case and, given
+``--out FILE``, writes them all there as JSON lines.  Fails without a CUDA
+card.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -38,6 +44,8 @@ REPO = Path(__file__).resolve().parent.parent
 SERVING_LENGTHS = [37, 37, 37]
 SPANS = (128, 256, 512)
 ROW_TILES = (1, 2, 4, 8)
+# (tiles a warp, warps splitting a tile's columns); two tiles a warp from B 3
+INT4_GRIDS = [(tw, wk) for tw in (1, 2) for wk in (8, 4, 2, 1)]
 
 
 def harness(tree: Path):
@@ -97,18 +105,19 @@ def measure(tree: Path, sweep: bool, fp32: bool) -> list:
     return rows
 
 
-def measure_others(tree: Path) -> list:
-    """The three kernels no PR has redesigned yet, by graph replay and
-    eagerly, at chip_smoke.py's shapes: int4_matvec at the gate's four
-    linears (B 1), write_tokens at K 1, 4 and 8, selective_scan_kernel at
-    the burst's L 32 (bf16, carried state)."""
+def measure_others(tree: Path, sweep: bool, fp32: bool) -> list:
+    """The int4 matvec at the gate's four linears (B 1, 4 and 8), a decode
+    step's write and attention at ``PAGED_WRITE_LENGTHS`` and the selective
+    scan at the burst's L 32 (bf16, carried state), by graph replay and
+    eagerly, at chip_smoke.py's shapes.  With ``sweep`` a tree whose int4
+    wrapper has ``_grid`` is also timed at each (tiles a warp, warps a tile) of
+    ``INT4_GRIDS`` (bf16, B 1, 4 and 8)."""
     cs = harness(tree)
     import torch
 
+    from streammind_torch.ops import int4_matvec as I4
     from streammind_torch.ops import paged_attention as PA
     from streammind_torch.ops import scan as S
-    from streammind_torch.ops.int4_matvec import int4_matvec
-    from streammind_torch.utils.quantize import quantize_linear_weight_int4_pc
 
     dev, rows = "cuda", []
     g = torch.Generator(device=dev).manual_seed(99)
@@ -116,29 +125,59 @@ def measure_others(tree: Path) -> list:
     def randn(*shape, std=1.0, dtype=torch.bfloat16):
         return torch.empty(shape, device=dev, dtype=dtype).normal_(0.0, std, generator=g)
 
-    def timed(kernel, shape, fns, nbytes, flops, peak):
+    def timed(kernel, shape, fns, nbytes, flops, peak, **extra):
         b_ms, b_by = cs.bound(nbytes, flops, peak)
         ms, eager = cs.cuda_ms(fns, graph=True), cs.cuda_ms(fns)
         rows.append(dict(kernel=kernel, shape=shape, ms=ms, eager_ms=eager, bound_ms=b_ms,
-                         bound_by=b_by, ms_over_bound=ms / b_ms))
+                         bound_by=b_by, ms_over_bound=ms / b_ms, **extra))
 
-    for name, dout, din in cs.INT8_SHAPES[:4]:
-        n_copy = max(1, -(-int(120e6) // (dout * din // 2)))
-        packs = [quantize_linear_weight_int4_pc(randn(dout, din, std=0.02)) for _ in range(n_copy)]
-        x = randn(1, din)
-        timed("int4_matvec", f"{name}: x(1,{din}) W({dout},{din}/2)",
-              [lambda p=p: int4_matvec(x, p["w_int4pc"], p["scale"]) for p in packs],
-              dout * din / 2 + 4 * dout + 2 * din + 2 * dout, 2.0 * dout * din, cs.BF16_FLOPS)
-        del packs
+    dtypes = (torch.bfloat16, torch.float32) if fp32 else (torch.bfloat16,)
+    for c in cs.int4_cases(dev, g, dtypes=dtypes):
+        rows.append(dict(kernel="int4_matvec", **c))
+    if sweep and hasattr(I4, "_grid"):
+        default = I4._grid
+        for tw, wk in INT4_GRIDS:
+            I4._grid = lambda b, dout, sms, tw=tw, wk=wk: (tw, 8 * tw // wk)
+            for c in cs.int4_cases(dev, g, dtypes=(torch.bfloat16,),
+                                   batches=(1, 4, 8) if tw == 1 else (4, 8)):
+                rows.append(dict(kernel="int4_matvec", tiles_a_warp=tw, warps_a_tile=wk, **c))
+        I4._grid = default
     pool_k, pool_v = cs.paged_pool(randn)
-    n_pages, page = cs.PAGED_SHAPE["n_pages"], cs.PAGED_SHAPE["page"]
-    for k in (1, 4, 8):
-        sets = [(randn(k, 8, 128), randn(k, 8, 128),
-                 (torch.randperm(n_pages, device=dev)[:k] + 1).to(torch.int32),
-                 torch.randint(0, page, (k,), dtype=torch.int32, device=dev)) for _ in range(64)]
-        timed("paged_write", f"tokens({k},8,128) into pool(8,{n_pages + 1},64,128)",
-              [lambda s=s: PA.write_tokens(pool_k, pool_v, *s) for s in sets],
-              2 * (2 * 2 * k * 8 * 128) + 8 * k, 0.0, cs.BF16_FLOPS)
+    hkv, h, d, page, maxp, n_pages = (cs.PAGED_SHAPE[k] for k in ("hkv", "h", "d", "page",
+                                                                  "maxp", "n_pages"))
+    fused = "k_new" in inspect.signature(PA.paged_decode_attention).parameters
+    for lengths in cs.PAGED_WRITE_LENGTHS:
+        k = len(lengths)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        lens1 = lens + 1  # made once: no op of its own inside the timed calls
+        sets = []
+        for _ in range(64):  # 64 input sets spread over the pool
+            table = ((torch.randperm(n_pages, device=dev)[: k * maxp] + 1)
+                     .reshape(k, maxp).to(torch.int32))
+            # each row's slot: its table's page, or sink page 0 past the table
+            pp = (lens // page).long()
+            slot = torch.where(pp < maxp, table.gather(1, pp.clamp(max=maxp - 1)[:, None])[:, 0],
+                               0).to(torch.int32)
+            sets.append((randn(k, 1, h, d), table, randn(k, hkv, d), randn(k, hkv, d), slot,
+                         (lens % page).to(torch.int32)))
+        if fused:
+            step = [lambda s=s: PA.paged_decode_attention(s[0], pool_k, pool_v, s[1], lens,
+                                                          k_new=s[2], v_new=s[3]) for s in sets]
+        else:
+            def pair(q, table, kn, vn, slot, off):
+                PA.write_tokens(pool_k, pool_v, kn, vn, slot, off)
+                return PA.paged_decode_attention(q, pool_k, pool_v, table, lens1)
+
+            step = [lambda s=s: pair(*s) for s in sets]
+        free = [lambda s=s: PA.paged_decode_attention(s[0], pool_k, pool_v, s[1], lens1)
+                for s in sets]
+        visible = sum(min(n + 1, maxp * page) for n in lengths)
+        timed("paged_write", f"write + attention, lengths={lengths}", step,
+              2 * (2 * 2 * k * hkv * d) + 8 * k
+              + 2 * (2 * visible * hkv * d + 2 * k * h * d) + 4 * (k + -(-visible // page)),
+              4.0 * h * d * visible, cs.BF16_FLOPS, launches=1 if fused else 2,
+              write_free_ms=cs.cuda_ms(free, graph=True))
+        del sets
     del pool_k, pool_v
     d, n, length = 8192, 16, 32
 
@@ -170,8 +209,8 @@ def main() -> int:
     ap.add_argument("--one", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one is not None:
-        rows = measure_others(args.one) if args.others else measure(args.one, args.sweep,
-                                                                    args.fp32)
+        rows = (measure_others(args.one, args.sweep, args.fp32) if args.others
+                else measure(args.one, args.sweep, args.fp32))
         for row in rows:
             print(json.dumps(row), flush=True)
         return 0
@@ -192,8 +231,12 @@ def main() -> int:
                 row = dict(run=i, tree=str(tree), card=smi, **json.loads(line))
                 f.write(json.dumps(row) + "\n")
                 if args.others:
-                    print(f"run {i} {tree} {row['kernel']} {row['shape']}: ms={row['ms']:.4f} "
-                          f"eager={row['eager_ms']:.4f} bound={row['bound_ms']:.4f} "
+                    extra = "".join(f" {k}={row[k]:.4f}" for k in ("library_ms", "write_free_ms")
+                                    if k in row)
+                    knob = (f" tiles_a_warp={row['tiles_a_warp']} warps_a_tile="
+                            f"{row['warps_a_tile']}" if "warps_a_tile" in row else "")
+                    print(f"run {i} {tree} {row['kernel']}{knob} {row['shape']}: ms={row['ms']:.4f} "
+                          f"eager={row['eager_ms']:.4f}{extra} bound={row['bound_ms']:.4f} "
                           f"x{row['ms_over_bound']:.2f}", flush=True)
                     continue
                 knob = (f"span={row['span']}" if "span" in row
