@@ -13,12 +13,15 @@ Phases, each of which raises (exit code != 0) on failure:
      paths' shapes, with its tolerance; times of the kernel, its plain
      version and one PyTorch yardstick call, beside the card's bound (the
      bf16 flash forward, lse forward, dQ, dK/dV and exact attention,
-     tensor-core kernels, paged attention, the int8 and int4 matvecs, and
-     their yardsticks are timed by replaying a CUDA graph of the launches,
-     and eagerly too; their kernel / bound is printed, and dQ + dK/dV beside
-     SDPA's backward); the int4 matvec at the gate's four linears, B 1, 4
-     and 8, bf16 and fp32 x; the GQA group of 7 (Qwen2-7B's 28 / 4 heads)
-     runs the flash forward at bucket 64 over the ring and the three
+     tensor-core kernels, paged attention, the int8 and int4 matvecs, the
+     selective scan, and their yardsticks are timed by replaying a CUDA
+     graph of the launches, and eagerly too; their kernel / bound is
+     printed, and dQ + dK/dV beside SDPA's backward); the int4 matvec at
+     the gate's four linears, B 1, 4 and 8, bf16 and fp32 x; the scan first
+     with u laid out as the burst hands it (bf16, L 32, a carried state),
+     then at L 1, 8, 32 and 64, bf16 and fp32, with and without a carried
+     state, and (bf16) at L 256 and at B 4; the GQA group of 7 (Qwen2-7B's
+     28 / 4 heads) runs the flash forward at bucket 64 over the ring and the three
      training kernels at 2048; paged attention must give the same bits twice
      (its splits merge in a fixed order), and after phase 5 it is checked and
      timed once more at the lengths the serving phase's K = 3 turn gave it;
@@ -79,8 +82,8 @@ then the ``kernels`` JSON line (``launches`` from the serving phase for the
 inference kernels, from the training phase for the training kernels and from
 the fast phase for int8_matvec and selective_scan; ``tc_launches``, ``hgmma``
 and ``ms_over_bound`` for the five tensor-core kernels, ``ms_over_bound`` for
-paged attention, the int8 and int4 matvecs and the paged write, whose
-launches are the paged attention's launches that wrote a token) and, last,
+paged attention, the int8 and int4 matvecs, the scan and the paged write,
+whose launches are the paged attention's launches that wrote a token) and, last,
 the ``ok`` JSON line.  The fp32 parity phases must launch no tensor-core kernel.  It
 uses nothing of JAX; without a CUDA card it exits with an error before any
 result.
@@ -145,7 +148,7 @@ TRAIN_KERNELS = ("flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv")
 COUNTERS = {"paged_write": "write_launches"}
 # CUDA-core kernels that are timed by graph replay too, their kernel / bound
 # in the kernels line
-GRAPH_TIMED = ("paged_attention", "int8_matvec", "int4_matvec", "paged_write")
+GRAPH_TIMED = ("paged_attention", "int8_matvec", "int4_matvec", "paged_write", "selective_scan")
 FAST_KERNELS = ("int8_matvec", "selective_scan")
 # the kernels with a bf16 tensor-core (wgmma) instantiation beside the fp32
 # CUDA-core one; each wrapper counts its bf16 launches again in .tc_launches,
@@ -795,58 +798,77 @@ def int4_cases(dev, g, shapes=INT4_SHAPES, dtypes=(torch.bfloat16, torch.float32
     return rows
 
 
+# the scan cases (dtype, batch, steps, carried state, u's layout).  u lies as
+# the burst hands it over, the conv output past its 3-step window,
+# contiguous in time ("time"), or as the mixer's (B, L, D) product seen as
+# (B, D, L) ("channels").  First the burst's own: bf16, L 32, a carried
+# state, u by time (its time is the kernels line's ms); then bf16 and fp32
+# at L 32, 1, 8 and 64 with and without the state, u by channels; then, in
+# bf16 only, L 256 and B 4
+SCAN_CASES = ((torch.bfloat16, 1, 32, True, "time"),) + tuple(
+    (dt, b, length, h0, "channels") for dt in (torch.bfloat16, torch.float32)
+    for b, length in ((1, 32), (1, 1), (1, 8), (1, 64)) for h0 in (True, False)) + (
+    (torch.bfloat16, 1, 256, True, "channels"), (torch.bfloat16, 4, 32, True, "channels"))
+
+
+def scan_cases(dev, g, cases=SCAN_CASES, d=8192, n=16):
+    """selective_scan against its plain version at the burst's Mamba shape
+    (d_inner 8192, d_state 16), its inputs laid out as the mixer hands them
+    over; kernel by graph replay (it runs in less time than its wrapper's
+    host work) and eagerly, beside its bound.  No single PyTorch call
+    computes it."""
+    from streammind_torch.ops import scan as S
+
+    rows = []
+    for dtype, b, length, with_h0, u_layout in cases:
+        esize = torch.finfo(dtype).bits // 8
+
+        def case():
+            def r(*shape, std=1.0, dt=dtype):
+                return torch.empty(shape, device=dev, dtype=dt).normal_(0.0, std, generator=g)
+
+            xz, dtp, x_dbl = r(b, length, 2 * d), r(b, length, d, std=0.5), r(b, length,
+                                                                             256 + 2 * n)
+            u = xz[..., :d].transpose(1, 2) if u_layout == "channels" else r(b, d, length + 3)[
+                ..., 3:]
+            args = (u, dtp.transpose(1, 2), -torch.exp(r(d, n, std=0.5, dt=torch.float32)),
+                    x_dbl[..., 256:256 + n].transpose(1, 2), x_dbl[..., 256 + n:].transpose(1, 2))
+            return args, dict(D=r(d, dt=torch.float32), z=xz[..., d:].transpose(1, 2),
+                              delta_bias=r(d, dt=torch.float32), delta_softplus=True,
+                              return_last_state=True,
+                              h0=r(b, d, n, dt=torch.float32) if with_h0 else None)
+
+        nbytes = (esize * (4 * b * d * length + 2 * b * n * length) + 4 * (d * n + 2 * d)
+                  + 4 * b * d * n * (2 if with_h0 else 1))
+        sets = [case() for _ in range(n_sets(nbytes))]
+        args, kw = sets[0]
+        y, h = S.selective_scan(*args, **kw, impl="pallas")
+        ref_y, ref_h = S.selective_scan_ref(*args, **kw)
+        errs = [excess(y, ref_y, *SCAN_TOL[dtype]), excess(h, ref_h, *SCAN_STATE_TOL)]
+        fns = [lambda s=s: S.selective_scan(*s[0], **s[1], impl="pallas") for s in sets]
+        ms, eager = cuda_ms(fns, graph=True), cuda_ms(fns)
+        plain = cuda_ms([lambda s=s: S.selective_scan_ref(*s[0], **s[1]) for s in sets],
+                        iters=3, warmup=1)
+        b_ms, b_by = bound(nbytes, (7.0 * n + 12.0) * b * d * length, FP32_FLOPS)
+        rows.append(dict(shape=f"u/dt/z ({b},{d},{length}) {str(dtype)[6:]} A({d},{n}) "
+                               f"B/C ({b},{n},{length}) h0={'yes' if with_h0 else 'no'} "
+                               f"u={u_layout}",
+                         max_abs_err=max(e for e, _ in errs), errs=[e for e, _ in errs],
+                         ok=all(o <= 0 for _, o in errs), ms=ms, eager_ms=eager, plain_ms=plain,
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by, ms_over_bound=ms / b_ms))
+        del sets
+    return rows
+
+
 def check_fast_kernels(dev, g):
     """The fast tier's two kernels.  int8_matvec at the int8 gate's four
     shapes (one token a frame) and the int8 decoder's three fused ones, B 1, 4
     and 8, bf16 and fp32 x; the yardstick is F.linear on the weight
-    dequantized beforehand into x's dtype.  selective_scan at the burst's
-    Mamba shape (d_inner 8192, d_state 16) over L 1, 8, 32 and 64, with and
-    without a carried state, bf16 and fp32, its inputs laid out as the mixer
-    hands them over; no single PyTorch call computes it."""
-    from streammind_torch.ops import scan as S
-
+    dequantized beforehand into x's dtype.  selective_scan at
+    ``SCAN_CASES``."""
     results = {"int8_matvec": (int8_cases(dev, g), "; ".join(
         tol_text(INT8_TOL[d], str(d)[6:] + " output") for d in INT8_TOL))}
-    rows = []
-    b, d, n = 1, 8192, 16
-    for dtype in (torch.bfloat16, torch.float32):
-        esize = torch.finfo(dtype).bits // 8
-        for length in (32, 1, 8, 64):
-            for with_h0 in (True, False):
-                def case():
-                    def r(*shape, std=1.0, dt=dtype):
-                        return torch.empty(shape, device=dev, dtype=dt).normal_(0.0, std,
-                                                                               generator=g)
-                    xz, dtp, x_dbl = r(b, length, 2 * d), r(b, length, d, std=0.5), r(
-                        b, length, 256 + 2 * n)
-                    args = (xz[..., :d].transpose(1, 2), dtp.transpose(1, 2),
-                            -torch.exp(r(d, n, std=0.5, dt=torch.float32)),
-                            x_dbl[..., 256:256 + n].transpose(1, 2),
-                            x_dbl[..., 256 + n:].transpose(1, 2))
-                    return args, dict(D=r(d, dt=torch.float32), z=xz[..., d:].transpose(1, 2),
-                                      delta_bias=r(d, dt=torch.float32), delta_softplus=True,
-                                      return_last_state=True,
-                                      h0=r(b, d, n, dt=torch.float32) if with_h0 else None)
-
-                nbytes = (esize * (4 * b * d * length + 2 * b * n * length) + 4 * (d * n + 2 * d)
-                          + 4 * b * d * n * (2 if with_h0 else 1))
-                sets = [case() for _ in range(n_sets(nbytes))]
-                args, kw = sets[0]
-                y, h = S.selective_scan(*args, **kw, impl="pallas")
-                ref_y, ref_h = S.selective_scan_ref(*args, **kw)
-                errs = [excess(y, ref_y, *SCAN_TOL[dtype]), excess(h, ref_h, *SCAN_STATE_TOL)]
-                ms = cuda_ms([lambda s=s: S.selective_scan(*s[0], **s[1], impl="pallas")
-                              for s in sets])
-                plain = cuda_ms([lambda s=s: S.selective_scan_ref(*s[0], **s[1]) for s in sets],
-                                iters=3, warmup=1)
-                b_ms, b_by = bound(nbytes, (7.0 * n + 12.0) * b * d * length, FP32_FLOPS)
-                rows.append(dict(shape=f"u/dt/z ({b},{d},{length}) {str(dtype)[6:]} A({d},{n}) "
-                                       f"B/C ({b},{n},{length}) h0={'yes' if with_h0 else 'no'}",
-                                 max_abs_err=max(e for e, _ in errs), errs=[e for e, _ in errs],
-                                 ok=all(o <= 0 for _, o in errs), ms=ms, plain_ms=plain,
-                                 library_ms=None, bound_ms=b_ms, bound_by=b_by))
-                del sets
-    results["selective_scan"] = (rows, "y " + "; ".join(
+    results["selective_scan"] = (scan_cases(dev, g), "y " + "; ".join(
         tol_text(SCAN_TOL[dt], str(dt)[6:]) for dt in SCAN_TOL) + "; last state "
         + tol_text(SCAN_STATE_TOL, "fp32"))
     return results

@@ -99,8 +99,10 @@ def selective_scan_kernel(
     A (D, N), D, delta_bias (D,) and h0 (B, D, N) are taken in fp32 (the
     wrapper makes fp32 contiguous copies where they are not already).  y
     comes back as a (B, D, L) view of a (B, L, D) tensor, channels
-    contiguous; the last state (B, D, N) fp32.  ``selective_scan_kernel.
-    launches`` counts the launches."""
+    contiguous; the last state (B, D, N) fp32.  The kernel spreads each
+    channel's states over 8 lanes and sums y over them in a fixed order,
+    so two calls give the same bits.  ``selective_scan_kernel.launches``
+    counts the launches."""
     args = (u, delta, A, B, C, D, z, delta_bias, h0)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
         raise RuntimeError("selective_scan(impl='pallas') has no backward; use impl='ref'")

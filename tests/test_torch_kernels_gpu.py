@@ -319,12 +319,18 @@ def _scan_case(rng, dtype, b, d, length, n, with_h0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,d,length", [(1, 8192, 32), (2, 384, 1), (1, 200, 8), (3, 64, 64),
-                                        (1, 96, 150)])   # 150 steps: three shared-memory chunks
+@pytest.mark.parametrize("b,d,length,n", [
+    (1, 8192, 32, 16), (2, 384, 1, 16), (1, 200, 8, 16), (3, 64, 64, 16),
+    (1, 96, 150, 16),                         # 150 steps: five chunks of 32
+    (2, 100, 20, 1), (2, 100, 20, 3), (1, 256, 40, 8),  # N that leaves lanes of a group empty
+    (1, 100, 31, 16), (1, 100, 32, 16), (1, 100, 33, 16),  # a chunk - 1, a chunk, a chunk + 1
+    (2, 200, 100, 16),                        # over three chunks; D 100, 200: rows not 16 bytes
+    (4, 8192, 32, 16),                        # B 4
+])
 @pytest.mark.parametrize("with_h0", [False, True])
-def test_selective_scan_kernel_matches_plain(dev, dtype, b, d, length, with_h0):
+def test_selective_scan_kernel_matches_plain(dev, dtype, b, d, length, n, with_h0):
     rng = np.random.default_rng(11)
-    args, kw = _scan_case(rng, dtype, b, d, length, 16, with_h0)
+    args, kw = _scan_case(rng, dtype, b, d, length, n, with_h0)
     n0 = S.selective_scan_kernel.launches
     y, h = S.selective_scan(*args, **kw, impl="pallas")
     torch.cuda.synchronize()
@@ -341,6 +347,41 @@ def test_selective_scan_kernel_without_z_d_or_bias(dev):
     y = S.selective_scan(*args, impl="pallas")
     torch.cuda.synchronize()
     _close(y, S.selective_scan_ref(*args), torch.float32)
+
+
+def _relayout(t, how):
+    """The same (B, D, L) values in another memory layout."""
+    if how == "time-contiguous":   # the burst's u: the conv output past its 3-step window
+        buf = torch.zeros(t.shape[0], t.shape[1], t.shape[2] + 3, dtype=t.dtype, device=t.device)
+        buf[..., 3:] = t
+        return buf[..., 3:]
+    if how == "strided channels":  # neither stride 1
+        buf = torch.zeros(t.shape[0], t.shape[2], 2 * t.shape[1], dtype=t.dtype, device=t.device)
+        buf[..., ::2] = t.transpose(1, 2)
+        return buf[..., ::2].transpose(1, 2)
+    return t.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("how", ["time-contiguous", "strided channels", "contiguous"])
+@pytest.mark.parametrize("n", [16, 3])
+def test_selective_scan_kernel_takes_any_layout(dev, dtype, how, n):
+    """u, dt and z in layouts that take the element path (the burst's own u is
+    contiguous in time); y and the last state as the plain version gives
+    them, and the same bits from a second call (a channel's lanes sum in a
+    fixed order, no atomics)."""
+    rng = np.random.default_rng(14)
+    args, kw = _scan_case(rng, dtype, 2, 200, 40, n, True)
+    u, dt = _relayout(args[0], how), _relayout(args[1], how)
+    kw["z"] = _relayout(kw["z"], how)
+    args = (u, dt) + args[2:]
+    y, h = S.selective_scan(*args, **kw, impl="pallas")
+    y2, h2 = S.selective_scan(*args, **kw, impl="pallas")
+    torch.cuda.synchronize()
+    ref_y, ref_h = S.selective_scan_ref(*args, **kw)
+    _close(y, ref_y, dtype)
+    torch.testing.assert_close(h, ref_h, atol=1e-4, rtol=1e-4)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
 
 
 def test_selective_scan_kernel_has_no_backward(dev):

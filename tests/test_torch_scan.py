@@ -5,10 +5,17 @@ The port's ``selective_scan`` (``impl="ref"``, and ``impl="pallas"``, whose
 wrapper takes the plain version for CPU tensors) is held to the JAX
 package's Pallas scan run interpreted and to its lax.scan reference, with
 and without a carried state, fp32 within 1e-5 (sums in another order).
+The CUDA kernel sums y over a channel's states in its own order (a group
+of lanes, each with a run of states, then a butterfly of the lanes'
+sums); a plain emulation of that order is held to both references, at the
+burst's shape and at small ones, within the card's limit (chip_smoke.py's
+``SCAN_TOL``), which fixes that limit before any card run.
 Then ``mamba_project_chunk`` continuing a carried state, and
 ``StreamMindEngine.perceive_burst``: against the JAX package's burst, and
 against the port's own T single steps.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -70,6 +77,89 @@ def test_selective_scan_matches_jax(rng, length, with_h0, with_z):
             np.testing.assert_allclose(h.numpy(), np.asarray(rh), **FP32)
     y_only = tscan.selective_scan(*(t[k] for k in pos), **tkw, delta_softplus=True, impl="pallas")
     np.testing.assert_allclose(y_only.numpy(), np.asarray(y_ref), **FP32)
+
+
+# chip_smoke.py's SCAN_TOL (fp32 y) and SCAN_STATE_TOL
+SCAN_TOL_FP32 = dict(atol=1e-5, rtol=1e-5)
+
+
+def _kernel_order_scan(x, group):
+    """The CUDA kernel's arithmetic (csrc/selective_scan.cu) in numpy fp32:
+    softplus(dt + bias) as max(x, 0) + log1p(e^-|x|), exp(dt * A), the state
+    update as a product then a sum, and y's sum over the N states in the
+    kernel's order.  Lane g of a channel's group of ``group`` lanes owns
+    states [g*s, g*s + s), s = ceil(N / group), and sums h*C over them by fma
+    in state order from 0 (emulated in float64: the exact product, the sum
+    rounded to fp64 and then to fp32); the lanes' sums meet by the butterfly
+    p += p[lane ^ o], o = group/2, ..., 1, whose bits the kernel's
+    reduce-scatter gives (fp32 adds commute).  Then + D*u and * z / (1 +
+    e^-z).  Returns y (fp32) and the last state."""
+    f32, f64 = np.float32, np.float64
+    u, A, B, C = x["u"], x["A"], x["B"], x["C"]
+    dt = x["delta"] + x["delta_bias"][None, :, None]
+    dt = np.maximum(dt, f32(0)) + np.log1p(np.exp(-np.abs(dt)))
+    bsz, d, length = u.shape
+    n = A.shape[1]
+    s = -(-n // group)
+    lanes = np.arange(group)
+    h = x["h0"].copy() if x["h0"] is not None else np.zeros((bsz, d, n), f32)
+    ys = []
+    for t in range(length):
+        dA = np.exp(dt[:, :, t, None] * A[None])
+        h = h * dA + (dt[:, :, t] * u[:, :, t])[:, :, None] * B[:, None, :, t]
+        p = np.zeros((bsz, d, group), f32)
+        for k in range(s):
+            own = lanes[lanes * s + k < n]
+            idx = own * s + k
+            p[..., own] = (h[..., idx].astype(f64) * C[:, None, idx, t].astype(f64)
+                           + p[..., own].astype(f64)).astype(f32)
+        o = group // 2
+        while o:
+            p = p + p[..., lanes ^ o]
+            o //= 2
+        ys.append(p[..., 0])
+    y = np.stack(ys, axis=2) + u * x["D"][None, :, None]
+    z = x["z"]
+    return y * (z / (f32(1) + np.exp(-z))), h
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_refs(b, d, length, n):
+    """Inputs from a seed, and y and the last state from the port's
+    selective_scan_ref and JAX's interpreted Pallas scan."""
+    x = _scan_inputs(np.random.default_rng(21), b, d, length, n)
+    x["delta"] = x["delta"] * np.float32(0.5)
+    pos = ("u", "delta", "A", "B", "C")
+    kw = dict(delta_softplus=True, return_last_state=True)
+    tkw = {k: _t(x[k]) for k in ("D", "z", "delta_bias", "h0")}
+    y_ref, h_ref = tscan.selective_scan_ref(*(_t(x[k]) for k in pos), **tkw, **kw)
+    jkw = {k: jnp.asarray(x[k]) for k in ("D", "z", "delta_bias", "h0")}
+    y_pl, h_pl = jscan.selective_scan_pallas(*(jnp.asarray(x[k]) for k in pos), **jkw, **kw)
+    return x, ((y_ref.numpy(), h_ref.numpy()), (np.asarray(y_pl), np.asarray(h_pl)))
+
+
+KERNEL_LANES = 8  # lanes sharing a channel's states in csrc/selective_scan.cu
+
+
+@pytest.mark.parametrize("b,d,length,n", [
+    (1, 8192, 32, 16),   # the burst: d_inner 8192, d_state 16, 32 frames
+    (1, 8192, 1, 16),    # one step
+    (2, 24, 12, 16),
+    (2, 10, 5, 3),       # states that leave lanes of a group empty
+    (1, 6, 33, 1),
+    (2, 7, 9, 2),
+    (3, 8, 70, 8),       # one state a lane
+    (1, 5, 31, 12),      # two states on six lanes, none on the last two
+    (2, 9, 64, 15),      # the last lane one state short
+    (1, 12, 100, 16),    # over three chunks of 32 steps
+])
+def test_kernel_summation_order_matches_the_references(b, d, length, n):
+    x, refs = _scan_refs(b, d, length, n)
+    y, h = _kernel_order_scan(x, KERNEL_LANES)
+    assert y.dtype == np.float32 and y.shape == (b, d, length)
+    for ry, rh in refs:
+        np.testing.assert_allclose(y, ry, **SCAN_TOL_FP32)
+        np.testing.assert_allclose(h, rh, **SCAN_TOL_FP32)
 
 
 def test_selective_scan_dispatch_and_grad(rng):

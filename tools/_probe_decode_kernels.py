@@ -18,14 +18,23 @@ longer applies to the source is reported and skipped):
   alone); u1, u4 (1 or 4 steps a batch); lb2 (at most 128 registers, two
   blocks an SM); b1_as_b4, b1_as_b8 (B
   1 through the B 4 or B 8 instantiation); chunk16, chunk64 (x staged in
-  chunks of 16 or 64 KB).
+  chunks of 16 or 64 KB);
+  selective_scan: base; g2, g4, g16 (2, 4 or 16 lanes share a channel's
+  states, not 8); branch (each state slot past N a branch instead of
+  the select); chunk16 (16 steps staged at a time); lb1, lb4 (registers
+  capped for 1 or 4 blocks an SM, not 2); no_exp (the exp of each state's
+  step left out), no_softplus, no_silu (y times z), no_reduce (no sum over
+  a channel's lanes); no_all (N 16 through the path for any N: scalar
+  loads of B and C, a select a state).
 Paged attention is timed at K 1 [8192], K 8 over PAGED_LENGTHS and the
 serving phase's K 3 [37, 37, 37] at spans 256 and 512; the int8 matvec at
 INT8_SHAPES for B 1 and 8, bf16 x; the int4 matvec at the gate's four
 linears for B 1, 4 and 8, bf16 x, at each grid of INT4_GRIDS (tiles a
-warp, warps a tile).  The no_* variants compute wrong values
-(their ``ok`` is False): they are timings only.  Builds go to
-``streammind_torch/_kernels/probe/``.  Fails without a CUDA card.
+warp, warps a tile); the selective scan at chip_smoke.py's bf16 cases with a
+carried state.  The no_* variants compute wrong values (their ``ok`` is
+False): they are timings only.  Builds go to
+``streammind_torch/_kernels/probe/``.  Fails without a CUDA card, and exits
+1 after the timings where a variant did not build.
 """
 from __future__ import annotations
 
@@ -48,6 +57,15 @@ I4_STAGE = "stage_x(xs, x, B, din, 0, min(kCols, half), xrow, width);"
 I4_B1 = "if (B == 1) SM_INT4_TC(1, 1);"
 I4_KU = "constexpr int kSteps = 2;"
 I4_LB = "__launch_bounds__(kThreads)\nint4_matvec_tc_kernel"
+SC_SELECT = "p = (kAll || own[k]) ? q : p;"
+SC_EXP = "const float dA = expf(__fmul_rn(dv, a[k]));"
+SC_LB = "__launch_bounds__(kCh * kGroup, 2)"
+SC_GROUP = "constexpr int kGroup = 8;"
+SC_CHUNK = "constexpr int kChunk = 32;"
+SC_SOFTPLUS = "if (p.flags & kSoftplus) dv = softplus_f(dv);"
+SC_SILU = "yv = __fmul_rn(yv, __fdiv_rn(zv, __fadd_rn(1.f, expf(-zv))));"
+SC_REDUCE = "reduce_scatter<G / 2, kChunk / 2>(yp, g);"
+
 # (tiles a warp, warps splitting a tile's columns); two tiles a warp from B 3
 INT4_GRIDS = tuple((tw, wk) for tw in (1, 2) for wk in (8, 4, 2, 1))
 VARIANTS = {
@@ -79,15 +97,30 @@ VARIANTS = {
         "chunk16": [(I4_CHUNK, I4_CHUNK.replace("32768", "16384"))],
         "chunk64": [(I4_CHUNK, I4_CHUNK.replace("32768", "65536"))],
     },
+    "selective_scan": {
+        "base": [],
+        **{f"g{grp}": [(SC_GROUP, SC_GROUP.replace("8", str(grp)))] for grp in (2, 4, 16)},
+        "branch": [(SC_SELECT, "p = q;"),
+                   (SC_EXP, "if (!kAll && !own[k]) continue;\n        " + SC_EXP)],
+        "chunk16": [(SC_CHUNK, SC_CHUNK.replace("32", "16"))],
+        "lb1": [(SC_LB, "__launch_bounds__(kCh * kGroup)")],
+        "lb4": [(SC_LB, "__launch_bounds__(kCh * kGroup, 4)")],
+        "no_exp": [(SC_EXP, "const float dA = __fmul_rn(dv, a[k]);")],
+        "no_softplus": [(SC_SOFTPLUS, "")],
+        "no_silu": [(SC_SILU, "yv = __fmul_rn(yv, zv);")],
+        "no_reduce": [(SC_REDUCE, "")],
+        "no_all": [("if (a.N == kMaxN)", "if (false)")],
+    },
 }
 
 
-def build(out: Path, wanted, kernels=None) -> dict:
+def build(out: Path, wanted, kernels=None) -> tuple:
     """Every variant named in ``wanted`` (all where it is empty) of the
-    kernels in ``kernels`` (all where empty)."""
+    kernels in ``kernels`` (all where empty): the libraries built, and the
+    (kernel, variant) pairs that failed to build."""
     from streammind_torch.ops import _build
 
-    procs, built = {}, {}
+    procs, built, failed = {}, {}, []
     for kern, variants in VARIANTS.items():
         if kernels and kern not in kernels:
             continue
@@ -111,12 +144,14 @@ def build(out: Path, wanted, kernels=None) -> dict:
     for key, (lib, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"{key}: build failed\n{log}")
+            print(f"{key[0]} {key[1]}: build failed, skipped\n{log[-3000:]}", flush=True)
+            failed.append(key)
+            continue
         built[key] = lib
         # registers and spill bytes of each entry point, in ptxas order
         print(f"{key[0]} {key[1]}: registers {re.findall(r'Used (\d+) registers', log)}, spill "
               f"stores {re.findall(r'(\d+) bytes spill stores', log)}", flush=True)
-    return built
+    return built, failed
 
 
 def use(kern: str, lib: Path) -> None:
@@ -139,6 +174,8 @@ def int4_probe(cs, built, dev, g) -> None:
     from streammind_torch.utils.quantize import quantize_linear_weight_int4_pc
 
     libs = {name: lib for (kern, name), lib in built.items() if kern == "int4_matvec"}
+    if not libs:
+        return
     default = I4._grid
     for shape, dout, din in cs.INT4_SHAPES:
         packs = [quantize_linear_weight_int4_pc(torch.empty((dout, din), device=dev).normal_(
@@ -164,6 +201,20 @@ def int4_probe(cs, built, dev, g) -> None:
     I4._grid = default
 
 
+def scan_probe(cs, built, dev, g) -> None:
+    """Each selective-scan variant at chip_smoke.py's bf16 cases with a
+    carried state, by graph replay."""
+    import torch
+
+    libs = {name: lib for (kern, name), lib in built.items() if kern == "selective_scan"}
+    cases = tuple(c for c in cs.SCAN_CASES if c[0] == torch.bfloat16 and c[3])
+    for name, lib in libs.items():
+        use("selective_scan", lib)
+        for c in cs.scan_cases(dev, g, cases=cases):
+            print(f"selective_scan {name} {c['shape']} ms={c['ms']:.4f} ok={c['ok']}",
+                  flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", nargs="*", default=None)
@@ -180,7 +231,7 @@ def main() -> int:
         raise SystemExit("_probe_decode_kernels: no CUDA device")
     out = _build.BUILD_DIR / "probe"
     out.mkdir(parents=True, exist_ok=True)
-    built = build(out, args.variants, args.kernels)
+    built, failed = build(out, args.variants, args.kernels)
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(1)
 
@@ -209,8 +260,11 @@ def main() -> int:
         for c in cs.int8_cases(dev, g, dtypes=(torch.bfloat16,), batches=(1, 8)):
             print(f"int8_matvec {name} {c['shape']} ms={c['ms']:.4f} ok={c['ok']}", flush=True)
     int4_probe(cs, built, dev, g)
+    scan_probe(cs, built, dev, g)
     _build._libs.clear()
-    return 0
+    if failed:
+        print(f"failed to build: {failed}", flush=True)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@
 source trees on one CUDA card, in turns.
 
     python3 tools/decode_kernels_bench.py [--tree DIR ...] [--sweep] [--others] [--fp32]
-                                          [--out FILE]
+                                          [--only KERNEL ...] [--out FILE]
 
 Each ``--tree`` (a checkout of the repository, the directory that holds
 ``streammind_torch/``; default: this repository) is measured in a process
@@ -24,9 +24,9 @@ With ``--others`` it times instead, the same two ways, the int4 matvec
 decode step's token write and paged attention at ``PAGED_WRITE_LENGTHS``
 (one launch where the tree folds the write into the attention, else the
 write kernel then the attention; beside it the write-free attention alone)
-and the selective scan.  It prints one line per tree and case and, given
-``--out FILE``, writes them all there as JSON lines.  Fails without a CUDA
-card.
+and the selective scan at ``chip_smoke.py``'s ``SCAN_CASES``.  It prints
+one line per tree and case and, given ``--out FILE``, writes them all there
+as JSON lines.  Fails without a CUDA card.
 """
 from __future__ import annotations
 
@@ -105,19 +105,19 @@ def measure(tree: Path, sweep: bool, fp32: bool) -> list:
     return rows
 
 
-def measure_others(tree: Path, sweep: bool, fp32: bool) -> list:
+def measure_others(tree: Path, sweep: bool, fp32: bool, only=None) -> list:
     """The int4 matvec at the gate's four linears (B 1, 4 and 8), a decode
     step's write and attention at ``PAGED_WRITE_LENGTHS`` and the selective
-    scan at the burst's L 32 (bf16, carried state), by graph replay and
-    eagerly, at chip_smoke.py's shapes.  With ``sweep`` a tree whose int4
-    wrapper has ``_grid`` is also timed at each (tiles a warp, warps a tile) of
-    ``INT4_GRIDS`` (bf16, B 1, 4 and 8)."""
+    scan at chip_smoke.py's ``SCAN_CASES``, by graph replay and eagerly, at
+    chip_smoke.py's shapes.  With ``sweep`` a tree whose int4 wrapper has
+    ``_grid`` is also timed at each (tiles a warp, warps a tile) of
+    ``INT4_GRIDS`` (bf16, B 1, 4 and 8).  ``only`` (names of kernels) keeps
+    those alone."""
     cs = harness(tree)
     import torch
 
     from streammind_torch.ops import int4_matvec as I4
     from streammind_torch.ops import paged_attention as PA
-    from streammind_torch.ops import scan as S
 
     dev, rows = "cuda", []
     g = torch.Generator(device=dev).manual_seed(99)
@@ -131,10 +131,13 @@ def measure_others(tree: Path, sweep: bool, fp32: bool) -> list:
         rows.append(dict(kernel=kernel, shape=shape, ms=ms, eager_ms=eager, bound_ms=b_ms,
                          bound_by=b_by, ms_over_bound=ms / b_ms, **extra))
 
+    def wanted(name):
+        return not only or name in only
+
     dtypes = (torch.bfloat16, torch.float32) if fp32 else (torch.bfloat16,)
-    for c in cs.int4_cases(dev, g, dtypes=dtypes):
+    for c in cs.int4_cases(dev, g, dtypes=dtypes) if wanted("int4_matvec") else ():
         rows.append(dict(kernel="int4_matvec", **c))
-    if sweep and hasattr(I4, "_grid"):
+    if sweep and hasattr(I4, "_grid") and wanted("int4_matvec"):
         default = I4._grid
         for tw, wk in INT4_GRIDS:
             I4._grid = lambda b, dout, sms, tw=tw, wk=wk: (tw, 8 * tw // wk)
@@ -146,7 +149,7 @@ def measure_others(tree: Path, sweep: bool, fp32: bool) -> list:
     hkv, h, d, page, maxp, n_pages = (cs.PAGED_SHAPE[k] for k in ("hkv", "h", "d", "page",
                                                                   "maxp", "n_pages"))
     fused = "k_new" in inspect.signature(PA.paged_decode_attention).parameters
-    for lengths in cs.PAGED_WRITE_LENGTHS:
+    for lengths in cs.PAGED_WRITE_LENGTHS if wanted("paged_write") else ():
         k = len(lengths)
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         lens1 = lens + 1  # made once: no op of its own inside the timed calls
@@ -179,23 +182,9 @@ def measure_others(tree: Path, sweep: bool, fp32: bool) -> list:
               write_free_ms=cs.cuda_ms(free, graph=True))
         del sets
     del pool_k, pool_v
-    d, n, length = 8192, 16, 32
-
-    def scan_case():  # laid out as the Mamba mixer hands them over
-        xz, dtp, x_dbl = (randn(1, length, 2 * d), randn(1, length, d, std=0.5),
-                          randn(1, length, 256 + 2 * n))
-        args = (xz[..., :d].transpose(1, 2), dtp.transpose(1, 2),
-                -torch.exp(randn(d, n, std=0.5, dtype=torch.float32)),
-                x_dbl[..., 256:256 + n].transpose(1, 2), x_dbl[..., 256 + n:].transpose(1, 2))
-        return args, dict(D=randn(d, dtype=torch.float32), z=xz[..., d:].transpose(1, 2),
-                          delta_bias=randn(d, dtype=torch.float32), delta_softplus=True,
-                          return_last_state=True, h0=randn(1, d, n, dtype=torch.float32))
-
-    nbytes = 2 * (4 * d * length + 2 * n * length) + 4 * (d * n + 2 * d) + 4 * d * n * 2
-    sets = [scan_case() for _ in range(cs.n_sets(nbytes))]
-    timed("selective_scan", f"u/dt/z (1,{d},{length}) bfloat16 A({d},{n}) h0=yes",
-          [lambda c=c: S.selective_scan(*c[0], **c[1], impl="pallas") for c in sets],
-          nbytes, (7.0 * n + 12.0) * d * length, cs.FP32_FLOPS)
+    torch.cuda.empty_cache()
+    for c in cs.scan_cases(dev, g) if wanted("selective_scan") else ():
+        rows.append(dict(kernel="selective_scan", **c))
     return rows
 
 
@@ -206,10 +195,13 @@ def main() -> int:
     ap.add_argument("--fp32", action="store_true")
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--others", action="store_true")
+    ap.add_argument("--only", action="append", default=None,
+                    help="with --others: time this kernel alone (int4_matvec, paged_write, "
+                         "selective_scan); repeatable")
     ap.add_argument("--one", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one is not None:
-        rows = (measure_others(args.one, args.sweep, args.fp32) if args.others
+        rows = (measure_others(args.one, args.sweep, args.fp32, args.only) if args.others
                 else measure(args.one, args.sweep, args.fp32))
         for row in rows:
             print(json.dumps(row), flush=True)
@@ -223,6 +215,7 @@ def main() -> int:
         for i, tree in enumerate(args.tree or [REPO]):
             cmd = [sys.executable, __file__, "--one", str(tree.resolve())]
             cmd += ["--sweep"] * args.sweep + ["--fp32"] * args.fp32 + ["--others"] * args.others
+            cmd += [a for name in args.only or () for a in ("--only", name)]
             out = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
             if out.returncode:
                 sys.stderr.write(out.stdout[-4000:] + out.stderr[-8000:])
@@ -232,7 +225,9 @@ def main() -> int:
                 f.write(json.dumps(row) + "\n")
                 if args.others:
                     extra = "".join(f" {k}={row[k]:.4f}" for k in ("library_ms", "write_free_ms")
-                                    if k in row)
+                                    if row.get(k) is not None)
+                    if "ok" in row:
+                        extra += f" ok={row['ok']} err={row['max_abs_err']:.3e}"
                     knob = (f" tiles_a_warp={row['tiles_a_warp']} warps_a_tile="
                             f"{row['warps_a_tile']}" if "warps_a_tile" in row else "")
                     print(f"run {i} {tree} {row['kernel']}{knob} {row['shape']}: ms={row['ms']:.4f} "

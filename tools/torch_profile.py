@@ -17,7 +17,10 @@ training microbatch of the adapter stage (``make_grad_step`` of the
 stage-1 loss: a 1,980-token prompt with 64 frames of pre-extracted
 features, spliced into the 2048 bucket, remat, the flash training
 kernels in every layer; forward, recompute and backward, no optimizer
-step).  For each region it prints one JSON line:
+step), and beside it the training projector's plain scan alone
+(``selective_scan_ref``, which ``mamba_project`` reaches with
+impl="auto"), forward and backward, on the inputs it took in that
+microbatch.  For each region it prints one JSON line:
 host wall time (synchronized), the device's busy time (the sum of kernel
 and copy times the profiler saw), the idle share, the number of device
 operations, and the ten device operations that took the most time.
@@ -243,9 +246,45 @@ def train_microbatch(cfg, dev):
         return stage1_llm_loss(p, cfg, b["frames"], b["token_ids"], b["mem_index"], b["use_mem"],
                                b["attn_mask"], b["labels"], remat=True, attn_impl="flash!")
 
+    from streammind_torch.models import mamba as M
+    from streammind_torch.ops.scan import selective_scan_ref
+
+    seen, scan = [], M.selective_scan
+
+    def spied(*args, **kw):  # keeps the training projector's scan inputs
+        if not seen:
+            seen.append((tuple(a.detach().clone() for a in args),
+                         {k: v.detach().clone() if torch.is_tensor(v) else v
+                          for k, v in kw.items()}))
+        return scan(*args, **kw)
+
     grad_step = make_grad_step(loss_fn, mask)
-    grad_step(params, batch)  # warm-up
+    M.selective_scan = spied
+    try:
+        grad_step(params, batch)  # warm-up
+    finally:
+        M.selective_scan = scan
     profiled("train_microbatch", lambda: grad_step(params, batch))
+    args, kw = seen[0]
+    if kw.get("impl") != "auto":
+        raise RuntimeError(f"the training projector's scan took impl={kw.get('impl')!r}")
+    kw = {k: v for k, v in kw.items() if k != "impl"}
+    args = tuple(a.requires_grad_(a.is_floating_point()) for a in args)
+    kw = {k: v.requires_grad_() if torch.is_tensor(v) and v.is_floating_point() else v
+          for k, v in kw.items()}
+    inputs = [t for t in (*args, *kw.values()) if torch.is_tensor(t)]
+    y, h = selective_scan_ref(*args, **kw)
+    grads = (torch.ones_like(y), torch.ones_like(h))
+
+    def scan_fwd_bwd():
+        y, h = selective_scan_ref(*args, **kw)
+        return torch.autograd.grad((y, h), inputs, grads)
+
+    scan_fwd_bwd()  # warm-up
+    print(json.dumps(dict(train_scan_shapes=[list(t.shape) for t in inputs],
+                          train_scan_dtype=str(args[0].dtype))), flush=True)
+    profiled("train_projector_scan_fwd_bwd", scan_fwd_bwd)
+    profiled("train_projector_scan_fwd", lambda: selective_scan_ref(*args, **kw))
     print(json.dumps(dict(train_bucket=int(batch["token_ids"].shape[1]),
                           train_frames=int(batch["frames"].shape[1]),
                           supervised=int((batch["labels"][:, 1:] != -100).sum()))), flush=True)
