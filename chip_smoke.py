@@ -78,12 +78,29 @@ Phases, each of which raises (exit code != 0) on failure:
      card, the burst against single steps; a TF32-on control that must break
      a limit; the int8 ViT on its own (one linear on identical inputs, and
      the tower's features);
+ 11. (after phase 5, on the session's tree) the public API: ``model_init``,
+     greedy ``infer`` on 16 frames with 32 new tokens, ``decode_stream``
+     against ``generate_from_prefill`` on the same plan, ``infer_beams``
+     with 5 beams (sorted scores, one beam greedy); then a synthetic
+     full-SFT ``.bin`` under the released key names and shapes at full
+     widths, the decoder cut to 2 layers, loaded by ``model_init(path,
+     load_4bit="pc")`` (every leaf bitwise the written bf16) and answered
+     the same way through the int4 kernel; exact launch counts;
+ 12. the HTTP plane: a Controller and a ModelWorker (multistream_capacity
+     4) on 127.0.0.1, one streamed generation through the controller equal
+     to decode_stream in-process, two HTTP sessions of 6 frames through
+     the paged broker with one forced fire;
+ 13. ``infer`` and ``beam_generate`` in fp32 at reduced depth on the CPU and
+     the card, TF32 off (identical tokens, text and beams; memory, logits
+     and beam scores within limits), and a TF32-on control;
 then the ``kernels`` JSON line (``launches`` from the serving phase for the
 inference kernels, from the training phase for the training kernels and from
 the fast phase for int8_matvec and selective_scan; ``tc_launches``, ``hgmma``
 and ``ms_over_bound`` for the five tensor-core kernels, ``ms_over_bound`` for
 paged attention, the int8 and int4 matvecs, the scan and the paged write,
-whose launches are the paged attention's launches that wrote a token) and, last,
+whose launches are the paged attention's launches that wrote a token;
+``launches_by_path`` of every kernel: session, serving, fast, train, api,
+worker) and, last,
 the ``ok`` JSON line.  The fp32 parity phases must launch no tensor-core kernel.  It
 uses nothing of JAX; without a CUDA card it exits with an error before any
 result.
@@ -277,7 +294,8 @@ def check_kernels(dev):
     # flash: Mistral-7B prefill over a capacity-8192 cache (H 32/8, D 128) at
     # the buckets 64 and 2048 (B 1), and 32 and 512 with B 2 and a ragged,
     # nonzero q_offset (the second row's bucket padded by a few tokens); then
-    # bucket 64 with a GQA group of 7 (Qwen2-7B's 28 / 4 heads).  Sets
+    # bucket 64 with a GQA group of 7 (Qwen2-7B's 28 / 4 heads); then the
+    # api's one-shot prefill, bucket 128 from an empty cache.  Sets
     # of inputs: the caches are overlapping views of one buffer, each
     # starting past the rows the previous one reads, so nothing is read warm.
     # Kernel and library are timed by graph replay (the bf16 kernel runs in
@@ -286,7 +304,8 @@ def check_kernels(dev):
     for sq, q_offs, kv_lens, h, hkv in ((64, [100], [150], 32, 8), (2048, [0], [2048], 32, 8),
                                         (32, [100, 1517], [132, 1544], 32, 8),
                                         (512, [388, 2000], [900, 2505], 32, 8),
-                                        (64, [100], [150], 28, 4)):
+                                        (64, [100], [150], 28, 4),
+                                        (128, [0], [65], 32, 8)):
         b = len(q_offs)
         visible = sum(min(n, off + i + 1) for off, n in zip(q_offs, kv_lens) for i in range(sq))
         rows = [min(n, off + sq) for off, n in zip(q_offs, kv_lens)]
@@ -351,7 +370,10 @@ def check_kernels(dev):
                           bound_by=b_by, one_pass_flash_ms=one_pass))
     results["exact_attention"] = (cases, BF16_TOL_TEXT)
 
-    results["int4_matvec"] = (int4_cases(dev, g), INT4_TOL_TEXT)
+    results["int4_matvec"] = (int4_cases(dev, g) + int4_cases(
+        dev, g, shapes=INT4_DECODER_SHAPES, dtypes=(bf16,), batches=(1, API_BEAMS)) + int4_cases(
+        dev, g, shapes=INT4_DECODER_UNFUSED, dtypes=(bf16,), batches=(API_BEAMS,)),
+        INT4_TOL_TEXT)
     results.update(check_paged_kernels(dev, randn))
     results.update(check_train_kernels(dev, randn))
     results.update(check_fast_kernels(dev, g))
@@ -752,6 +774,11 @@ INT4_TOL = (1e-2, 1e-2)
 INT4_TOL_TEXT = "|err| <= 1e-2 + 1e-2*|ref| (bf16 and fp32 output)"
 # the int4 gate's four linears (one token a frame a stream)
 INT4_SHAPES = INT8_SHAPES[:4]
+# the load_4bit="pc" decoder's two fused linears, one token (greedy) or one
+# a beam; its o and down have the gate's shapes, held here at one row a beam
+# (the gate's cases run them at B 1, 4 and 8)
+INT4_DECODER_SHAPES = INT8_SHAPES[4:]
+INT4_DECODER_UNFUSED = (INT8_SHAPES[1], INT8_SHAPES[3])
 
 
 def int4_cases(dev, g, shapes=INT4_SHAPES, dtypes=(torch.bfloat16, torch.float32),
@@ -808,7 +835,8 @@ def int4_cases(dev, g, shapes=INT4_SHAPES, dtypes=(torch.bfloat16, torch.float32
 SCAN_CASES = ((torch.bfloat16, 1, 32, True, "time"),) + tuple(
     (dt, b, length, h0, "channels") for dt in (torch.bfloat16, torch.float32)
     for b, length in ((1, 32), (1, 1), (1, 8), (1, 64)) for h0 in (True, False)) + (
-    (torch.bfloat16, 1, 256, True, "channels"), (torch.bfloat16, 4, 32, True, "channels"))
+    (torch.bfloat16, 1, 256, True, "channels"), (torch.bfloat16, 4, 32, True, "channels"),
+    (torch.bfloat16, 1, 16, False, "time"))  # the api's clip projection: L = 16 frames, fresh
 
 
 def scan_cases(dev, g, cases=SCAN_CASES, d=8192, n=16):
@@ -1830,6 +1858,489 @@ def training_parity(dev):
     return got
 
 
+# ---------------------------------------------------------------------------
+# phases 11-13: the public API, the released checkpoint layout, the HTTP worker
+# ---------------------------------------------------------------------------
+API_FRAMES = 16       # frames of the clip api.infer and the worker answer about
+API_NEW = 32          # new tokens of a greedy answer
+API_BEAMS = 5         # beams (the Ego4D-LTA eval's num_beams)
+API_BEAM_NEW = 16     # new tokens of a beam
+CKPT_TEXT_LAYERS = 2  # the checkpoint case's one cut: the decoder's depth
+CKPT_BEAM_NEW = 8
+CKPT_DIR = Path(__file__).resolve().parent / "_smoke_ckpt"
+MANIFEST = (Path(__file__).resolve().parent / "tests" / "data"
+            / "checkpoint_manifest_full_sft_7b.json")
+QUESTION = "What is happening?"
+CARD = "no card"  # nvidia-smi's "name, power limit", set by main()
+
+
+def bitwise_differences(got, want) -> list:
+    """Paths whose leaves differ in dtype, shape or any bit, or are missing."""
+    from streammind_torch.utils.params import flatten_with_paths
+
+    got, want = dict(flatten_with_paths(got)), dict(flatten_with_paths(want))
+    bad = sorted(set(got) ^ set(want))
+    for k in sorted(set(got) & set(want)):
+        a, b = got[k], want[k]
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b.to(a.device)):
+            bad.append(k)
+    return bad
+
+
+def full_sft_state_dict(tree, cfg) -> dict:
+    """A StreamMind param tree under the released full-SFT key names (HF
+    Mistral, the mm_projector, HF CLIP under the vision tower), as CPU
+    copies; CLIP's post_layernorm, which the model does not read, as
+    ones and zeros."""
+    from streammind_torch.utils.checkpoint import export_projector_torch_sd
+
+    sd = {}
+    t = tree["text"]
+    sd["model.embed_tokens.weight"] = t["embed_tokens"]
+    sd["model.norm.weight"] = t["final_norm"]["weight"]
+    sd["lm_head.weight"] = t["lm_head"]["weight"]
+    names = {"input_norm": "input_layernorm", "post_norm": "post_attention_layernorm",
+             "q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+             "o": "self_attn.o_proj"}
+    for i in range(cfg.text.num_layers):
+        for ours, theirs in names.items():
+            sd[f"model.layers.{i}.{theirs}.weight"] = t["layers"][ours]["weight"][i]
+        for p in ("gate", "up", "down"):
+            sd[f"model.layers.{i}.mlp.{p}_proj.weight"] = t["layers"]["mlp"][p]["weight"][i]
+    for k, x in export_projector_torch_sd(tree["projector"]).items():
+        sd["model.mm_projector." + k] = x
+    v, c = tree["vision"], cfg.vision
+    pre = "model.vision_tower.vision_tower.vision_model."
+    sd[pre + "embeddings.class_embedding"] = v["class_embedding"]
+    sd[pre + "embeddings.patch_embedding.weight"] = v["patch_embedding"].reshape(
+        c.hidden_size, 3, c.patch_size, c.patch_size)
+    sd[pre + "embeddings.position_embedding.weight"] = v["position_embedding"]
+    for p in ("weight", "bias"):
+        sd[pre + f"pre_layrnorm.{p}"] = v["pre_layernorm"][p]
+        sd[pre + f"post_layernorm.{p}"] = (torch.ones_like if p == "weight" else
+                                           torch.zeros_like)(v["pre_layernorm"][p])
+    clip = {"ln1": "layer_norm1", "q": "self_attn.q_proj", "k": "self_attn.k_proj",
+            "v": "self_attn.v_proj", "o": "self_attn.out_proj", "ln2": "layer_norm2",
+            "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+    for i in range(c.num_layers):
+        for ours, theirs in clip.items():
+            for p in ("weight", "bias"):
+                sd[pre + f"encoder.layers.{i}.{theirs}.{p}"] = v["layers"][ours][p][i]
+    return {k: x.detach().to("cpu", copy=True).contiguous() for k, x in sd.items()}
+
+
+def check_against_manifest(sd: dict, text_layers: int):
+    """The key names and shapes of ``sd`` must be the released full-SFT
+    manifest's, the decoder's layers cut to ``text_layers``."""
+    import re
+
+    with open(MANIFEST) as f:
+        manifest = json.load(f)
+    want = {k: s for k, s in manifest.items()
+            if not (m := re.match(r"model\.layers\.(\d+)\.", k)) or int(m.group(1)) < text_layers}
+    got = {k: list(x.shape) for k, x in sd.items()}
+    if got != want:
+        diff = sorted(set(got) ^ set(want)) or [k for k in want if got[k] != want[k]]
+        raise RuntimeError(f"the written checkpoint differs from the released manifest: "
+                           f"{diff[:8]}")
+    return len(want), len(manifest)
+
+
+def check_counts(what: str, counts: dict, expect: dict) -> None:
+    if counts != expect:
+        raise RuntimeError(f"{what}: launch counts {counts} differ from the path's {expect}")
+
+
+def timed(fn):
+    """(fn(), synchronized ms, the decoder's one-token forwards it ran)."""
+    with DecodeCounter() as dc:
+        t0 = sync()
+        out = fn()
+        ms = (sync() - t0) * 1e3
+    return out, ms, dc.n
+
+
+def copy_cache(cache):
+    from streammind_torch.models.mistral import KVCache
+
+    return KVCache(k=cache.k.clone(), v=cache.v.clone(), length=cache.length.clone())
+
+
+def answer_checks(api, model, tok, video, max_new: int, n_beams: int, beam_new: int):
+    """One model through the API: greedy ``infer``; the same plan prefilled
+    once and decoded by ``generate_from_prefill`` with the template's stop
+    ids (must give infer's text), without them (timed) and by
+    ``decode_stream`` (must give the same tokens); ``beam_generate`` with
+    n_beams beams (timed) and with one (must be greedy); ``infer_beams``
+    (must give the beams' texts).  Returns its numbers."""
+    from streammind_torch.mm_utils import trim_at_stop_strings
+    from streammind_torch.streaming.engine import decode_tokens_to_text, stop_id_matrix
+
+    eng, version = model.engine, "llama_2"
+    stops = api._stop_strings(version)
+    text, infer_ms, _ = timed(lambda: api.infer(model, video, QUESTION, tok,
+                                                max_new_tokens=max_new))
+    plan, mem_buf = api._prepare_cognition_inputs(model, video, QUESTION, tok, version)
+    cap = eng.cache_capacity_for(len(plan.token_ids), max_new)
+    (last, cache), prefill_ms, _ = timed(lambda: eng.prefill(plan, mem_buf,
+                                                             eng.new_kv_cache(capacity=cap)))
+    stopped, _ = eng.generate_from_prefill(last, copy_cache(cache), max_new,
+                                           stop_ids=stop_id_matrix(tok, stops))
+    (greedy, _), decode_ms, decode_fw = timed(lambda: eng.generate_from_prefill(
+        last, copy_cache(cache), max_new))
+    streamed = list(eng.decode_stream(last, cache, max_new))
+    beams, beam_ms, beam_steps = timed(lambda: eng.beam_generate(
+        plan, mem_buf, num_beams=n_beams, max_new_tokens=beam_new))
+    one = eng.beam_generate(plan, mem_buf, num_beams=1, max_new_tokens=beam_new)
+    texts = api.infer_beams(model, video, QUESTION, tok, num_beams=n_beams,
+                            num_return_sequences=n_beams, max_new_tokens=beam_new)
+    want_text = trim_at_stop_strings(decode_tokens_to_text(tok, stopped).strip(), stops)
+    scores = [s for _, s in beams]
+    beam_texts = [trim_at_stop_strings(decode_tokens_to_text(tok, b).strip(), stops)
+                  for b, _ in beams]
+    problems = []
+    if text != want_text:
+        problems.append(f"infer gave {text!r}, its plan's greedy decode {want_text!r}")
+    if streamed != greedy or not greedy:
+        problems.append(f"decode_stream {streamed} differs from generate_from_prefill {greedy}")
+    if len(beams) != n_beams or scores != sorted(scores, reverse=True) or not all(
+            math.isfinite(s) for s in scores):
+        problems.append(f"expected {n_beams} beams, best first, finite scores: {scores}")
+    # one beam is greedy; where greedy ends early at EOS, beam search keeps
+    # a longer hypothesis beside it, which starts with greedy's tokens
+    head = greedy[:beam_new]
+    if len(one) != 1 or one[0][0][:len(head)] != head or (
+            len(head) == beam_new and one[0][0] != head):
+        problems.append(f"one beam {one} is not greedy {head}")
+    if texts != beam_texts:
+        problems.append(f"infer_beams {texts} differs from the beams' texts {beam_texts}")
+    if any(not 0 <= t < model.cfg.text.vocab_size for t in greedy):
+        problems.append(f"token ids out of the vocabulary: {greedy}")
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return dict(infer_ms=infer_ms, prefill_ms=prefill_ms, decode_ms_per_token=decode_ms / max(
+        decode_fw, 1), decode_forwards=decode_fw, tokens=len(greedy), beam_ms=beam_ms,
+        beam_steps=beam_steps, beam_ms_per_step=(beam_ms - prefill_ms) / max(beam_steps, 1),
+        scores=scores)
+
+
+def write_checkpoint(tree, cfg, path: Path) -> float:
+    """The tree as a released full-SFT checkpoint directory: one
+    pytorch_model.bin and the streammind_config.json.  Returns GB written."""
+    sd = full_sft_state_dict(tree, cfg)
+    n_keys, n_released = check_against_manifest(sd, cfg.text.num_layers)
+    path.mkdir(parents=True, exist_ok=True)
+    torch.save(sd, path / "pytorch_model.bin")
+    (path / "streammind_config.json").write_text(cfg.to_json())
+    gb = sum(x.numel() * x.element_size() for x in sd.values()) / 1e9
+    log("api", f"checkpoint: {n_keys} keys ({n_released} in the released manifest, the "
+               f"decoder cut to {cfg.text.num_layers} of its layers), names and shapes as the "
+               f"manifest's, {gb:.2f} GB bf16 written to {path.name}/pytorch_model.bin")
+    return gb
+
+
+def api_phase(engine, g, dev):
+    """The public API at StreamMind-7B's widths on the session's tree (bf16,
+    the int4 gate; the engine's ViT attention "exact" for the worker): the
+    answer checks on API_FRAMES frames (greedy, API_NEW tokens; API_BEAMS
+    beams of API_BEAM_NEW tokens); then the released checkpoint layout: a
+    synthetic full-SFT .bin at full widths with the decoder cut to
+    CKPT_TEXT_LAYERS layers, loaded by ``model_init(path,
+    load_4bit="pc")`` (every leaf bitwise the written bf16 through the
+    load's transforms), and the answer checks on it, whose decode and beams
+    run through the int4 kernel.  Returns (the model, the tokenizer, the
+    numbers)."""
+    from streammind_torch import api
+    from streammind_torch.config import StreamMindConfig
+    from streammind_torch.models.meta import init_streammind_params
+    from streammind_torch.models.mistral import fuse_text_linears
+    from streammind_torch.models.vit import fuse_vit_qkv
+    from streammind_torch.utils.params import flatten_with_paths, param_count
+    from streammind_torch.utils.quantize import quantize_text_params
+
+    base = StreamMindConfig()
+    tok = StandInTokenizer()
+    model, _, _, version = api.model_init(params=engine.params, cfg=base, tokenizer=tok,
+                                          vit_attn="exact", device=dev)
+    size = base.vision.image_size
+    video = torch.empty((API_FRAMES, 3, size, size), device=dev, dtype=torch.bfloat16).normal_(
+        generator=g)
+    cfg2 = base.replace(text=dataclasses.replace(base.text, num_layers=CKPT_TEXT_LAYERS))
+    tree = init_streammind_params(torch.Generator(device=dev).manual_seed(21), cfg2, device=dev,
+                                  dtype=torch.bfloat16)
+    path = CKPT_DIR / "StreamMind-7B-text2"
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    try:
+        full = answer_checks(api, model, tok, video, API_NEW, API_BEAMS, API_BEAM_NEW)
+        _, write_ms, _ = timed(lambda: write_checkpoint(tree, cfg2, path))
+        (m2, _, _, v2), load_ms, _ = timed(lambda: api.model_init(
+            str(path), tokenizer=tok, load_4bit="pc", device=dev))
+        want = {"vision": fuse_vit_qkv(tree["vision"]), "projector": tree["projector"],
+                "text": fuse_text_linears(quantize_text_params(tree["text"], bits=4,
+                                                               scheme="pc"))}
+        bad = bitwise_differences(m2.params, want)
+        n_leaves, n_params = len(list(flatten_with_paths(want))), param_count(tree)
+        del want, tree
+        if bad or v2 != version or m2.cfg != cfg2:
+            raise RuntimeError(f"the loaded checkpoint differs from the written one: {bad[:8]}, "
+                               f"version {v2}, config equal {m2.cfg == cfg2}")
+        log("api", f"checkpoint loaded by model_init(path, load_4bit='pc') in {load_ms:.1f} ms "
+                   f"(written in {write_ms:.1f} ms, {n_params} parameters): {n_leaves} leaves "
+                   f"bitwise the written bf16 (the ViT's q/k/v fused, the decoder's linears "
+                   f"per-channel int4 and fused)")
+        with DecodeCounter() as dc:
+            ckpt = answer_checks(api, m2, tok, video, API_NEW, API_BEAMS, CKPT_BEAM_NEW)
+        ckpt_forwards = dc.n
+        counts = read_launches()
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    del m2
+    torch.cuda.empty_cache()
+    # prefills: infer, the timed plan, the beams, one beam, infer_beams (5 a
+    # model); clip projections (one scan launch a Mamba layer): infer, the
+    # plan, infer_beams (3 a model); int4: the fused qkv, o, gateup and down
+    # of every one-token forward of the int4 decoder (beam steps included)
+    L, L2, n_mamba = base.text.num_layers, CKPT_TEXT_LAYERS, base.mamba.n_layers
+    expect = {n: 0 for n in counts}
+    expect.update(flash_attention=5 * (L + L2), flash_attention_tc=5 * (L + L2),
+                  selective_scan=6 * n_mamba, int4_matvec=4 * L2 * ckpt_forwards)
+    log("api", f"launches={counts} expected={expect} ({ckpt_forwards} one-token forwards of "
+               f"the int4 decoder)")
+    check_counts("api", counts, expect)
+    for name, r in (("bf16", full), ("load_4bit='pc', text 2 layers", ckpt)):
+        log("api", f"[{CARD}] {name}: infer wall ({API_FRAMES} frames, prefill, {API_NEW} tokens) = "
+                   f"{r['infer_ms']:.3f} ms; prefill = {r['prefill_ms']:.3f} ms; decode = "
+                   f"{r['decode_ms_per_token']:.3f} ms/token over {r['decode_forwards']} "
+                   f"forwards ({r['tokens']} tokens); beams: {API_BEAMS} x "
+                   f"{API_BEAM_NEW if r is full else CKPT_BEAM_NEW} tokens in "
+                   f"{r['beam_ms']:.3f} ms, {r['beam_ms_per_step']:.3f} ms a step over "
+                   f"{r['beam_steps']} steps; scores {[round(s, 4) for s in r['scores']]}")
+    return model, tok, dict(full=full, ckpt=ckpt, launches=counts)
+
+
+def worker_phase(model, tok, g, dev):
+    """The HTTP serving plane on the card: an in-process Controller and a
+    ModelWorker(multistream_capacity=4) over the api phase's model (exact
+    ViT attention, the int4 gate), both on 127.0.0.1.  One
+    /worker_generate_stream through the controller with a video_b64 npz of
+    API_FRAMES frames, whose streamed text must equal decode_stream's
+    in-process; then two HTTP stream sessions of 6 frames each through the
+    broker (paged KV), one forced fire."""
+    import base64
+    import io
+    import socket
+    import threading
+    import urllib.request
+
+    from streammind_torch import api
+    from streammind_torch.constants import VIDEO_TOKEN_INDEX
+    from streammind_torch.mm_utils import tokenizer_multimodal_token
+    from streammind_torch.serve import controller as ctl
+    from streammind_torch.serve.model_worker import ModelWorker, serve_worker
+
+    def free_port():
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        return port
+
+    def npz_b64(arr):
+        buf = io.BytesIO()
+        np.savez(buf, pixels=arr)
+        return base64.b64encode(buf.getvalue()).decode()
+
+    def post(url, payload, stream=False):
+        """POST a dict, or a body already encoded (so a timed request does
+        not count the client's encoding)."""
+        data = payload if isinstance(payload, bytes) else json.dumps(payload).encode()
+        req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            if not stream:
+                return json.loads(resp.read())
+            chunks, buf, arrivals = [], b"", []
+            while True:
+                b = resp.read1(65536)
+                if not b:
+                    return chunks, arrivals
+                buf += b
+                while b"\0" in buf:
+                    part, buf = buf.split(b"\0", 1)
+                    chunks.append(json.loads(part.decode()))
+                    arrivals.append(time.perf_counter())
+
+    cfg = model.cfg
+    size = cfg.vision.image_size
+    prompt = "[INST] <video>\nWhat is happening? [/INST]"
+    video = torch.empty((API_FRAMES, 3, size, size), device=dev).normal_(generator=g).cpu().numpy()
+    # the reference: the same prompt and frames through decode_stream in-process
+    pixels = api._pixels(model, video)
+    ids = tokenizer_multimodal_token(prompt, tok, VIDEO_TOKEN_INDEX)
+    eng = model.engine
+    with torch.no_grad():
+        plan, mem_buf = api.splice_inputs(model, ids, api.encode_memory(model, pixels))
+        last, cache = eng.prefill(plan, mem_buf, eng.new_kv_cache(
+            capacity=eng.cache_capacity_for(len(plan.token_ids), API_NEW)))
+    ref_tokens = list(eng.decode_stream(last, cache, API_NEW))
+    ref_text = tok.decode(ref_tokens)
+    del last, cache, mem_buf, pixels
+    frames = [torch.empty((1, 3, size, size), device=dev).normal_(generator=g).cpu().numpy()
+              for _ in range(12)]
+
+    cport, wport = free_port(), free_port()
+    ctrl = ctl.serve("127.0.0.1", cport)
+    threading.Thread(target=ctrl.serve_forever, daemon=True).start()
+    worker = wserver = None
+    torch.cuda.synchronize()
+    reset_launches()
+    try:
+        worker = ModelWorker(f"http://127.0.0.1:{cport}", f"http://127.0.0.1:{wport}",
+                             model_path="", model_name="StreamMind-7B", model=model,
+                             tokenizer=tok, no_register=False, multistream_capacity=4,
+                             vit_attn="exact", device=dev)
+        wserver = serve_worker(worker, "127.0.0.1", wport)
+        threading.Thread(target=wserver.serve_forever, daemon=True).start()
+        listed = post(f"http://127.0.0.1:{cport}/list_models", {})["models"]
+        body = json.dumps({"model": "StreamMind-7B", "prompt": prompt,
+                           "video_b64": npz_b64(video), "max_new_tokens": API_NEW,
+                           "temperature": 0.0}).encode()
+        t0 = time.perf_counter()
+        chunks, arrivals = post(f"http://127.0.0.1:{cport}/worker_generate_stream", body,
+                                stream=True)
+        first_chunk_ms = (arrivals[0] - t0) * 1e3 if arrivals else float("nan")
+        chunk_ms = ((arrivals[-1] - arrivals[0]) * 1e3 / (len(arrivals) - 1)
+                    if len(arrivals) > 1 else float("nan"))
+        url = f"http://127.0.0.1:{wport}"
+        sids = [post(url + "/stream_session/start", {
+            "prompt": prompt, "gate_threshold": 2.0, "max_new_tokens": 16,
+            "session_id": f"live{i}"})["session_id"] for i in range(2)]
+        outs = {sid: [] for sid in sids}
+        session_ms = []
+        for t in range(6):
+            for j, sid in enumerate(sids):
+                fire = sid == sids[0] and t == 3
+                for slot in worker.broker.server.slots:
+                    if slot is not None and slot.stream_id == sid:
+                        slot.gate_threshold = -1.0 if fire else 2.0
+                payload = json.dumps({"session_id": sid,
+                                      "pixels_b64": npz_b64(frames[2 * t + j])}).encode()
+                out, ms, _ = timed(lambda: post(url + "/stream_session/frame", payload))
+                outs[sid].append(out)
+                session_ms.append(ms)
+        stopped = [post(url + "/stream_session/stop", {"session_id": sid}) for sid in sids]
+        counts = read_launches()
+        broker_ticks = worker.broker.ticks
+    finally:
+        ctrl.shutdown()
+        ctrl.server_close()
+        if wserver is not None:
+            wserver.shutdown()
+            wserver.server_close()
+        if worker is not None:
+            worker.shutdown()
+    text = chunks[-1]["text"] if chunks else None
+    fires = {sid: [o.get("fire") for o in outs[sid]] for sid in sids}
+    log("worker", f"controller lists {listed}; /worker_generate_stream through the controller: "
+                  f"{len(chunks)} chunks, frames {chunks[-1].get('frames') if chunks else None}, "
+                  f"text equal to decode_stream in-process: {text == ref_text}")
+    log("worker", f"[{CARD}] time to first streamed chunk = {first_chunk_ms:.3f} ms (from the "
+                  f"request, its body encoded beforehand: {API_FRAMES} frames as a base64 npz "
+                  f"sent and decoded, the ViT, the projector, the prefill); then "
+                  f"{chunk_ms:.3f} ms a token (chunk arrivals at the client)")
+    log("worker", f"sessions (broker, paged, capacity 4): fires {fires}; {broker_ticks} ticks; "
+                  f"frame round trip median {statistics.median(session_ms):.3f} ms; "
+                  f"stopped {[s['error_code'] for s in stopped]}")
+    problems = []
+    if listed != ["StreamMind-7B"]:
+        problems.append(f"the controller lists {listed}")
+    if text != ref_text or any(c.get("error_code") != 0 for c in chunks):
+        problems.append(f"streamed {text!r} (error codes {[c.get('error_code') for c in chunks]})"
+                        f", in-process {ref_text!r}")
+    want_fires = {sids[0]: [t == 3 for t in range(6)], sids[1]: [False] * 6}
+    if fires != want_fires or any(o.get("error_code") != 0 for os_ in outs.values() for o in os_):
+        problems.append(f"session fires {fires}, expected {want_fires}: {outs}")
+    if not isinstance(outs[sids[0]][3].get("text"), str):
+        problems.append(f"the forced fire spoke no text: {outs[sids[0]][3]}")
+    for name in ("flash_attention", "selective_scan", "exact_attention", "int4_matvec",
+                 "paged_attention", "paged_write"):
+        if not counts[name]:
+            problems.append(f"the worker path launched no {name}")
+    if any(counts[n] for n in TRAIN_KERNELS + ("int8_matvec",)):
+        problems.append(f"the worker path launched a training or int8 kernel: {counts}")
+    log("worker", f"launches={counts}")
+    if problems:
+        raise RuntimeError("worker: " + "; ".join(problems))
+    return dict(first_chunk_ms=first_chunk_ms, ms_per_token=chunk_ms, launches=counts,
+                session_ms_median=statistics.median(session_ms))
+
+
+# about ten times the errors measured on an H100 80GB HBM3 at 700 W with TF32
+# off (memory 1.43e-6, first-token logits 2.07e-5, beam scores 6.4e-7); the
+# TF32-on control crossed all three (1.3e-3, 8.0e-3, 8.9e-4)
+API_PARITY_TOL = {"memory": 2e-5, "logits": 2e-4, "beam_scores": 6e-6}
+
+
+def api_parity(dev):
+    """infer and beam_generate in fp32 at the parity config (depth cut only,
+    TF32 off): the same seeded tree and frames through model_init on the CPU
+    (plain versions) and the card (kernels): the clip's memory tokens, the
+    first token's logits, the greedy tokens and text, the beam lists and
+    scores; then the card with TF32 on, which must break a limit."""
+    from streammind_torch import api
+
+    cfg = parity_config()
+    from streammind_torch.models.meta import init_streammind_params
+
+    params = init_streammind_params(torch.Generator().manual_seed(11), cfg, device="cpu")
+    video = torch.randn((4, 3, cfg.vision.image_size, cfg.vision.image_size),
+                        generator=torch.Generator().manual_seed(12))
+    tok = StandInTokenizer()
+    out = {}
+    for run, where, tf32 in (("cpu", "cpu", False), ("card", dev, False),
+                             ("card_tf32", dev, True)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        t0 = time.perf_counter()
+        model, _, _, _ = api.model_init(params=params, cfg=cfg, tokenizer=tok,
+                                        dtype=torch.float32, device=where)
+        eng = model.engine
+        reset_launches()
+        text = api.infer(model, video, QUESTION, tok, max_new_tokens=8)
+        plan, mem_buf = api._prepare_cognition_inputs(model, video, QUESTION, tok, "llama_2")
+        last, cache = eng.prefill(plan, mem_buf, eng.new_kv_cache(capacity=256))
+        tokens, _ = eng.generate_from_prefill(last, cache, 8)
+        beams = eng.beam_generate(plan, mem_buf, num_beams=3, max_new_tokens=6)
+        counts = read_launches()
+        out[run] = dict(memory=mem_buf[0, :video.shape[0]].cpu(), logits=last.cpu(),
+                        beam_scores=torch.tensor([s for _, s in beams], dtype=torch.float64),
+                        tokens=tokens, text=text, beams=[b for b, _ in beams])
+        log("api-parity", f"{run}: {time.perf_counter() - t0:.1f} s, tokens {tokens}, beams "
+                          f"{out[run]['beams']}, launches {counts}")
+        if where != "cpu":
+            fp32_only(counts, "api-parity")
+            if not (counts["flash_attention"] and counts["selective_scan"]):
+                raise RuntimeError(f"the card's run missed the flash or scan kernel: {counts}")
+        del model, eng, cache
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tol = API_PARITY_TOL
+    c = out["cpu"]
+    errs, control = ({k: float((c[k] - out[run][k]).abs().max()) for k in tol}
+                     for run in ("card", "card_tf32"))
+    same = {k: c[k] == out["card"][k] for k in ("tokens", "text", "beams")}
+    log("api-parity", f"depth vit3/gate2/text2 at published widths, fp32, TF32 off: max |cpu - "
+                      f"card| = {errs}, limits {tol}; identical: {same}")
+    log("api-parity", f"control, TF32 on: max |cpu - card| = {control}; over the limits: "
+                      f"{[k for k in tol if control[k] > tol[k]]}")
+    if any(errs[k] > tol[k] for k in tol) or not all(same.values()):
+        raise RuntimeError("infer / beam_generate on the CPU and the card disagree")
+    if not any(control[k] > tol[k] for k in tol):
+        raise RuntimeError("the api parity limits do not see TF32 matmuls on the card")
+    return errs
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "streammind_torch" / "__init__.py").exists():
@@ -1842,7 +2353,9 @@ def main() -> int:
     dev = "cuda"
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD, flush=True)
     log("env", f"python {sys.version.split()[0]} torch {torch.__version__} "
                f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
@@ -1865,12 +2378,15 @@ def main() -> int:
     engine, g = build_engine(dev)
     session = full_width_session(engine, g, dev)
     serving = serving_phase(engine, g, dev)
-    del engine
+    model, tok, api_run = api_phase(engine, g, dev)
+    worker = worker_phase(model, tok, g, dev)
+    del engine, model
     torch.cuda.empty_cache()
     kernels["paged_attention"][0].append(check_paged_serving_case(dev, serving["attn_lengths"][3]))
     fast = fast_phase(dev)
     fast_parity(dev)
     parity(dev)
+    api_parity(dev)
     training = training_phase(dev)
     training_parity(dev)
 
@@ -1886,7 +2402,9 @@ def main() -> int:
             launches_by_path={"session": session["launches"][name],
                               "serving": serving["launches"][name],
                               "fast": fast["launches"][name],
-                              "train": training["launches"][name]},
+                              "train": training["launches"][name],
+                              "api": api_run["launches"][name],
+                              "worker": worker["launches"][name]},
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"],
@@ -1900,7 +2418,7 @@ def main() -> int:
                 tc_launches=main_path["launches"][f"{name}_tc"],
                 tc_launches_by_path={p: r["launches"][f"{name}_tc"] for p, r in (
                     ("session", session), ("serving", serving), ("fast", fast),
-                    ("train", training))},
+                    ("train", training), ("api", api_run), ("worker", worker))},
                 hgmma=hgmma[src.split("/")[-1][:-3]], ms_over_bound=head["ms_over_bound"],
                 timing="CUDA graph replay (device time); eager_ms in cases")
     print(json.dumps({"kernels": entries}), flush=True)

@@ -1,11 +1,14 @@
 """Configuration dataclasses for every component of the stack.
 
-A copy of the JAX package's configuration (same fields, defaults and
-tiny test configs), kept here so this package imports nothing of it.
+A copy of the JAX package's configuration (same fields, defaults, presets
+and tiny test configs), kept here so this package imports nothing of it.
+``StreamMindConfig.to_json`` writes the same JSON as the JAX package's, so
+a config written by either package loads in the other.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 
 
@@ -102,6 +105,10 @@ class TextConfig:
         return self.num_kv_heads * self.head_dim
 
 
+def mistral_7b() -> TextConfig:
+    return TextConfig()
+
+
 def gate_lm_config(hidden_size: int = 4096) -> TextConfig:
     """The 2-way gate LM: 4-layer Mistral with a 2-token vocabulary."""
     return TextConfig(
@@ -112,6 +119,60 @@ def gate_lm_config(hidden_size: int = 4096) -> TextConfig:
         num_heads=32,
         num_kv_heads=8,
         head_dim=hidden_size // 32,
+    )
+
+
+def mixtral_8x7b() -> TextConfig:
+    return TextConfig(num_experts=8, num_experts_per_tok=2)
+
+
+def text_config_from_hf(raw: dict) -> TextConfig:
+    """A TextConfig from an HF-style config.json dict: mistral, mixtral
+    (num_local_experts > 1) and qwen2 (q/k/v biases)."""
+    hidden = raw.get("hidden_size", 4096)
+    heads = raw.get("num_attention_heads", 32)
+    model_type = raw.get("model_type", "mistral").lower()
+    return TextConfig(
+        vocab_size=raw.get("vocab_size", 32000),
+        hidden_size=hidden,
+        intermediate_size=raw.get("intermediate_size", 14336),
+        num_layers=raw.get("num_hidden_layers", 32),
+        num_heads=heads,
+        num_kv_heads=raw.get("num_key_value_heads", heads),
+        head_dim=raw.get("head_dim", hidden // heads),
+        rms_norm_eps=raw.get("rms_norm_eps", 1e-5),
+        rope_theta=raw.get("rope_theta", 10000.0),
+        max_position_embeddings=raw.get("max_position_embeddings", 32768),
+        sliding_window=raw.get("sliding_window") or 0,
+        tie_word_embeddings=raw.get("tie_word_embeddings", False),
+        qkv_bias=model_type == "qwen2",
+        num_experts=raw.get("num_local_experts", 1),
+        num_experts_per_tok=raw.get("num_experts_per_tok", 2),
+    )
+
+
+def qwen2_7b() -> TextConfig:
+    """Qwen2-7B-Instruct: the Mistral decoder family with q/k/v biases and a
+    larger vocabulary and rope base."""
+    return TextConfig(
+        vocab_size=152064,
+        hidden_size=3584,
+        intermediate_size=18944,
+        num_layers=28,
+        num_heads=28,
+        num_kv_heads=4,
+        head_dim=128,
+        rope_theta=1_000_000.0,
+        qkv_bias=True,
+    )
+
+
+def llama2_7b() -> TextConfig:
+    return TextConfig(
+        vocab_size=32000,
+        intermediate_size=11008,
+        num_kv_heads=32,
+        max_position_embeddings=4096,
     )
 
 
@@ -134,6 +195,20 @@ class StreamMindConfig:
 
     def replace(self, **kw) -> "StreamMindConfig":
         return dataclasses.replace(self, **kw)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @staticmethod
+    def from_json(text: str) -> "StreamMindConfig":
+        raw = json.loads(text)
+        return StreamMindConfig(
+            vision=VisionConfig(**raw["vision"]),
+            mamba=MambaConfig(**raw["mamba"]),
+            text=TextConfig(**raw["text"]),
+            gate=TextConfig(**raw["gate"]),
+            **{k: v for k, v in raw.items() if k not in ("vision", "mamba", "text", "gate")},
+        )
 
 
 # ---------------------------------------------------------------------------

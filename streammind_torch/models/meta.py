@@ -13,10 +13,10 @@ import numpy as np
 import torch
 
 from ..config import StreamMindConfig
-from ..constants import IGNORE_INDEX
+from ..constants import IGNORE_INDEX, MAX_VISION_BATCH_FRAMES
 from . import mistral as lm
 from . import projector as proj
-from .vit import init_vit_params
+from .vit import init_vit_params, vit_forward
 
 
 def init_streammind_params(g: torch.Generator, cfg: StreamMindConfig, device="cuda",
@@ -29,6 +29,21 @@ def init_streammind_params(g: torch.Generator, cfg: StreamMindConfig, device="cu
         "projector": proj.init_projector_params(g, cfg, **kw),
         "text": lm.init_text_params(g, cfg.text, **kw),
     }
+
+
+def init_projector(g: torch.Generator, cfg: StreamMindConfig, device="cuda",
+                   dtype=torch.float32):
+    return proj.init_projector_params(g, cfg, device=device, dtype=dtype)
+
+
+def encode_frames(params, cfg: StreamMindConfig, pixels: torch.Tensor,
+                  attn_impl: str = "auto") -> torch.Tensor:
+    """(T, 3, H, W) → (1, T, N, mm_hidden): per-frame ViT features, of the
+    last MAX_VISION_BATCH_FRAMES (600) frames at most."""
+    if pixels.shape[0] > MAX_VISION_BATCH_FRAMES:
+        pixels = pixels[-MAX_VISION_BATCH_FRAMES:]
+    feats = vit_forward(params["vision"], cfg.vision, pixels, attn_impl=attn_impl)
+    return feats[None]
 
 
 @dataclasses.dataclass

@@ -52,10 +52,18 @@ def init_kv_cache(cfg: TextConfig, batch: int, capacity: int, dtype=torch.bfloat
     )
 
 
+def require_dense_decoder(cfg: TextConfig) -> None:
+    """Raise for a decoder the port does not run yet: q/k/v biases (Qwen2)
+    or experts (Mixtral)."""
+    if cfg.num_experts > 1 or cfg.qkv_bias:
+        raise NotImplementedError(
+            "only the dense, bias-free decoder is ported; Qwen2 (qkv_bias) and Mixtral "
+            "(num_experts > 1) wait for ROADMAP Queue 1 item 12, MoE and Qwen2")
+
+
 def init_text_params(g: torch.Generator, cfg: TextConfig, device="cuda", dtype=torch.float32):
     """Random dense weights, stacked leaves generated at (L, ...) directly."""
-    if cfg.num_experts > 1 or cfg.qkv_bias:
-        raise NotImplementedError("only the dense, bias-free decoder is ported")
+    require_dense_decoder(cfg)
     d, L = cfg.hidden_size, cfg.num_layers
     kw = dict(device=device, dtype=dtype)
     params = {

@@ -62,13 +62,16 @@ def mamba_project_chunk(params, cfg: StreamMindConfig, frames_features: torch.Te
     return x, state
 
 
-def project_memory(params, cfg: StreamMindConfig, frames_features: torch.Tensor) -> torch.Tensor:
+def project_memory(params, cfg: StreamMindConfig, frames_features: torch.Tensor,
+                   impl: str = "auto") -> torch.Tensor:
     """Full-clip projection (B, T, N, H) → (B, T, hidden) memory tokens, one a
-    frame.  Only the mamba projector is ported."""
+    frame.  ``impl`` is the scan's: "auto" (differentiable, for training) or
+    "pallas" (the scan kernel, for inference).  Only the mamba projector is
+    ported."""
     if cfg.mm_projector_type != "mamba":
         raise NotImplementedError(
             f"projector type {cfg.mm_projector_type!r} is not ported (ROADMAP Queue 1 item 14)")
-    memory, _ = mamba_project(params, cfg, frames_features)
+    memory, _ = mamba_project(params, cfg, frames_features, impl=impl)
     return memory
 
 

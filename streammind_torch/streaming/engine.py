@@ -15,6 +15,8 @@ Many streams: ``perceive_step_batch`` runs one frame of each of S streams
 at once, and ``prefill_batch`` / ``generate_from_prefill_batch`` one turn of
 each of K fired streams; ``lockstep_decode`` is the batched decode loop of
 both KV modes (dense rings here, the page pool in ``streaming/paged.py``).
+One-shot callers (``api``, the HTTP worker) stream a turn's tokens with
+``decode_stream`` and run beam search with ``beam_generate``.
 
 This package runs eagerly: the decode loops are Python loops with one host
 sync per token (or lockstep step), where the JAX package compiles a
@@ -64,6 +66,18 @@ def _float_dtype(tree) -> torch.dtype:
     return first if first is not None else torch.bfloat16
 
 
+def top_stable(values: np.ndarray, n: int) -> np.ndarray:
+    """``np.argsort(-values, kind="stable")[:n]`` without sorting every
+    value: the n-th largest value bounds the set, and only that set is
+    sorted (stably, so ties keep index order).  Arrays holding NaN take the
+    full sort, whose order for NaN the partition would not keep."""
+    if n < values.size and not np.isnan(values).any():
+        thr = np.partition(values, values.size - n)[values.size - n]
+        idx = np.flatnonzero(values >= thr)
+        return idx[np.argsort(-values[idx], kind="stable")[:n]]
+    return np.argsort(-values, kind="stable")[:n]
+
+
 class StreamMindEngine:
     """Holds the params; many StreamSessions can share one engine."""
 
@@ -77,6 +91,7 @@ class StreamMindEngine:
         attn_impl: str = "auto",
         quantize_gate=False,
         fast_vision=False,
+        split_perceive: bool = False,
         device="cuda",
     ):
         """params: the JAX package's tree layout, as tensors (moved to
@@ -86,7 +101,11 @@ class StreamMindEngine:
         int4, the int4 kernel); fast_vision False, True (the ViT's attention
         in bf16 where attn_impl is "auto") or "int8" (that, and the int8
         ViT).  A text tree quantized by ``quantize_text_params`` (the
-        ``load_8bit`` / ``load_4bit`` transforms) is served as it is."""
+        ``load_8bit`` / ``load_4bit`` transforms) is served as it is.
+        split_perceive is taken for the JAX package's signature: there it
+        dispatches the one-frame tick as two compiled programs instead of
+        one; run eagerly, the tick is the same sequence of operations either
+        way, so it changes nothing here."""
         if quantize_gate not in (False, None, True, "int8", "int4"):
             raise ValueError(f"quantize_gate must be True/'int8' or 'int4', got {quantize_gate!r}")
         if fast_vision not in (False, None, True, "int8"):
@@ -221,10 +240,7 @@ class StreamMindEngine:
         done = stop_hit(tail)
         i, tok = 0, first
         while i < max_new_tokens and not done:
-            ids = torch.tensor([[tok]], dtype=torch.long, device=self.device)
-            logits, cache = lm.text_forward(self.params["text"], self.cfg.text,
-                                            input_ids=ids, cache=cache)
-            nxt = sample_token(generator, logits[0, -1], temperature, top_k, top_p)
+            nxt, cache = self._decode_step(tok, cache, temperature, top_k, top_p, generator)
             if i + 1 < max_new_tokens:
                 buf[i + 1] = nxt
             tail = tail[1:] + [nxt]
@@ -233,6 +249,116 @@ class StreamMindEngine:
         # iterations fed = i; a stop hit's final token is buffered but unfed
         n = min(i + int(done and tok != eos), max_new_tokens)
         return buf[:n], cache
+
+    def _decode_step(self, tok: int, cache: lm.KVCache, temperature, top_k, top_p, generator):
+        """Feed one token; returns (the next token, the cache advanced by 1)."""
+        ids = torch.tensor([[tok]], dtype=torch.long, device=self.device)
+        logits, cache = lm.text_forward(self.params["text"], self.cfg.text, input_ids=ids,
+                                        cache=cache)
+        return sample_token(generator, logits[0, -1], temperature, top_k, top_p), cache
+
+    @torch.no_grad()
+    def decode_stream(self, last_logits: torch.Tensor, cache: lm.KVCache,
+                      max_new_tokens: int = 256, temperature: float = 0.0, top_k: int = 0,
+                      top_p: float = 0.0, generator: Optional[torch.Generator] = None):
+        """Generator of token ids, one a decode step, for token-streaming
+        callers (the HTTP worker).  Yields the tokens ``generate_from_prefill``
+        returns when no stop ids are given: up to EOS (not yielded) or
+        max_new_tokens.  The cache is consumed (written in place); callers
+        that need it afterwards use generate_from_prefill.  Unlike the JAX
+        package's, it runs no decode step past the last token it yields."""
+        tok = sample_first_token(generator, last_logits[0], temperature, top_k, top_p)
+        for i in range(max_new_tokens):
+            if tok == self.eos_token_id:
+                return
+            yield tok
+            if i + 1 < max_new_tokens:
+                tok, cache = self._decode_step(tok, cache, temperature, top_k, top_p, generator)
+
+    @torch.no_grad()
+    def beam_generate(self, plan: SplicePlan, memory: torch.Tensor, num_beams: int = 5,
+                      max_new_tokens: int = 128, num_return_sequences: Optional[int] = None,
+                      length_penalty: float = 1.0, kv_dtype: Optional[torch.dtype] = None):
+        """Beam search (HF ``generate(num_beams=K)``, the Ego4D-LTA eval's
+        decoding).  Prefills once into a right-sized cache, tiles K/V and
+        length across the beams, steps all beams as one batch and reorders
+        the cache rows with index_select.  The bookkeeping runs on the host
+        in numpy, as the JAX package's does, so the beam lists and their
+        order are the same: the top 2K of the flattened candidates, a
+        finished beam proposing only EOS at its frozen score, and the
+        length penalty on finished sequences.  One difference: candidates
+        that tie are taken lowest index first (a stable sort), the rule of
+        the greedy argmax, so one beam is greedy decoding also where bf16
+        logits tie (the JAX package's unstable sort may take either); the
+        top 2K come from a partition and a sort of that few
+        (``top_stable``), where the JAX package sorts all K x vocab.
+        Returns up to num_return_sequences (token_list, score) pairs, best
+        first."""
+        n_ret = num_return_sequences or num_beams
+        if kv_dtype is None:
+            kv_dtype = _float_dtype(self.params["text"])
+        cap = self.cache_capacity_for(len(plan.token_ids), max_new_tokens)
+        last, cache1 = self.prefill(plan, memory, self.new_kv_cache(dtype=kv_dtype, capacity=cap))
+        logp0 = torch.log_softmax(last[0].float(), dim=-1).cpu().numpy()
+
+        K = num_beams
+        cache = lm.KVCache(k=cache1.k.repeat_interleave(K, dim=1),
+                           v=cache1.v.repeat_interleave(K, dim=1),
+                           length=cache1.length.repeat_interleave(K))
+        del cache1
+        top = top_stable(logp0, K)
+        scores = logp0[top]
+        seqs = [[int(t)] for t in top]
+        done = [int(t) == self.eos_token_id for t in top]
+        eos = self.eos_token_id
+        finished: list = [
+            ([t for t in s if t != eos], sc) for s, sc, d in zip(seqs, scores, done) if d
+        ]
+        toks = [s[-1] for s in seqs]
+
+        for _ in range(max_new_tokens - 1):
+            if all(done):
+                break
+            ids = torch.tensor(toks, dtype=torch.long, device=self.device)[:, None]
+            logits, cache = lm.text_forward(self.params["text"], self.cfg.text, input_ids=ids,
+                                            cache=cache)
+            logp = torch.log_softmax(logits[:, -1].float(), dim=-1).cpu().numpy()
+            # finished beams only propose repeating eos at their frozen score
+            cand = scores[:, None] + logp
+            for i, d in enumerate(done):
+                if d:
+                    cand[i, :] = -np.inf
+                    cand[i, eos] = scores[i]
+            flat = top_stable(cand.ravel(), 2 * K)
+            new_seqs, new_scores, new_done, reorder = [], [], [], []
+            for f in flat:
+                if len(new_seqs) == K:
+                    break
+                b, t = divmod(int(f), cand.shape[1])
+                seq = seqs[b] + ([] if done[b] else [t])
+                if t == eos and not done[b]:
+                    norm = cand[b, t] / (max(len(seq) - 1, 1) ** length_penalty)
+                    finished.append(([x for x in seq if x != eos], norm))
+                    continue
+                new_seqs.append(seq)
+                new_scores.append(cand[b, t])
+                new_done.append(done[b])
+                reorder.append(b)
+            if not new_seqs:
+                break
+            seqs, scores, done = new_seqs, np.asarray(new_scores), new_done
+            idx = torch.tensor(reorder, dtype=torch.long, device=self.device)
+            cache = lm.KVCache(k=cache.k.index_select(1, idx), v=cache.v.index_select(1, idx),
+                               length=cache.length.index_select(0, idx))
+            toks = [s[-1] for s in seqs]
+
+        for s, sc, d in zip(seqs, scores, done):
+            if d:
+                continue  # already in `finished` from its eos step
+            finished.append(([x for x in s if x != eos],
+                             float(sc) / (max(len(s), 1) ** length_penalty)))
+        finished.sort(key=lambda p: -p[1])
+        return finished[:n_ret]
 
     CACHE_CAPACITY_LADDER = (256, 512, 1024, 2048, 4096, 8192)
 

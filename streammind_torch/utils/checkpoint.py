@@ -13,7 +13,9 @@
     other's optimizer state: each starts a fresh one on the other's
     checkpoint, as each does when its own optimizer changed.
 
-Rotation keeps the newest ``keep`` checkpoints.
+Rotation keeps the newest ``keep`` checkpoints.  ``save_mm_projector_bin``
+writes a projector in the released ``mm_projector.bin`` layout, which
+``utils.convert`` reads back.
 """
 from __future__ import annotations
 
@@ -160,3 +162,61 @@ def load_opt_state(path: str, device="cpu"):
     if not os.path.exists(f):
         return None
     return torch.load(f, map_location=device, weights_only=True)
+
+
+# ---------------------------------------------------------------------------
+# mm_projector.bin: the released projector adapter layout
+# ---------------------------------------------------------------------------
+def export_projector_torch_sd(projector_params) -> Dict[str, torch.Tensor]:
+    """A projector tree (unquantized, gate unfused) → the Video_Mamba_seq
+    state-dict keys, CPU tensors (the inverse of
+    ``utils.convert.convert_projector``)."""
+    p = projector_params
+
+    def t(x):
+        return x.detach().cpu()
+
+    sd: Dict[str, torch.Tensor] = {
+        "pre_net.fc3.weight": t(p["pre_net"]["weight"]),
+        "pre_net.fc3.bias": t(p["pre_net"]["bias"]),
+        "post_net.fc3.weight": t(p["post_net"]["weight"]),
+        "post_net.fc3.bias": t(p["post_net"]["bias"]),
+        "mamba_model.norm_fn.weight": t(p["mamba"]["final_norm"]["weight"]),
+        "mamba_model.norm_fn.bias": t(p["mamba"]["final_norm"]["bias"]),
+    }
+    for i, b in enumerate(p["mamba"]["blocks"]):
+        mx = f"mamba_model.ssms.{i}.mixer."
+        sd[f"mamba_model.ssms.{i}.norm.weight"] = t(b["norm"]["weight"])
+        sd[f"mamba_model.ssms.{i}.norm.bias"] = t(b["norm"]["bias"])
+        sd[mx + "in_proj.weight"] = t(b["in_proj"]["weight"])
+        sd[mx + "conv1d.weight"] = t(b["conv1d"]["weight"])[:, None, :]
+        if "bias" in b["conv1d"]:
+            sd[mx + "conv1d.bias"] = t(b["conv1d"]["bias"])
+        sd[mx + "x_proj.weight"] = t(b["x_proj"]["weight"])
+        sd[mx + "dt_proj.weight"] = t(b["dt_proj"]["weight"])
+        sd[mx + "dt_proj.bias"] = t(b["dt_proj"]["bias"])
+        sd[mx + "A_log"] = t(b["A_log"])
+        sd[mx + "D"] = t(b["D"])
+        sd[mx + "out_proj.weight"] = t(b["out_proj"]["weight"])
+    if "cls_net" in p:
+        g = p["cls_net"]
+        sd["cls_net.cls_model.model.embed_tokens.weight"] = t(g["embed_tokens"])
+        sd["cls_net.cls_model.model.norm.weight"] = t(g["final_norm"]["weight"])
+        if "lm_head" in g:
+            sd["cls_net.cls_model.lm_head.weight"] = t(g["lm_head"]["weight"])
+        layers = g["layers"]
+        names = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+                 "o": "self_attn.o_proj", "input_norm": "input_layernorm",
+                 "post_norm": "post_attention_layernorm"}
+        for i in range(layers["q"]["weight"].shape[0]):
+            base = f"cls_net.cls_model.model.layers.{i}."
+            for ours, theirs in names.items():
+                sd[base + theirs + ".weight"] = t(layers[ours]["weight"][i])
+            for proj in ("gate", "up", "down"):
+                sd[base + f"mlp.{proj}_proj.weight"] = t(layers["mlp"][proj]["weight"][i])
+    return sd
+
+
+def save_mm_projector_bin(projector_params, out_path: str) -> None:
+    sd = {k: v.clone() for k, v in export_projector_torch_sd(projector_params).items()}
+    torch.save(sd, out_path)

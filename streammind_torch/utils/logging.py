@@ -1,10 +1,43 @@
-"""Metric smoothing for the training log (the JAX package's SmoothedValue and
-MetricLogger).  Log records go through the standard ``logging`` module;
-nothing here opens a file."""
+"""Loggers of the serving plane and metric smoothing for the training log
+(the JAX package's build_logger, SmoothedValue and MetricLogger).
+
+``build_logger`` gives each log file name one daily-rotating handler under
+``constants.LOGDIR`` (relative to the working directory); the first file
+also receives the records of every logger that exists when it is made.
+"""
 from __future__ import annotations
 
+import logging
+import logging.handlers
+import os
 from collections import defaultdict, deque
 from typing import Dict
+
+from ..constants import LOGDIR
+
+_handlers: Dict[str, logging.Handler] = {}
+_FORMAT = "%(asctime)s | %(levelname)s | %(name)s | %(message)s"
+
+
+def build_logger(logger_name: str, logger_filename: str) -> logging.Logger:
+    formatter = logging.Formatter(fmt=_FORMAT, datefmt="%Y-%m-%d %H:%M:%S")
+    if not logging.getLogger().handlers:
+        logging.basicConfig(level=logging.INFO, format=_FORMAT)
+    logger = logging.getLogger(logger_name)
+    logger.setLevel(logging.INFO)
+    if logger_filename not in _handlers:
+        os.makedirs(LOGDIR, exist_ok=True)
+        h = logging.handlers.TimedRotatingFileHandler(
+            os.path.join(LOGDIR, logger_filename), when="D", utc=True, encoding="utf-8")
+        h.setFormatter(formatter)
+        if not _handlers:
+            for item in logging.root.manager.loggerDict.values():
+                if isinstance(item, logging.Logger):
+                    item.addHandler(h)
+        _handlers[logger_filename] = h
+    if _handlers[logger_filename] not in logger.handlers:
+        logger.addHandler(_handlers[logger_filename])
+    return logger
 
 
 class SmoothedValue:

@@ -9,7 +9,7 @@ are stacked along a leading layer axis, so one converter
 from __future__ import annotations
 
 import math
-from typing import Iterator, Tuple
+from typing import Any, Iterator, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -125,3 +125,32 @@ def unstack_layers(tree, n: int):
 def param_bytes(tree) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
+
+def param_count(tree) -> int:
+    return sum(x.numel() for x in tree_leaves(tree))
+
+
+def flatten_with_paths(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """Yield ('a.b.c', leaf) pairs for a nested dict tree; a list's items
+    are keyed by their index ('blocks.0.w')."""
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for k, v in items:
+            yield from flatten_with_paths(v, f"{prefix}{k}." if prefix or k != "" else k)
+    else:
+        yield prefix.rstrip("."), tree
+
+
+def cast_tree(tree, dtype: torch.dtype):
+    """Every floating leaf cast to ``dtype`` (integer leaves kept)."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, tree)
+
+
+def stack_layers(layer_params: list):
+    """Identical per-layer trees stacked along a new leading layer axis."""
+    first = layer_params[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([p[k] for p in layer_params]) for k in first}
+    if isinstance(first, list):
+        return [stack_layers([p[i] for p in layer_params]) for i in range(len(first))]
+    return torch.stack(layer_params, dim=0)

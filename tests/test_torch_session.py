@@ -201,3 +201,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "streammind_torch.train.run" in mods and "streammind_torch.train.trainer" in mods
     assert "streammind_torch.ops.int8_matvec" in mods and "streammind_torch.ops.scan" in mods
     assert "streammind_torch.utils.quantize" in mods
+    for m in ("api", "utils.convert", "serve.model_worker", "serve.controller", "serve.cli",
+              "serve.safety", "mm_utils", "utils.checkpoint"):
+        assert "streammind_torch." + m in mods
