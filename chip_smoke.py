@@ -93,6 +93,23 @@ Phases, each of which raises (exit code != 0) on failure:
  13. ``infer`` and ``beam_generate`` in fp32 at reduced depth on the CPU and
      the card, TF32 off (identical tokens, text and beams; memory, logits
      and beam scores within limits), and a TF32-on control;
+ 14. (after phase 12, on the api phase's model) the offline data and eval
+     path: the native ingest built from native/ingest.cpp (or
+     ``ingest: unavailable (...)`` where libav is missing, and seeded frames
+     in its place), a test clip read at 336 (frames/s);
+     ``extract_video_features`` through run_extract's encode function (ViT
+     bf16, batches of 64) over a 128-frame half-video, read back into
+     ``MatchTimeDataset`` byte for byte; ``evaluate_gate_stream`` over two
+     half-videos with a threshold that lets the gate fire on its 4 likeliest
+     frames (fire times as a first pass of perception predicts them); the
+     Ego4D ``llm`` (bucket 512) and ``cls`` evaluations; LTA beams (K 5, 32
+     frames) and ``score_lta``; MCQA through ``run_mcqa.run_inference`` and
+     ``score_answers``; OQA through ``x_infer`` and ``judge_predictions``
+     with a stub judge; exact launch counts (23 exact and 20 int4 a
+     gate-stream frame, 32 flash a prefill, one scan a clip);
+ 15. the gate stream and the Ego4D llm evaluation in fp32 at reduced depth on
+     the CPU and the card (identical fires and summary, lm_ppl within a
+     limit) and a TF32-on control;
 then the ``kernels`` JSON line (``launches`` from the serving phase for the
 inference kernels, from the training phase for the training kernels and from
 the fast phase for int8_matvec and selective_scan; ``tc_launches``, ``hgmma``
@@ -100,7 +117,7 @@ and ``ms_over_bound`` for the five tensor-core kernels, ``ms_over_bound`` for
 paged attention, the int8 and int4 matvecs, the scan and the paged write,
 whose launches are the paged attention's launches that wrote a token;
 ``launches_by_path`` of every kernel: session, serving, fast, train, api,
-worker) and, last,
+worker, eval) and, last,
 the ``ok`` JSON line.  The fp32 parity phases must launch no tensor-core kernel.  It
 uses nothing of JAX; without a CUDA card it exits with an error before any
 result.
@@ -2048,8 +2065,8 @@ def api_phase(engine, g, dev):
     CKPT_TEXT_LAYERS layers, loaded by ``model_init(path,
     load_4bit="pc")`` (every leaf bitwise the written bf16 through the
     load's transforms), and the answer checks on it, whose decode and beams
-    run through the int4 kernel.  Returns (the model, the tokenizer, the
-    numbers)."""
+    run through the int4 kernel.  Returns (the model, the tokenizer, its
+    video processor, the numbers)."""
     from streammind_torch import api
     from streammind_torch.config import StreamMindConfig
     from streammind_torch.models.meta import init_streammind_params
@@ -2060,7 +2077,7 @@ def api_phase(engine, g, dev):
 
     base = StreamMindConfig()
     tok = StandInTokenizer()
-    model, _, _, version = api.model_init(params=engine.params, cfg=base, tokenizer=tok,
+    model, processor, _, version = api.model_init(params=engine.params, cfg=base, tokenizer=tok,
                                           vit_attn="exact", device=dev)
     size = base.vision.image_size
     video = torch.empty((API_FRAMES, 3, size, size), device=dev, dtype=torch.bfloat16).normal_(
@@ -2117,7 +2134,7 @@ def api_phase(engine, g, dev):
                    f"{API_BEAM_NEW if r is full else CKPT_BEAM_NEW} tokens in "
                    f"{r['beam_ms']:.3f} ms, {r['beam_ms_per_step']:.3f} ms a step over "
                    f"{r['beam_steps']} steps; scores {[round(s, 4) for s in r['scores']]}")
-    return model, tok, dict(full=full, ckpt=ckpt, launches=counts)
+    return model, tok, processor, dict(full=full, ckpt=ckpt, launches=counts)
 
 
 def worker_phase(model, tok, g, dev):
@@ -2341,6 +2358,466 @@ def api_parity(dev):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# phases 14-15: from a video file to a benchmark score (the native ingest,
+# the datasets, the eval runners)
+# ---------------------------------------------------------------------------
+EVAL_DIR = Path(__file__).resolve().parent / "_smoke_eval"
+INGEST_FRAMES = 64       # the ingest check: one clip at 224x160, read at 336
+EXTRACT_FRAMES = 128     # one synthetic half-video at 2 fps (64 s)
+EXTRACT_BATCH = 64       # run_extract's default batch
+GATE_FRAMES = 61         # each of two half-videos at 2 fps; the stream reads 60
+GATE_FIRES = 4           # the threshold lets the gate fire on the 4 likeliest frames
+GATE_NEW = 16            # new tokens a gate-stream turn
+EGO_TURNS = 6            # narrations every 5 s: 60 frames, one <video> slot a turn
+LTA_FRAMES, LTA_BEAMS, LTA_NEW = 32, 5, 16
+MCQA_FRAMES = 8          # run_mcqa's default frames a question
+EVAL_PARITY_FRAMES = 8   # frames of each parity half-video
+# the fp32 Ego4D llm evaluation, CPU against the card: lm_ppl |cpu - card| /
+# cpu and max |logits| difference, about ten times the errors measured on an
+# H100 80GB HBM3 at 700 W with TF32 off (3.2e-7, 2.3e-5); the TF32-on control
+# crossed both (5.0e-4, 1.2e-2)
+EVAL_PARITY_TOL = {"lm_ppl": 3e-6, "logits": 2e-4}
+
+
+def ingest_libraries_missing() -> list:
+    """What the native ingest's build needs and the machine lacks: a C++
+    compiler, each of libav's four headers (under the standard include
+    paths, or where pkg-config says) and each of its four libraries (where
+    the dynamic loader finds them)."""
+    import ctypes.util
+    import os
+
+    missing = [] if shutil.which(os.environ.get("CXX") or "g++") else ["g++"]
+    includes = ["/usr/include", "/usr/local/include", "/usr/include/x86_64-linux-gnu"]
+    if shutil.which("pkg-config"):
+        flags = subprocess.run(["pkg-config", "--cflags-only-I", "libavformat"],
+                               capture_output=True, text=True, timeout=60).stdout
+        includes += [f[2:] for f in flags.split()]
+    for lib in ("libavformat", "libavcodec", "libavutil", "libswscale"):
+        header = f"{lib}/{lib[3:]}.h"
+        if not any(Path(d, header).exists() for d in includes):
+            missing.append(header)
+        if ctypes.util.find_library(lib[3:]) is None:
+            missing.append(f"{lib}.so")
+    return missing
+
+
+def seeded_pixels(n: int, seed: int, dev) -> torch.Tensor:
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.empty((n, 3, 336, 336), device=dev, dtype=torch.bfloat16).normal_(generator=g)
+
+
+def write_matchtime_tree(root: Path, match: str, halves: dict, captions: list) -> list:
+    """features_video/smoke/<match>/{half}_224p.mkv (2 fps clips of the frame
+    counts ``halves`` gives, written by the native ingest where its library
+    is built, else empty files for a seeded frame loader) and
+    the Labels-caption.json the MatchTime paths map them to.  Returns the
+    half-video paths."""
+    from streammind_torch import native
+
+    feat = root / "features_video" / "smoke" / match
+    lab = root / "dataset" / "MatchTime" / "train" / "smoke" / match
+    feat.mkdir(parents=True, exist_ok=True)
+    lab.mkdir(parents=True, exist_ok=True)
+    (lab / "Labels-caption.json").write_text(json.dumps({"annotations": [
+        {"gameTime": f"{h} - {t // 60:02d}:{t % 60:02d}", "anonymized": c}
+        for h, t, c in captions]}))
+    paths = []
+    for half, frames in halves.items():
+        path = feat / f"{half}_224p.mkv"
+        if native.available():  # the halves differ in size, so their frames differ
+            native.write_test_video(str(path), 256 - 32 * half, 160, frames, 2)
+        else:
+            path.write_bytes(b"")  # the frames come from a seeded loader
+        paths.append(str(path))
+    return paths
+
+
+class TimedModel:
+    """``model.new_session`` for ``evaluate_gate_stream``: a StreamSession
+    whose ``process_frame`` is timed (synchronized) frame by frame."""
+
+    def __init__(self, model):
+        from streammind_torch.streaming.engine import StreamSession
+
+        log_ = self.frames = []
+
+        class Session(StreamSession):
+            def process_frame(self, pixels, force_fire=False):
+                t0 = sync()
+                out = super().process_frame(pixels, force_fire)
+                log_.append(((sync() - t0) * 1e3, out is not None))
+                return out
+
+        self.new_session = lambda tok, **kw: Session(model.engine, tok, **kw)
+
+
+def gate_threshold(model, videos, frame_loader, fires: int):
+    """A gate threshold between the ``fires``-th and the next likeliest frame
+    of ``videos`` (their gate probabilities from a first pass of perception
+    alone, frames read as the gate stream reads them), and the fire times
+    (seconds) it gives each video."""
+    from streammind_torch.eval.run_gate_stream import stream_video_fire_times
+
+    class Probe:  # perception only; answers every frame, so every time is listed
+        engine = model.engine
+
+        def __init__(self):
+            self.state, self.p = model.engine.new_stream_state(), []
+
+        def process_frame(self, pixels):
+            p, self.state = model.engine.perceive_step(pixels, self.state)
+            self.p.append(float(p[1]))
+            return self.p[-1]
+
+    seen = {}
+    for v in videos:
+        probe = Probe()
+        seen[v] = list(zip(stream_video_fire_times(probe, v, frame_loader=frame_loader), probe.p))
+    ranked = sorted((p for tp in seen.values() for _, p in tp), reverse=True)
+    threshold = (ranked[fires - 1] + ranked[fires]) / 2
+    if not ranked[fires - 1] > threshold:
+        raise RuntimeError(f"the gate's probabilities do not vary: {ranked[:fires + 1]}")
+    return threshold, {v: [float(t) for t, p in tp if p > threshold] for v, tp in seen.items()}
+
+
+def eval_phase(model, tok, processor, dev):
+    """The offline data and eval path on the api phase's model (StreamMind-7B
+    bf16, exact ViT attention, the int4 gate): the native ingest (built from
+    native/ingest.cpp, or reported unavailable where libav is missing);
+    ``extract_video_features`` through run_extract's encode function over a
+    128-frame half-video, read back into ``MatchTimeDataset`` through the
+    shard loader; ``evaluate_gate_stream`` over two half-videos; the Ego4D
+    ``llm`` and ``cls`` evaluations; LTA beams and ``score_lta``; MCQA
+    through ``run_mcqa.run_inference`` and ``score_answers``; OQA through
+    ``x_infer`` and ``judge_predictions`` with a stub judge.  Launch counts
+    asserted exactly.  Returns the numbers."""
+    from streammind_torch import api, native
+    from streammind_torch.data import MatchTimeDataset
+    from streammind_torch.data.ego4d import Ego4dNarrationDataset
+    from streammind_torch.data.extract import (
+        extract_video_features, load_feature_window, make_shard_frame_loader, shard_path)
+    from streammind_torch.data.run_extract import make_encode_fn
+    from streammind_torch.eval import gpt_judge, run_ego4d_lta, run_ego4d_stream, run_mcqa
+    from streammind_torch.eval.run_gate_stream import evaluate_gate_stream
+    from streammind_torch.models.meta import bucket_length
+
+    cfg = model.cfg
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    EVAL_DIR.mkdir(parents=True)
+    out = {}
+    try:
+        # -- the ingest --------------------------------------------------------
+        missing = ingest_libraries_missing()
+        if missing:
+            print(f"ingest: unavailable ({', '.join(missing)})", flush=True)
+        else:
+            t0 = time.perf_counter()
+            lib = native.build()
+            if not native.available():
+                raise RuntimeError(f"the ingest library {lib.name} was built but does not load")
+            log("eval", f"ingest: {lib.name} built from native/ingest.cpp in "
+                        f"{time.perf_counter() - t0:.1f} s ({' '.join(native.CXX_FLAGS)})")
+            clip = str(EVAL_DIR / "ingest.mp4")
+            native.write_test_video(clip, 224, 160, INGEST_FRAMES, 10)
+            with native.NativeVideoReader(clip) as vr:
+                t0 = time.perf_counter()
+                # the container's frame count may overestimate by one: short tail accepted
+                frames = vr.read(list(range(vr.num_frames)), size=336, strict=False)
+                read_s = time.perf_counter() - t0
+                info = (vr.num_frames, vr.fps, vr.width, vr.height)
+            if (frames.shape[1:] != (3, 336, 336) or len(frames) < INGEST_FRAMES - 2
+                    or not np.isfinite(frames).all() or info[2:] != (224, 160)):
+                raise RuntimeError(f"ingest read {frames.shape} from a {info} clip")
+            out["ingest_fps"] = len(frames) / read_s
+            log("eval", f"[{CARD}] ingest: {len(frames)} frames of a 224x160 MPEG-4 clip decoded, "
+                        f"letterboxed to 336 and normalized in {read_s * 1e3:.3f} ms = "
+                        f"{out['ingest_fps']:.1f} frames/s (one host thread)")
+        ingest = not missing
+        # the gate stream's half-videos and its threshold (a first pass of
+        # perception alone, before the counts start)
+        videos = write_matchtime_tree(EVAL_DIR, "gate", {1: GATE_FRAMES, 2: GATE_FRAMES}, [
+            (1, 10, "a pass"), (1, 20, "a shot"), (2, 5, "a corner"), (2, 25, "a goal")])
+
+        def seeded_stream(path, cur_fps):
+            pixels = seeded_pixels(GATE_FRAMES - 1, 40 + int(Path(path).name[0]), dev)
+            return [(i / cur_fps, pixels[i:i + 1]) for i in range(len(pixels))]
+
+        loader = None if ingest else seeded_stream
+        threshold, want = gate_threshold(model, videos, loader, GATE_FIRES)
+        torch.cuda.synchronize()
+        reset_launches()
+
+        # -- extract: run_extract's encode function, read back into MatchTime ----
+        vit_ms = []
+        encode = make_encode_fn(model.params["vision"], cfg.vision, batch=EXTRACT_BATCH,
+                                device=dev)
+
+        def timed_encode(pixels):
+            t0 = sync()
+            feats = encode(pixels)
+            vit_ms.append((sync() - t0) * 1e3)
+            return feats
+
+        (half_video,) = write_matchtime_tree(EVAL_DIR, "extract", {1: EXTRACT_FRAMES}, [
+            (1, 20, "a pass"), (1, 40, "a shot"), (1, 60, "a goal")])
+        t0 = time.perf_counter()
+        if ingest:
+            shards = extract_video_features(half_video, timed_encode, half=1)
+        else:
+            feats = timed_encode(seeded_pixels(EXTRACT_FRAMES, 30, dev).float().cpu().numpy())
+            shards = [shard_path(half_video, 1, 0, 500)]
+            Path(shards[0]).parent.mkdir(parents=True, exist_ok=True)
+            np.savez_compressed(shards[0], features=feats)
+            log("eval", "extract: seeded pixels (no ingest) through the same encode function")
+        extract_s = time.perf_counter() - t0
+        stored = np.load(shards[0])["features"]
+        ds = MatchTimeDataset(str(EVAL_DIR / "features_video"), tok,
+                              frame_loader=make_shard_frame_loader(video_fps=2.0, cur_fps=2.0))
+        sample = ds[len(ds) - 1]  # the caption at 60 s: frames [81, 121)
+        window = load_feature_window(half_video, 1, 81, 121)
+        n_patches = (cfg.vision.image_size // cfg.vision.patch_size) ** 2
+        if (stored.shape[1:] != (n_patches, cfg.vision.hidden_size)
+                or not 121 <= len(stored) <= EXTRACT_FRAMES
+                or stored.dtype != np.float16
+                or not np.isfinite(stored).all() or sample["timestamp"] != 60
+                or not np.array_equal(sample["video"], stored[81:121])
+                or not np.array_equal(window, stored[81:121])):
+            raise RuntimeError(f"extract: shard {stored.shape} {stored.dtype}, sample at "
+                               f"{sample['timestamp']} s with video {sample['video'].shape}")
+        out["extract_fps"] = len(stored) / extract_s
+        log("eval", f"[{CARD}] extract: {len(stored)} frames -> {len(shards)} fp16 shard(s) "
+                    f"{stored.shape} in {extract_s * 1e3:.1f} ms = {out['extract_fps']:.1f} "
+                    f"frames/s (decode, ViT bf16 in batches of {EXTRACT_BATCH} "
+                    f"{sum(vit_ms):.1f} ms, npz compression); MatchTimeDataset sample at 60 s "
+                    f"holds the shard's frames [81, 121) byte for byte")
+
+        # -- the gate stream ---------------------------------------------------
+        timed_model = TimedModel(model)
+        t0 = sync()
+        summary, per_video = evaluate_gate_stream(
+            timed_model, tok, videos, frame_loader=loader,
+            session_kw=dict(gate_threshold=threshold, max_new_tokens=GATE_NEW))
+        gate_s = sync() - t0
+        fires = {r["video"]: [float(t) for t in r["fires"]] for r in per_video}
+        frames = timed_model.frames
+        silent = [ms for ms, fired in frames if not fired]
+        turns = [ms for ms, fired in frames if fired]
+        n_fires = len(turns)
+        out.update(gate_frames=len(frames), gate_fires=n_fires,
+                   gate_ms_silent=statistics.median(silent), gate_ms_turn=statistics.median(turns))
+        log("eval", f"gate stream: {len(frames)} frames over 2 half-videos ("
+                    f"{'native ingest' if ingest else 'seeded frames'}), threshold "
+                    f"{threshold:.6f}, fires {fires}; summary {summary}")
+        log("eval", f"[{CARD}] gate stream: median {out['gate_ms_silent']:.3f} ms a silent "
+                    f"frame (process_frame), {out['gate_ms_turn']:.3f} ms a frame that fires "
+                    f"(perception, prefill, {GATE_NEW} tokens); {gate_s * 1e3 / len(frames):.3f} "
+                    f"ms a frame in all, reading included")
+        if fires != want or set(summary) != {f"{m}@{t}" for m in ("precision", "recall", "f1")
+                                             for t in (5, 10, 1)}:
+            raise RuntimeError(f"gate stream fired at {fires}, its probabilities say {want}")
+
+        # -- Ego4D: llm and cls ------------------------------------------------
+        anno = EVAL_DIR / "ego4d.json"
+        anno.write_text(json.dumps({"smoke": [[5.0 * (i + 1), f"You take step {i}."]
+                                              for i in range(EGO_TURNS)]}))
+
+        def ego_frames(path, start, end):
+            return seeded_pixels(int(round((end - start) * 2)), 50, dev)
+
+        ego = {kind: Ego4dNarrationDataset(str(EVAL_DIR), str(anno), tok, model_type=kind,
+                                           frame_loader=ego_frames) for kind in ("llm", "cls")}
+        s0 = ego["llm"][0]
+        n_tok = s0["input_ids"].shape[1] - len(s0["span_frames"]) + s0["video"].shape[0]
+        bucket = bucket_length(n_tok, (256, 512, 1024, 2048, 4096))
+        t0 = sync()
+        llm = run_ego4d_stream.evaluate_llm(model, tok, ego["llm"], [0],
+                                            str(EVAL_DIR / "ego4d.csv"))
+        llm_ms = (sync() - t0) * 1e3
+        t0 = sync()
+        cls = run_ego4d_stream.evaluate_cls(model, ego["cls"], [0])
+        cls_ms = (sync() - t0) * 1e3
+        out.update(ego_llm=llm, ego_cls=cls, ego_llm_ms=llm_ms, ego_cls_ms=cls_ms)
+        log("eval", f"[{CARD}] Ego4D llm: {s0['video'].shape[0]} frames, {EGO_TURNS} turns, "
+                    f"{n_tok} tokens in the {bucket} bucket, {llm_ms:.1f} ms: lm_ppl "
+                    f"{llm['lm_ppl']:.3f}, lm_correctness {llm['lm_correctness']:.4f}, NLG "
+                    f"(fallback scorer) {llm['nlg']}")
+        log("eval", f"[{CARD}] Ego4D cls: {cls_ms:.1f} ms: accuracy {cls['accuracy']:.4f}, TPR "
+                    f"{cls['tpr']:.4f}, TNR {cls['tnr']:.4f}, time_diff {cls['time_diff']}")
+        if bucket < 512 or not (math.isfinite(llm["lm_ppl"]) and llm["lm_ppl"] > 1):
+            raise RuntimeError(f"Ego4D llm: bucket {bucket}, {llm}")
+
+        # -- LTA, MCQA, OQA ------------------------------------------------------
+        clips = EVAL_DIR / "clips"
+        clips.mkdir()
+        if ingest:
+            for name in ("a.mp4", "b.mp4"):
+                native.write_test_video(str(clips / name), 224, 160, 64, 10)
+            read_clip = processor
+        else:
+            def read_clip(path, num_frames=8):
+                return seeded_pixels(num_frames, 60 + len(Path(path).name), dev)
+
+        video = read_clip(str(clips / "a.mp4"), num_frames=LTA_FRAMES)
+        prompt = "Predict the next 20 future actions as 'verb noun' steps separated by commas."
+        with DecodeCounter() as dc:
+            t0 = sync()
+            beams = api.infer_beams(model, video, prompt, tok, num_beams=LTA_BEAMS,
+                                    num_return_sequences=LTA_BEAMS, max_new_tokens=LTA_NEW)
+            beam_ms = (sync() - t0) * 1e3
+        vocab = {w: i for i, w in enumerate(sorted({w for b in beams for w in b.split()}))}
+        lta = run_ego4d_lta.score_lta([beams], [list(range(4))], [list(range(4))], vocab, vocab)
+        out.update(lta=lta, lta_ms_per_step=beam_ms / max(dc.n, 1))
+        log("eval", f"[{CARD}] LTA: infer_beams K {LTA_BEAMS} on {LTA_FRAMES} frames, "
+                    f"{LTA_NEW} tokens: {beam_ms:.1f} ms, {out['lta_ms_per_step']:.3f} ms a beam "
+                    f"step over {dc.n} steps (ViT, scan and prefill included); score_lta {lta}")
+        if len(beams) != LTA_BEAMS or lta["n_clips"] != 1:
+            raise RuntimeError(f"LTA: {beams}, {lta}")
+
+        records = [
+            {"q_uid": "a", "question": "What is shown?",
+             "options": ["bars", "noise", "text", "faces", "maps"], "answer": 0},
+            {"q_uid": "b", "question": "What happens next?",
+             "options": ["a pan", "a cut", "a zoom", "nothing", "a fade"], "answer": 3}]
+        t0 = sync()
+        rows = list(run_mcqa.run_inference(model, tok, records, "egoschema", str(clips),
+                                           read_clip, num_frames=MCQA_FRAMES))
+        mcqa_ms = (sync() - t0) * 1e3 / len(records)
+        answers = EVAL_DIR / "mcqa.jsonl"
+        answers.write_text("".join(json.dumps(r) + "\n" for r in rows))
+        mcqa = run_mcqa.score_answers(str(answers))
+        out.update(mcqa=mcqa, mcqa_ms_per_question=mcqa_ms)
+        log("eval", f"[{CARD}] MCQA (egoschema fields, {MCQA_FRAMES} frames): {mcqa_ms:.1f} ms a "
+                    f"question; preds {[r['pred'] for r in rows]}; {mcqa}")
+        if any("error" in r for r in rows):
+            raise RuntimeError(f"MCQA: {rows}")
+
+        t0 = sync()
+        pred = api.x_infer(read_clip(str(clips / "b.mp4"), num_frames=MCQA_FRAMES),
+                           "What is moving?", model, tok, mode="openend")
+        oqa_ms = (sync() - t0) * 1e3
+        judged = gpt_judge.judge_predictions(
+            [{"id": "b", "question": "What is moving?", "answer": "a pattern", "pred": pred}],
+            str(EVAL_DIR / "judge"),
+            judge_fn=lambda messages, model=None: "{'pred': 'yes', 'score': 4}")
+        out.update(oqa=judged, oqa_ms_per_question=oqa_ms)
+        log("eval", f"[{CARD}] OQA: x_infer open-ended {oqa_ms:.1f} ms ({len(pred.split())} "
+                    f"words); stub judge {judged}")
+        if judged != {"mean_score": 4.0, "accuracy": 1.0, "n": 1}:
+            raise RuntimeError(f"OQA judge: {judged}")
+        counts = read_launches()
+    finally:
+        shutil.rmtree(EVAL_DIR, ignore_errors=True)
+
+    # exact and int4: the gate stream's frames (23 ViT layers, 5 gate linears x 4
+    # layers); flash: a prefill a fire, the LTA beams, two MCQA questions, one
+    # OQA question; scan: a clip each (Ego4D llm and cls, LTA, MCQA x 2, OQA)
+    n_vit = cfg.vision.num_layers + cfg.vision.select_layer + 1
+    n_frames = out["gate_frames"]
+    expect = {n: 0 for n in counts}
+    expect.update(exact_attention=n_vit * n_frames, exact_attention_tc=n_vit * n_frames,
+                  int4_matvec=5 * cfg.gate.num_layers * n_frames,
+                  flash_attention=cfg.text.num_layers * (n_fires + 4),
+                  flash_attention_tc=cfg.text.num_layers * (n_fires + 4),
+                  selective_scan=cfg.mamba.n_layers * 6)
+    log("eval", f"launches={counts} expected={expect} ({n_frames} gate-stream frames, "
+                f"{n_fires} fires)")
+    check_counts("eval", counts, expect)
+    out["launches"] = counts
+    return out
+
+
+def eval_parity(dev):
+    """The gate stream and the Ego4D llm evaluation in fp32 at the parity
+    config (depth cut only, TF32 off), exact ViT attention and the int4
+    gate: the same seeded tree and frames through model_init on the CPU
+    (plain versions) and the card (kernels): identical fire times and
+    summary, lm_ppl and the logits within EVAL_PARITY_TOL; then the card
+    with TF32 on, which must cross a limit.  The gate threshold comes from
+    the card's first pass (perception alone), the CPU's being the slow one."""
+    from streammind_torch import api
+    from streammind_torch.data.ego4d import Ego4dNarrationDataset
+    from streammind_torch.eval import run_ego4d_stream
+    from streammind_torch.eval.run_gate_stream import evaluate_gate_stream
+    from streammind_torch.models.meta import init_streammind_params
+
+    cfg = parity_config()
+    params = init_streammind_params(torch.Generator().manual_seed(13), cfg, device="cpu")
+    tok = StandInTokenizer()
+    root = EVAL_DIR / "parity"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        videos = [str(p) for p in (root / "features_video" / "1_224p.mkv",
+                                   root / "features_video" / "2_224p.mkv")]
+        lab = root / "dataset" / "MatchTime" / "train"
+        lab.mkdir(parents=True)
+        (lab / "Labels-caption.json").write_text(json.dumps({"annotations": [
+            {"gameTime": "1 - 00:01", "anonymized": "a"},
+            {"gameTime": "2 - 00:03", "anonymized": "b"}]}))
+        frames = {v: torch.randn((EVAL_PARITY_FRAMES, 3, 336, 336),
+                                 generator=torch.Generator().manual_seed(14 + i))
+                  for i, v in enumerate(videos)}
+        anno = root / "ego4d.json"
+        anno.write_text(json.dumps({"p": [[1.0, "You look."], [2.0, "You walk."],
+                                          [3.0, "You sit."]]}))
+        clip = torch.randn((6, 3, 336, 336), generator=torch.Generator().manual_seed(15))
+        out, threshold = {}, None
+        for run, where, tf32 in (("card", dev, False), ("cpu", "cpu", False),
+                                 ("card_tf32", dev, True)):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+            t0 = time.perf_counter()
+            model, _, _, _ = api.model_init(params=params, cfg=cfg, tokenizer=tok,
+                                            dtype=torch.float32, vit_attn="exact",
+                                            quantize_gate="int4", device=where)
+
+            def loader(path, cur_fps, where=where):
+                return [(i / cur_fps, f[None].to(where)) for i, f in enumerate(frames[path])]
+
+            if threshold is None:
+                threshold, _ = gate_threshold(model, videos, loader, 3)
+            reset_launches()
+            summary, per_video = evaluate_gate_stream(
+                model, tok, videos, frame_loader=loader,
+                session_kw=dict(gate_threshold=threshold, max_new_tokens=4))
+            ds = Ego4dNarrationDataset(str(root), str(anno), tok,
+                                       frame_loader=lambda p, s, e, where=where: clip.to(where))
+            logits, labels = run_ego4d_stream.llm_sample_logits(model, ds[0])
+            llm = run_ego4d_stream.eval_llm_sample(logits, labels, tok)
+            counts = read_launches()
+            out[run] = dict(summary=summary, fires=[r["fires"] for r in per_video],
+                            lm_ppl=llm["lm_ppl"], logits=torch.from_numpy(logits))
+            log("eval-parity", f"{run}: {time.perf_counter() - t0:.1f} s, fires "
+                               f"{out[run]['fires']}, lm_ppl {llm['lm_ppl']!r}")
+            if where != "cpu":
+                fp32_only(counts, "eval-parity")
+                if not all(counts[n] for n in ("exact_attention", "int4_matvec",
+                                                "flash_attention", "selective_scan")):
+                    raise RuntimeError(f"the card's eval run missed a kernel: {counts}")
+            del model
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        shutil.rmtree(root, ignore_errors=True)
+    c, tol = out["cpu"], EVAL_PARITY_TOL
+    errs, control = ({"lm_ppl": abs(out[r]["lm_ppl"] - c["lm_ppl"]) / c["lm_ppl"],
+                      "logits": float((out[r]["logits"] - c["logits"]).abs().max())}
+                     for r in ("card", "card_tf32"))
+    same = c["fires"] == out["card"]["fires"] and c["summary"] == out["card"]["summary"]
+    log("eval-parity", f"depth vit3/gate2/text2 at published widths, fp32, TF32 off: lm_ppl "
+                       f"|cpu - card| / cpu and max |logits| difference {errs}, limits {tol}; "
+                       f"fires and summary identical: {same}")
+    log("eval-parity", f"control, TF32 on: {control}; over the limits: "
+                       f"{[k for k in tol if control[k] > tol[k]]}")
+    if not same or any(errs[k] > tol[k] for k in tol):
+        raise RuntimeError("the eval path on the CPU and the card disagree")
+    if not any(control[k] > tol[k] for k in tol):
+        raise RuntimeError("the eval parity limits do not see TF32 matmuls on the card")
+    return errs
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "streammind_torch" / "__init__.py").exists():
@@ -2378,8 +2855,9 @@ def main() -> int:
     engine, g = build_engine(dev)
     session = full_width_session(engine, g, dev)
     serving = serving_phase(engine, g, dev)
-    model, tok, api_run = api_phase(engine, g, dev)
+    model, tok, processor, api_run = api_phase(engine, g, dev)
     worker = worker_phase(model, tok, g, dev)
+    evaluation = eval_phase(model, tok, processor, dev)
     del engine, model
     torch.cuda.empty_cache()
     kernels["paged_attention"][0].append(check_paged_serving_case(dev, serving["attn_lengths"][3]))
@@ -2387,6 +2865,7 @@ def main() -> int:
     fast_parity(dev)
     parity(dev)
     api_parity(dev)
+    eval_parity(dev)
     training = training_phase(dev)
     training_parity(dev)
 
@@ -2404,7 +2883,8 @@ def main() -> int:
                               "fast": fast["launches"][name],
                               "train": training["launches"][name],
                               "api": api_run["launches"][name],
-                              "worker": worker["launches"][name]},
+                              "worker": worker["launches"][name],
+                              "eval": evaluation["launches"][name]},
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"],
@@ -2418,7 +2898,8 @@ def main() -> int:
                 tc_launches=main_path["launches"][f"{name}_tc"],
                 tc_launches_by_path={p: r["launches"][f"{name}_tc"] for p, r in (
                     ("session", session), ("serving", serving), ("fast", fast),
-                    ("train", training), ("api", api_run), ("worker", worker))},
+                    ("train", training), ("api", api_run), ("worker", worker),
+                    ("eval", evaluation))},
                 hgmma=hgmma[src.split("/")[-1][:-3]], ms_over_bound=head["ms_over_bound"],
                 timing="CUDA graph replay (device time); eager_ms in cases")
     print(json.dumps({"kernels": entries}), flush=True)

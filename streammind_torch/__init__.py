@@ -15,6 +15,9 @@ plain PyTorch version only for tensors that lie on the CPU.
 The public API has the JAX package's shapes, ``model_init``, ``infer`` and
 ``x_infer`` at the top level (``api`` holds ``infer_beams`` too), and the
 HTTP plane is ``serve.controller`` / ``serve.model_worker`` / ``serve.cli``.
+The offline path reads video through the native ingest (``native``), builds
+the training datasets and shards (``data``) and runs the paper's benchmarks
+(``eval.run_*``).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

@@ -180,7 +180,13 @@ def model_init(
 
 def _pixels(model: StreamMindModel, video) -> torch.Tensor:
     """(T, 3, H, W) pixel values on the engine's device in its working dtype."""
-    dev, dtype = model.engine.device, engine_dtype(model)
+    return engine_pixels(model.engine, video)
+
+
+def engine_pixels(engine: StreamMindEngine, video) -> torch.Tensor:
+    """Pixel values (an array or a tensor) on ``engine``'s device in the
+    working dtype of its ViT."""
+    dev, dtype = engine.device, _float_dtype(engine.params["vision"])
     if isinstance(video, torch.Tensor):
         return video.to(device=dev, dtype=dtype)
     return torch.from_numpy(np.ascontiguousarray(video, dtype=np.float32)).to(dev).to(dtype)

@@ -6,8 +6,10 @@ them on the device.  Results are the JAX package's, bit for bit: the same
 PIL resampling, the same fp32 arithmetic in the same order.  PIL and
 imageio are imported inside the functions that use them, so the API and
 the serving modules import on a machine that has neither (pixels then
-arrive as arrays).  Video files are read through decord when it is
-installed, else imageio; the native ingest is not used here.
+arrive as arrays).  ``process_video`` reads a video file through the native
+C++ ingest (``native.py``: decode, letterbox and normalize in one pass)
+where its library builds, as the JAX package does; otherwise, and for GIFs,
+through decord when it is installed, else imageio.
 """
 from __future__ import annotations
 
@@ -271,7 +273,19 @@ def process_video(video_path: Union[str, np.ndarray], num_frames: int = NUM_FRAM
                   sample_scheme: str = "uniform", aspect_ratio: str = "pad",
                   image_size: int = CLIP_IMAGE_SIZE) -> np.ndarray:
     """Video file or (T, H, W, 3) frames → (T, 3, image_size, image_size)
-    fp32 pixel values (a file is sampled to num_frames first)."""
+    fp32 pixel values (a file is sampled to num_frames first).  File inputs
+    take the native ingest first; arrays, GIFs and containers it cannot
+    read take the Python path below."""
+    if isinstance(video_path, str) and not video_path.endswith(".gif"):
+        from . import native
+
+        try:
+            if native.available():
+                return native.native_process_video(
+                    video_path, num_frames=num_frames, sample_scheme=sample_scheme,
+                    size=image_size, pad_square=(aspect_ratio == "pad"))
+        except (IOError, RuntimeError):  # a container the native reader refuses
+            pass
     if isinstance(video_path, str):
         duration, local_fps = video_metadata(video_path)
         ids = frame_sample(duration, sample_scheme, num_frames, local_fps)

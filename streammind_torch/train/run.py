@@ -20,11 +20,14 @@ Checkpoints are ``checkpoint-{step}`` directories in the JAX package's
 format (``utils/checkpoint.py``), resumed from the latest; the adapter and
 cls stages save the projector alone.
 
+Without ``dataset=``, ``--dataset`` builds the MatchTime, Ego4D or SFT
+dataset from ``--data-path`` / ``--data-folder`` / ``--anno-path``, with
+the ``transformers`` tokenizer of ``--model-path``, as the JAX package does.
+
 Not ported yet (each raises NotImplementedError, ROADMAP Queue 1 item 17):
-LoRA, the int8/int4 frozen base (``--bits``), the dp/fsdp/tp mesh,
+LoRA, the int8/int4 frozen base (``--bits``), the dp/fsdp/tp mesh, and
 loading a released checkpoint (``--model-path`` directory,
-``--pretrain-mm-mlp-adapter``), and the MatchTime, Ego4D and SFT datasets
-(they decode video and need an HF tokenizer): pass ``dataset=``.
+``--pretrain-mm-mlp-adapter``).
 
     python -m streammind_torch.train.run --config run.json [--flag value ...]
 """
@@ -287,7 +290,7 @@ def make_microbatch(samples, cfg, vision_params, stage: str, pad_to: int = 0, de
     return kind, {k: torch.cat([r[k] for r in rows], dim=0) for k in rows[0]}
 
 
-def _check_supported(model_args, data_args, training_args, dataset):
+def _check_supported(model_args, training_args):
     if training_args.dp * training_args.fsdp * training_args.tp > 1:
         raise NotImplementedError(f"the dp/fsdp/tp mesh is {_TODO}; train on one device")
     if model_args.bits not in (4, 8, 16):
@@ -300,10 +303,35 @@ def _check_supported(model_args, data_args, training_args, dataset):
         raise NotImplementedError(f"loading a released checkpoint (--model-path) is {_TODO}")
     if model_args.pretrain_mm_mlp_adapter:
         raise NotImplementedError(f"--pretrain-mm-mlp-adapter is {_TODO}")
-    if dataset is None:
-        raise NotImplementedError(
-            f"the {data_args.dataset!r} dataset is {_TODO}; pass dataset= (samples as the "
-            f"JAX package's datasets build them)")
+
+
+def build_dataset(model_args, data_args, training_args):
+    """The ``--dataset`` named in ``data_args`` (matchtime, ego4d or sft),
+    tokenized by the ``transformers`` tokenizer of ``--model-path``."""
+    if data_args.dataset not in ("matchtime", "ego4d", "sft"):
+        raise ValueError(f"unknown dataset {data_args.dataset}")
+    try:
+        import transformers
+
+        tokenizer = transformers.AutoTokenizer.from_pretrained(model_args.model_path)
+    except Exception as e:  # noqa: BLE001 — any failure to find or read the tokenizer
+        raise RuntimeError("need a tokenizer; pass dataset= for tests") from e
+    if data_args.dataset == "matchtime":
+        from ..data import MatchTimeDataset
+
+        return MatchTimeDataset(data_args.data_path, tokenizer, cur_fps=data_args.cur_fps,
+                                seed=training_args.seed)
+    if data_args.dataset == "ego4d":
+        from ..data.ego4d import Ego4dNarrationDataset
+
+        return Ego4dNarrationDataset(data_args.data_folder or ".", data_args.anno_path,
+                                     tokenizer, model_type="llm", data_type="train")
+    from ..data.sft import VideoLLaVASFTDataset
+
+    return VideoLLaVASFTDataset(data_args.data_path, data_args.data_folder or ".", tokenizer,
+                                num_frames=model_args.num_frames,
+                                style="plain" if model_args.tune_mm_mlp_adapter else "llama_2",
+                                seed=training_args.seed)
 
 
 def _resume(state: TrainState, path: str, device) -> TrainState:
@@ -326,7 +354,7 @@ def train(model_args=None, data_args=None, training_args=None, dataset=None,
         model_args, data_args, training_args = parse_args()
     stage = _stage_of(model_args, data_args)
     logger.info(f"training stage: {stage}")
-    _check_supported(model_args, data_args, training_args, dataset)
+    _check_supported(model_args, training_args)
 
     # -- model ---------------------------------------------------------------
     if cfg is None:
@@ -341,6 +369,8 @@ def train(model_args=None, data_args=None, training_args=None, dataset=None,
                                     cfg, device=device, dtype=dtype)
     if model_args.train_skip_cls:
         params = copy_decoder_layers_into_gate(params, cfg)
+    if dataset is None:
+        dataset = build_dataset(model_args, data_args, training_args)
 
     # global batch = per-device batch × grad accumulation (one device)
     accum = max(training_args.gradient_accumulation_steps, 1)

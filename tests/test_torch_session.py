@@ -202,5 +202,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "streammind_torch.ops.int8_matvec" in mods and "streammind_torch.ops.scan" in mods
     assert "streammind_torch.utils.quantize" in mods
     for m in ("api", "utils.convert", "serve.model_worker", "serve.controller", "serve.cli",
-              "serve.safety", "mm_utils", "utils.checkpoint"):
+              "serve.safety", "mm_utils", "utils.checkpoint", "native", "data.matchtime",
+              "data.ego4d", "data.sft", "data.extract", "data.run_extract", "eval.metrics",
+              "eval.mcqa", "eval.nlg", "eval.gpt_judge", "eval.run_gate_stream",
+              "eval.run_ego4d_stream", "eval.run_ego4d_lta", "eval.run_mcqa", "eval.run_oqa"):
         assert "streammind_torch." + m in mods

@@ -337,13 +337,13 @@ def test_copy_decoder_layers_into_gate_matches_jax(trees):
 @pytest.mark.parametrize("change", [
     dict(training=dict(dp=2)), dict(training=dict(lora_enable=True)),
     dict(model=dict(bits=8)), dict(model=dict(pretrain_mm_mlp_adapter="mm_projector.bin")),
-    dict(dataset=None),
+    dict(model=dict(model_path="<tmp_path>")),
 ])
 def test_unported_options_raise(trees, tmp_path, change):
     _, tcfg, _ = trees
     ma, da, ta = _args(tmp_path, "adapter")
     for k, v in change.get("model", {}).items():
-        setattr(ma, k, v)
+        setattr(ma, k, str(tmp_path) if v == "<tmp_path>" else v)
     for k, v in change.get("training", {}).items():
         setattr(ta, k, v)
     ds = change.get("dataset", FakeScoreDataset(SPLikeTokenizer(), tcfg, n=2))
