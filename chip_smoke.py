@@ -98,14 +98,15 @@ Phases, each of which raises (exit code != 0) on failure:
      ``ingest: unavailable (...)`` where libav is missing, and seeded frames
      in its place), a test clip read at 336 (frames/s);
      ``extract_video_features`` through run_extract's encode function (ViT
-     bf16, batches of 64) over a 128-frame half-video, read back into
+     bf16, batches of 64) over a 72-frame half-video, read back into
      ``MatchTimeDataset`` byte for byte; ``evaluate_gate_stream`` over two
      half-videos with a threshold that lets the gate fire on its 4 likeliest
      frames (fire times as a first pass of perception predicts them); the
      Ego4D ``llm`` (bucket 512) and ``cls`` evaluations; LTA beams (K 5, 32
      frames) and ``score_lta``; MCQA through ``run_mcqa.run_inference`` and
-     ``score_answers``; OQA through ``x_infer`` and ``judge_predictions``
-     with a stub judge; exact launch counts (23 exact and 20 int4 a
+     ``score_answers``, each question's greedy decode ended at its 32nd
+     token through the stand-in tokenizer's stop string; OQA through
+     ``x_infer`` (1,024 tokens) and ``judge_predictions`` with a stub judge; exact launch counts (23 exact and 20 int4 a
      gate-stream frame, 32 flash a prefill, one scan a clip);
  15. the gate stream and the Ego4D llm evaluation in fp32 at reduced depth on
      the CPU and the card (identical fires and summary, lm_ppl within a
@@ -312,7 +313,9 @@ def check_kernels(dev):
     # the buckets 64 and 2048 (B 1), and 32 and 512 with B 2 and a ragged,
     # nonzero q_offset (the second row's bucket padded by a few tokens); then
     # bucket 64 with a GQA group of 7 (Qwen2-7B's 28 / 4 heads); then the
-    # api's one-shot prefill, bucket 128 from an empty cache.  Sets
+    # api's one-shot prefill, bucket 128 from an empty cache; then the eval's
+    # one-shot prefills over their whole bucket from an empty cache: LTA's
+    # beams (32 frames, bucket 128), MCQA's and OQA's (8 frames, bucket 64).  Sets
     # of inputs: the caches are overlapping views of one buffer, each
     # starting past the rows the previous one reads, so nothing is read warm.
     # Kernel and library are timed by graph replay (the bf16 kernel runs in
@@ -322,7 +325,8 @@ def check_kernels(dev):
                                         (32, [100, 1517], [132, 1544], 32, 8),
                                         (512, [388, 2000], [900, 2505], 32, 8),
                                         (64, [100], [150], 28, 4),
-                                        (128, [0], [65], 32, 8)):
+                                        (128, [0], [65], 32, 8), (128, [0], [128], 32, 8),
+                                        (64, [0], [64], 32, 8)):
         b = len(q_offs)
         visible = sum(min(n, off + i + 1) for off, n in zip(q_offs, kv_lens) for i in range(sq))
         rows = [min(n, off + sq) for off, n in zip(q_offs, kv_lens)]
@@ -853,7 +857,11 @@ SCAN_CASES = ((torch.bfloat16, 1, 32, True, "time"),) + tuple(
     (dt, b, length, h0, "channels") for dt in (torch.bfloat16, torch.float32)
     for b, length in ((1, 32), (1, 1), (1, 8), (1, 64)) for h0 in (True, False)) + (
     (torch.bfloat16, 1, 256, True, "channels"), (torch.bfloat16, 4, 32, True, "channels"),
-    (torch.bfloat16, 1, 16, False, "time"))  # the api's clip projection: L = 16 frames, fresh
+    (torch.bfloat16, 1, 16, False, "time"),  # the api's clip projection: L = 16 frames, fresh
+    # the eval's clip projections, fresh: the Ego4D llm and cls clip (L 60:
+    # two 32-step chunks, the second partial), LTA's (L 32), MCQA's and OQA's (L 8)
+    (torch.bfloat16, 1, 60, False, "time"), (torch.bfloat16, 1, 32, False, "time"),
+    (torch.bfloat16, 1, 8, False, "time"))
 
 
 def scan_cases(dev, g, cases=SCAN_CASES, d=8192, n=16):
@@ -939,6 +947,20 @@ class StandInTokenizer:
 
     def decode(self, ids, skip_special_tokens=True):
         return " ".join(str(i) for i in ids)
+
+
+class StopAtId(StandInTokenizer):
+    """The stand-in whose template separator ("</s>", the llama_2 reply's
+    stop string) is the one id ``stop``: a decode ends where it first emits
+    that id.  Every other text encodes as the stand-in's."""
+
+    def __init__(self, stop: int):
+        self.stop = stop
+
+    def __call__(self, text):
+        if text.strip() == self.eos_token:
+            return self._Out([self.bos_token_id, self.stop])
+        return super().__call__(text)
 
 
 def make_engine_class():
@@ -1363,17 +1385,28 @@ PARITY_BURST = 16
 
 class DecodeCounter:
     """Counts the decoder's one-token forwards (``text_forward`` called with
-    input ids, as only the decode loops call it) while it is installed."""
+    input ids, as only the decode loops call it) while it is installed.
+    With ``limit``, it also keeps the ids a single-row decode feeds (the
+    tokens it emitted) and ends the call by raising ``Enough`` when
+    ``limit`` of them are known."""
 
-    def __init__(self):
+    class Enough(Exception):
+        pass
+
+    def __init__(self, limit=None):
         from streammind_torch.models import mistral
 
         self.mod, self.orig, self.n = mistral, mistral.text_forward, 0
+        self.limit, self.ids = limit, []
 
     def __enter__(self):
         def counted(*a, **kw):
             if kw.get("input_ids") is not None:
                 self.n += 1
+                if self.limit is not None:
+                    self.ids.append(int(kw["input_ids"].reshape(-1)[0]))
+                    if len(self.ids) == self.limit:
+                        raise DecodeCounter.Enough
             return self.orig(*a, **kw)
 
         self.mod.text_forward = counted
@@ -2193,7 +2226,7 @@ def worker_phase(model, tok, g, dev):
     prompt = "[INST] <video>\nWhat is happening? [/INST]"
     video = torch.empty((API_FRAMES, 3, size, size), device=dev).normal_(generator=g).cpu().numpy()
     # the reference: the same prompt and frames through decode_stream in-process
-    pixels = api._pixels(model, video)
+    pixels = api.engine_pixels(model.engine, video)
     ids = tokenizer_multimodal_token(prompt, tok, VIDEO_TOKEN_INDEX)
     eng = model.engine
     with torch.no_grad():
@@ -2364,7 +2397,8 @@ def api_parity(dev):
 # ---------------------------------------------------------------------------
 EVAL_DIR = Path(__file__).resolve().parent / "_smoke_eval"
 INGEST_FRAMES = 64       # the ingest check: one clip at 224x160, read at 336
-EXTRACT_FRAMES = 128     # one synthetic half-video at 2 fps (64 s)
+EXTRACT_FRAMES = 72      # one synthetic half-video at 2 fps (36 s): two ViT batches
+EXTRACT_WINDOW = (41, 61)  # the frames of the MatchTime sample at 30 s (from 20 s)
 EXTRACT_BATCH = 64       # run_extract's default batch
 GATE_FRAMES = 61         # each of two half-videos at 2 fps; the stream reads 60
 GATE_FIRES = 4           # the threshold lets the gate fire on the 4 likeliest frames
@@ -2372,6 +2406,7 @@ GATE_NEW = 16            # new tokens a gate-stream turn
 EGO_TURNS = 6            # narrations every 5 s: 60 frames, one <video> slot a turn
 LTA_FRAMES, LTA_BEAMS, LTA_NEW = 32, 5, 16
 MCQA_FRAMES = 8          # run_mcqa's default frames a question
+MCQA_NEW = 32            # tokens a question decodes before its stop string
 EVAL_PARITY_FRAMES = 8   # frames of each parity half-video
 # the fp32 Ego4D llm evaluation, CPU against the card: lm_ppl |cpu - card| /
 # cpu and max |logits| difference, about ten times the errors measured on an
@@ -2487,12 +2522,14 @@ def eval_phase(model, tok, processor, dev):
     bf16, exact ViT attention, the int4 gate): the native ingest (built from
     native/ingest.cpp, or reported unavailable where libav is missing);
     ``extract_video_features`` through run_extract's encode function over a
-    128-frame half-video, read back into ``MatchTimeDataset`` through the
+    72-frame half-video, read back into ``MatchTimeDataset`` through the
     shard loader; ``evaluate_gate_stream`` over two half-videos; the Ego4D
     ``llm`` and ``cls`` evaluations; LTA beams and ``score_lta``; MCQA
-    through ``run_mcqa.run_inference`` and ``score_answers``; OQA through
-    ``x_infer`` and ``judge_predictions`` with a stub judge.  Launch counts
-    asserted exactly.  Returns the numbers."""
+    through ``run_mcqa.run_inference`` and ``score_answers``, each question
+    ended after ``MCQA_NEW`` tokens by a stop string of the id a first,
+    uncounted pass saw it emit there; OQA through ``x_infer`` and
+    ``judge_predictions`` with a stub judge.  Launch counts asserted
+    exactly.  Returns the numbers."""
     from streammind_torch import api, native
     from streammind_torch.data import MatchTimeDataset
     from streammind_torch.data.ego4d import Ego4dNarrationDataset
@@ -2546,6 +2583,35 @@ def eval_phase(model, tok, processor, dev):
 
         loader = None if ingest else seeded_stream
         threshold, want = gate_threshold(model, videos, loader, GATE_FIRES)
+
+        # the clips of LTA, MCQA and OQA, and what each MCQA question emits
+        # first: a pass that stops the decode once it has fed MCQA_NEW ids
+        clips = EVAL_DIR / "clips"
+        clips.mkdir()
+        if ingest:
+            for name in ("a.mp4", "b.mp4"):
+                native.write_test_video(str(clips / name), 224, 160, 64, 10)
+            read_clip = processor
+        else:
+            def read_clip(path, num_frames=8):
+                return seeded_pixels(num_frames, 60 + len(Path(path).name), dev)
+
+        records = [
+            {"q_uid": "a", "question": "What is shown?",
+             "options": ["bars", "noise", "text", "faces", "maps"], "answer": 0},
+            {"q_uid": "b", "question": "What happens next?",
+             "options": ["a pan", "a cut", "a zoom", "nothing", "a fade"], "answer": 3}]
+        first_ids = []
+        for rec in records:
+            with DecodeCounter(limit=MCQA_NEW) as probe:
+                try:
+                    list(run_mcqa.run_inference(model, tok, [rec], "egoschema", str(clips),
+                                                read_clip, num_frames=MCQA_FRAMES))
+                except DecodeCounter.Enough:
+                    pass
+            if len(probe.ids) != MCQA_NEW:
+                raise RuntimeError(f"MCQA {rec['q_uid']}: the decode ended after {probe.ids}")
+            first_ids.append(probe.ids)
         torch.cuda.synchronize()
         reset_launches()
 
@@ -2561,7 +2627,7 @@ def eval_phase(model, tok, processor, dev):
             return feats
 
         (half_video,) = write_matchtime_tree(EVAL_DIR, "extract", {1: EXTRACT_FRAMES}, [
-            (1, 20, "a pass"), (1, 40, "a shot"), (1, 60, "a goal")])
+            (1, 10, "a pass"), (1, 20, "a shot"), (1, 30, "a goal")])
         t0 = time.perf_counter()
         if ingest:
             shards = extract_video_features(half_video, timed_encode, half=1)
@@ -2575,23 +2641,24 @@ def eval_phase(model, tok, processor, dev):
         stored = np.load(shards[0])["features"]
         ds = MatchTimeDataset(str(EVAL_DIR / "features_video"), tok,
                               frame_loader=make_shard_frame_loader(video_fps=2.0, cur_fps=2.0))
-        sample = ds[len(ds) - 1]  # the caption at 60 s: frames [81, 121)
-        window = load_feature_window(half_video, 1, 81, 121)
+        sample = ds[len(ds) - 1]  # the caption at 30 s
+        lo, hi = EXTRACT_WINDOW
+        window = load_feature_window(half_video, 1, lo, hi)
         n_patches = (cfg.vision.image_size // cfg.vision.patch_size) ** 2
         if (stored.shape[1:] != (n_patches, cfg.vision.hidden_size)
-                or not 121 <= len(stored) <= EXTRACT_FRAMES
+                or not hi <= len(stored) <= EXTRACT_FRAMES
                 or stored.dtype != np.float16
-                or not np.isfinite(stored).all() or sample["timestamp"] != 60
-                or not np.array_equal(sample["video"], stored[81:121])
-                or not np.array_equal(window, stored[81:121])):
+                or not np.isfinite(stored).all() or sample["timestamp"] != 30
+                or not np.array_equal(sample["video"], stored[lo:hi])
+                or not np.array_equal(window, stored[lo:hi])):
             raise RuntimeError(f"extract: shard {stored.shape} {stored.dtype}, sample at "
                                f"{sample['timestamp']} s with video {sample['video'].shape}")
         out["extract_fps"] = len(stored) / extract_s
         log("eval", f"[{CARD}] extract: {len(stored)} frames -> {len(shards)} fp16 shard(s) "
                     f"{stored.shape} in {extract_s * 1e3:.1f} ms = {out['extract_fps']:.1f} "
                     f"frames/s (decode, ViT bf16 in batches of {EXTRACT_BATCH} "
-                    f"{sum(vit_ms):.1f} ms, npz compression); MatchTimeDataset sample at 60 s "
-                    f"holds the shard's frames [81, 121) byte for byte")
+                    f"{sum(vit_ms):.1f} ms, npz compression); MatchTimeDataset sample at 30 s "
+                    f"holds the shard's frames [{lo}, {hi}) byte for byte")
 
         # -- the gate stream ---------------------------------------------------
         timed_model = TimedModel(model)
@@ -2649,16 +2716,6 @@ def eval_phase(model, tok, processor, dev):
             raise RuntimeError(f"Ego4D llm: bucket {bucket}, {llm}")
 
         # -- LTA, MCQA, OQA ------------------------------------------------------
-        clips = EVAL_DIR / "clips"
-        clips.mkdir()
-        if ingest:
-            for name in ("a.mp4", "b.mp4"):
-                native.write_test_video(str(clips / name), 224, 160, 64, 10)
-            read_clip = processor
-        else:
-            def read_clip(path, num_frames=8):
-                return seeded_pixels(num_frames, 60 + len(Path(path).name), dev)
-
         video = read_clip(str(clips / "a.mp4"), num_frames=LTA_FRAMES)
         prompt = "Predict the next 20 future actions as 'verb noun' steps separated by commas."
         with DecodeCounter() as dc:
@@ -2675,23 +2732,31 @@ def eval_phase(model, tok, processor, dev):
         if len(beams) != LTA_BEAMS or lta["n_clips"] != 1:
             raise RuntimeError(f"LTA: {beams}, {lta}")
 
-        records = [
-            {"q_uid": "a", "question": "What is shown?",
-             "options": ["bars", "noise", "text", "faces", "maps"], "answer": 0},
-            {"q_uid": "b", "question": "What happens next?",
-             "options": ["a pan", "a cut", "a zoom", "nothing", "a fade"], "answer": 3}]
-        t0 = sync()
-        rows = list(run_mcqa.run_inference(model, tok, records, "egoschema", str(clips),
-                                           read_clip, num_frames=MCQA_FRAMES))
-        mcqa_ms = (sync() - t0) * 1e3 / len(records)
+        # each question ends where it first emits the id it fed MCQA_NEW-th
+        # in the first pass: its reply is that pass's ids up to there
+        rows, mcqa_ms, mcqa_steps = [], [], 0
+        for rec, ids in zip(records, first_ids):
+            with DecodeCounter() as dc:
+                t0 = sync()
+                (row,) = run_mcqa.run_inference(model, StopAtId(ids[-1]), [rec], "egoschema",
+                                                str(clips), read_clip, num_frames=MCQA_FRAMES)
+                mcqa_ms.append((sync() - t0) * 1e3)
+            mcqa_steps += dc.n
+            rows.append(row)
+            if "error" in row or row["response"].split() != [
+                    str(i) for i in ids[:ids.index(ids[-1]) + 1]]:
+                raise RuntimeError(f"MCQA {rec['q_uid']}: {row}, the first pass fed {ids}")
         answers = EVAL_DIR / "mcqa.jsonl"
         answers.write_text("".join(json.dumps(r) + "\n" for r in rows))
         mcqa = run_mcqa.score_answers(str(answers))
-        out.update(mcqa=mcqa, mcqa_ms_per_question=mcqa_ms)
-        log("eval", f"[{CARD}] MCQA (egoschema fields, {MCQA_FRAMES} frames): {mcqa_ms:.1f} ms a "
-                    f"question; preds {[r['pred'] for r in rows]}; {mcqa}")
-        if any("error" in r for r in rows):
-            raise RuntimeError(f"MCQA: {rows}")
+        out.update(mcqa=mcqa, mcqa_ms_per_question=statistics.mean(mcqa_ms),
+                   mcqa_tokens=[len(r["response"].split()) for r in rows],
+                   mcqa_ms_per_step=sum(mcqa_ms) / max(mcqa_steps, 1))
+        log("eval", f"[{CARD}] MCQA (egoschema fields, {MCQA_FRAMES} frames): "
+                    f"{out['mcqa_ms_per_question']:.1f} ms a question ({out['mcqa_tokens']} "
+                    f"tokens, ended by the stop string), {out['mcqa_ms_per_step']:.3f} ms a "
+                    f"decode step over {mcqa_steps} steps (ViT, scan and prefill included); "
+                    f"preds {[r['pred'] for r in rows]}; {mcqa}")
 
         t0 = sync()
         pred = api.x_infer(read_clip(str(clips / "b.mp4"), num_frames=MCQA_FRAMES),

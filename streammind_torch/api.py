@@ -178,11 +178,6 @@ def model_init(
     return model, processor, tokenizer, version
 
 
-def _pixels(model: StreamMindModel, video) -> torch.Tensor:
-    """(T, 3, H, W) pixel values on the engine's device in its working dtype."""
-    return engine_pixels(model.engine, video)
-
-
 def engine_pixels(engine: StreamMindEngine, video) -> torch.Tensor:
     """Pixel values (an array or a tensor) on ``engine``'s device in the
     working dtype of its ViT."""
@@ -232,7 +227,7 @@ def _prepare_cognition_inputs(model: StreamMindModel, video, instruct: str, toke
         conv.append_message(conv.roles[1], assistant)
     input_ids = tokenizer_multimodal_token(conv.get_prompt(), tokenizer, modal_index)
 
-    memory = encode_memory(model, _pixels(model, video))
+    memory = encode_memory(model, engine_pixels(model.engine, video))
     if sample_type not in (None, "all") and memory.shape[1] > 1:
         from .streaming.memory_subsample import subsample_span_indices
 

@@ -108,9 +108,9 @@ def score_caption_csv(path: str) -> Dict[str, str]:
 @torch.no_grad()
 def sample_memory(model, sample) -> torch.Tensor:
     """(1, T, hidden) memory tokens of a sample's frames."""
-    from ..api import _pixels, encode_memory
+    from ..api import encode_memory, engine_pixels
 
-    return encode_memory(model, _pixels(model, sample["video"]))
+    return encode_memory(model, engine_pixels(model.engine, sample["video"]))
 
 
 @torch.no_grad()

@@ -242,7 +242,7 @@ class ModelWorker:
         engine = model.engine
         input_ids = tokenizer_multimodal_token(prompt, tokenizer, MMODAL_TOKEN_INDEX["VIDEO"])
         with torch.no_grad():
-            pixels = api._pixels(model, video)
+            pixels = api.engine_pixels(model.engine, video)
             n_frames = int(pixels.shape[0])  # spliced frames (a taug grid counts once)
             plan, mem_buf = api.splice_inputs(model, input_ids, api.encode_memory(model, pixels))
             # one-shot request: a right-sized cache
