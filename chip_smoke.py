@@ -106,11 +106,29 @@ Phases, each of which raises (exit code != 0) on failure:
      frames) and ``score_lta``; MCQA through ``run_mcqa.run_inference`` and
      ``score_answers``, each question's greedy decode ended at its 32nd
      token through the stand-in tokenizer's stop string; OQA through
-     ``x_infer`` (1,024 tokens) and ``judge_predictions`` with a stub judge; exact launch counts (23 exact and 20 int4 a
-     gate-stream frame, 32 flash a prefill, one scan a clip);
+     ``x_infer``, ended the same way, and ``judge_predictions`` with a stub
+     judge; exact launch counts (23 exact and 20 int4 a gate-stream frame,
+     32 flash a prefill, one scan a clip);
  15. the gate stream and the Ego4D llm evaluation in fp32 at reduced depth on
      the CPU and the card (identical fires and summary, lm_ppl within a
      limit) and a TF32-on control;
+ 16. (after phase 8, on phase 7's samples) QLoRA at full width: ``train()``
+     on the ``llm`` stage with ``bits=4`` (int4, groups of 64) and LoRA
+     (r 128, alpha 256) on the decoder's q, k, v, o, gate, up and down, bf16,
+     remat, two 2048-bucket microbatches a step, 4 steps: step time, tokens/s,
+     peak memory, the trainable count, the base's bytes; launches 64 lse
+     forwards, 32 dQ, 32 dK/dV a microbatch (tensor-core), no matvec; the
+     int4 base, the vision tower and the gate bitwise as quantized from the
+     same seeded tree, every LoRA B off zero in every layer; the lora_only
+     checkpoint read back bitwise, and 2 more steps resumed from it (with
+     its optimizer state); then 2 steps over an int8 base; then 2
+     adapter-stage steps over an int8 base from ``--model-path`` (a
+     full-SFT .bin, the decoder cut to 2 layers) and
+     ``--pretrain-mm-mlp-adapter``, whose starting tree must be bitwise the
+     converters' and the quantizer's;
+ 17. QLoRA in fp32 at reduced depth (text 2, gate 2 layers, LoRA B off zero)
+     on the CPU and the card: loss, every LoRA and projector gradient, the
+     params after two optimizer steps, and a TF32-on control;
 then the ``kernels`` JSON line (``launches`` from the serving phase for the
 inference kernels, from the training phase for the training kernels and from
 the fast phase for int8_matvec and selective_scan; ``tc_launches``, ``hgmma``
@@ -118,7 +136,7 @@ and ``ms_over_bound`` for the five tensor-core kernels, ``ms_over_bound`` for
 paged attention, the int8 and int4 matvecs, the scan and the paged write,
 whose launches are the paged attention's launches that wrote a token;
 ``launches_by_path`` of every kernel: session, serving, fast, train, api,
-worker, eval) and, last,
+worker, eval, qlora) and, last,
 the ``ok`` JSON line.  The fp32 parity phases must launch no tensor-core kernel.  It
 uses nothing of JAX; without a CUDA card it exits with an error before any
 result.
@@ -1719,7 +1737,17 @@ def metric_lines():
         return [json.loads(line) for line in f]
 
 
-def training_phase(dev):
+def train_data() -> MatchTimeShaped:
+    """The training and QLoRA phases' samples: each splices into the 2048 bucket."""
+    t0 = time.perf_counter()
+    ds = MatchTimeShaped([1900, 1920, 1940, 1980], frames=64, seed=0)
+    log("train", f"data: {len(ds)} samples, features {ds.samples[0]['video'].shape}, prompts "
+                 f"{[s['input_ids'].shape[1] for s in ds.samples]} ids, made in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    return ds
+
+
+def training_phase(dev, ds):
     """train() at StreamMind-7B's published widths: the adapter stage for
     TRAIN_STEPS steps, then 2 steps of the cls stage resumed from its
     adapter-only checkpoint."""
@@ -1731,11 +1759,6 @@ def training_phase(dev):
 
     cfg = StreamMindConfig()
     shutil.rmtree(SMOKE_DIR, ignore_errors=True)
-    t0 = time.perf_counter()
-    ds = MatchTimeShaped([1900, 1920, 1940, 1980], frames=64, seed=0)
-    log("train", f"data: {len(ds)} samples, features {ds.samples[0]['video'].shape}, prompts "
-                 f"{[s['input_ids'].shape[1] for s in ds.samples]} ids, made in "
-                 f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1820,11 +1843,19 @@ def training_phase(dev):
                 launches=counts, launches_per_microbatch=per_micro)
 
 
-def training_parity(dev):
+def parity_tree():
+    """The fp32 tree of the training and QLoRA parity phases, on the CPU."""
+    from streammind_torch.models.meta import init_streammind_params
+
+    return init_streammind_params(torch.Generator().manual_seed(5), parity_config(),
+                                  device="cpu")
+
+
+def training_parity(dev, params):
     """The adapter stage's loss, gradients and two optimizer steps in fp32
     through the plain versions on the CPU and the kernels on the card (TF32
-    off), then on the card with TF32 on as the control."""
-    from streammind_torch.models.meta import init_streammind_params
+    off), then on the card with TF32 on as the control; ``params`` is
+    ``parity_tree()``, left as it is."""
     from streammind_torch.train.objectives import stage1_llm_loss
     from streammind_torch.train.run import make_microbatch
     from streammind_torch.train.trainer import (
@@ -1833,7 +1864,6 @@ def training_parity(dev):
     from streammind_torch.utils.params import tree_map
 
     cfg = parity_config()
-    params = init_streammind_params(torch.Generator().manual_seed(5), cfg, device="cpu")
     sample = MatchTimeShaped([440], frames=16, seed=6).samples[0]   # splices into 512
 
     def loss_fn(p, b):
@@ -1906,6 +1936,355 @@ def training_parity(dev):
     if not any(control[k] > tol[k] for k in tol):
         raise RuntimeError("the training parity limits do not see TF32 matmuls on the card")
     return got
+
+
+# ---------------------------------------------------------------------------
+# phases 16-17: QLoRA (LoRA over an int4 or int8 frozen decoder) and a
+# released checkpoint as the starting point of train()
+# ---------------------------------------------------------------------------
+QLORA_STEPS = 4
+QLORA_LR = 1e-3   # LoRA B starts at zero: any step moves it; the base never moves
+QLORA_DIR = Path(__file__).resolve().parent / "_smoke_qlora"
+
+
+def qlora_args(dev, max_steps: int, resume: bool, bits: int = 4, stage: str = "llm",
+               **model):
+    from streammind_torch.train.args import DataArguments, ModelArguments, TrainingArguments
+
+    return (ModelArguments(bits=bits, tune_mm_mlp_adapter=stage == "adapter", **model),
+            DataArguments(score_dataset_train_llm=stage == "llm", num_workers=2),
+            TrainingArguments(output_dir=str(QLORA_DIR), learning_rate=QLORA_LR, bf16=True,
+                              max_steps=max_steps, save_steps=max_steps, logging_steps=1,
+                              per_device_train_batch_size=1, gradient_accumulation_steps=2,
+                              gradient_checkpointing=True, seed=0, resume=resume, device=dev,
+                              lora_enable=stage == "llm"))
+
+
+def qlora_metrics():
+    with open(QLORA_DIR / "logs" / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def train_launch_expect(counts: dict, layers: int) -> dict:
+    """A microbatch's launches: 2 lse forwards (the forward and its remat)
+    and one dQ and one dK/dV a layer, every one tensor-core; nothing else."""
+    expect = {n: 0 for n in counts}
+    expect.update(flash_attention_lse=2 * layers, flash_bwd_dq=layers, flash_bwd_dkv=layers)
+    expect.update({f"{n}_tc": expect[n] for n in TRAIN_KERNELS})
+    return expect
+
+
+def qlora_phase(dev, ds):
+    """train() on the llm stage at StreamMind-7B's widths over an int4 base
+    (groups of 64) with LoRA r 128, alpha 256 on q, k, v, o, gate, up and
+    down: QLORA_STEPS steps of two 2048-bucket microbatches, then 2 more
+    resumed from its lora_only checkpoint; 2 steps over an int8 base; then
+    2 adapter-stage steps over an int8 base from a released-layout
+    checkpoint (decoder cut to CKPT_TEXT_LAYERS) and an mm_projector.bin."""
+    import streammind_torch.train.run as run
+    from streammind_torch.config import StreamMindConfig
+    from streammind_torch.models.meta import init_streammind_params
+    from streammind_torch.train.trainer import named_leaves, trainable_mask
+    from streammind_torch.utils.checkpoint import (
+        latest_checkpoint, load_checkpoint, save_mm_projector_bin)
+    from streammind_torch.utils.convert import (
+        convert_projector, convert_streammind_checkpoint, load_state_dict)
+    from streammind_torch.utils.params import param_bytes, tree_map
+    from streammind_torch.utils.quantize import quantize_text_params
+
+    cfg = StreamMindConfig()
+    L = cfg.text.num_layers
+    shutil.rmtree(QLORA_DIR, ignore_errors=True)
+    frozen = {}
+    real_init = run.init_train_state
+
+    def snapshot(params, *a):  # host copies of the frozen leaves train() starts from
+        for name, tree in (("text.", params["text"]), ("vision.", params["vision"]),
+                           ("projector.cls_net.", params["projector"]["cls_net"])):
+            frozen.update({p: t.to("cpu", copy=True)
+                           for p, t in named_leaves(tree, prefix=name).items()})
+        return real_init(params, *a)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    run.init_train_state = snapshot
+    try:
+        state = run.train(*qlora_args(dev, QLORA_STEPS, resume=False), dataset=ds, cfg=cfg)
+    finally:
+        run.init_train_state = real_init
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    recs = qlora_metrics()
+    losses = [r["train/loss"] for r in recs]
+    step_ms = [(b["ts"] - a["ts"]) * 1e3 for a, b in zip(recs, recs[1:])]
+    micro = 2 * QLORA_STEPS
+    per_micro = {n: c / micro for n, c in counts.items()}
+    expect = train_launch_expect(counts, L)
+    lora = named_leaves(state.params["lora"], prefix="lora.")
+    proj_mask = trainable_mask({"projector": state.params["projector"]}, "adapter")
+    n_trainable = sum(t.numel() for t in lora.values()) + sum(
+        t.numel() for t in named_leaves(state.params["projector"], proj_mask["projector"]).values())
+    base_gb = param_bytes([t for p, t in named_leaves(state.params["text"]["layers"]).items()
+                           if p.split(".")[-1] in ("w_int4", "scale4")]) / 1e9
+    tokens = 2 * (TRAIN_ANSWER + 1)
+    log("qlora", f"llm stage over an int4 (groups of 64) base, LoRA r 128 alpha 256, bf16, "
+                 f"2048 bucket, remat, B 1 x accumulation 2, {QLORA_STEPS} steps in {wall:.1f} s "
+                 f"(with the init): losses {losses}; grad norms "
+                 f"{[r['train/grad_norm'] for r in recs]}")
+    log("qlora", f"[{CARD}] step ms (synchronized, after the first) = "
+                 f"{[round(t, 3) for t in step_ms]}, median {statistics.median(step_ms):.3f}; "
+                 f"supervised tokens/s = {tokens / statistics.median(step_ms) * 1e3:.3f}; peak "
+                 f"device memory = {peak / 1e9:.2f} GB; trainable = {n_trainable} "
+                 f"({sum(t.numel() for t in lora.values())} LoRA); the int4 base "
+                 f"(nibbles and group scales) = {base_gb:.3f} GB")
+    log("qlora", f"launches per microbatch = {per_micro}; expected {expect}")
+    if len(losses) != QLORA_STEPS or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"QLoRA losses not finite: {losses}")
+    if per_micro != expect:
+        raise RuntimeError(f"QLoRA launch counts {counts} over {micro} microbatches differ from "
+                           f"the path's {expect} each")
+
+    # the decoder (its int4 base too), the vision tower and the gate bitwise
+    # as train() started; every LoRA B off zero in every layer
+    after = named_leaves(state.params)
+    changed = [p for p, t in frozen.items() if not torch.equal(after[p].cpu(), t)]
+    unmoved = [p for p, t in lora.items() if p.endswith(".B")
+               and not bool((t.flatten(1).abs().amax(1) > 0).all())]
+    n_b = sum(p.endswith(".B") for p in lora)
+    n_int4 = sum(p.endswith(".w_int4") for p in frozen)
+    log("qlora", f"{len(frozen) - len(changed)} of {len(frozen)} frozen leaves (the decoder with "
+                 f"its {n_int4} int4 leaves, the vision tower, the gate) bitwise as train() "
+                 f"started; {n_b - len(unmoved)} of {n_b} LoRA B leaves off zero in every layer")
+    del frozen
+    if changed or unmoved or n_b != 7 or n_int4 != 7:
+        raise RuntimeError(f"a frozen leaf changed or a LoRA B stayed zero: {changed[:8]} "
+                           f"{unmoved}")
+    ckpt = latest_checkpoint(str(QLORA_DIR))
+    loaded, opt, meta = load_checkpoint(ckpt, dev)
+    saved = named_leaves(loaded)
+    same = all(torch.equal(t, after[p]) for p, t in saved.items())
+    log("qlora", f"{Path(ckpt).name}: meta {meta}, {len(saved)} lora and projector leaves read "
+                 f"back bitwise: {same}; optimizer state saved: {opt is not None}")
+    if not (meta["lora_only"] and meta["step"] == QLORA_STEPS and same and opt is not None
+            and set(saved) == {p for p in after if p.startswith(("lora.", "projector."))}):
+        raise RuntimeError("the lora_only checkpoint does not read back")
+    del state, after, loaded, saved, opt
+    torch.cuda.empty_cache()
+
+    resumed = []
+    real_resume = run._resume
+
+    def recording_resume(*a):
+        resumed.append(real_resume(*a))
+        return resumed[-1]
+
+    run._resume = recording_resume
+    t0 = time.perf_counter()
+    try:
+        state = run.train(*qlora_args(dev, QLORA_STEPS + 2, resume=True), dataset=ds, cfg=cfg)
+    finally:
+        run._resume = real_resume
+    steps = [r["step"] for r in qlora_metrics()]
+    log("qlora", f"resumed ({time.perf_counter() - t0:.1f} s with the init): at step "
+                 f"{resumed[0].step if resumed else None} with the saved "
+                 f"optimizer state (counts {resumed[0].opt_state['count'] if resumed else None}); "
+                 f"logged steps {steps}")
+    if (not resumed or resumed[0].step != QLORA_STEPS or state.step != QLORA_STEPS + 2
+            or resumed[0].opt_state["count"] != {"base": QLORA_STEPS}
+            or steps != list(range(1, QLORA_STEPS + 3))):
+        raise RuntimeError("the QLoRA run did not resume from its lora_only checkpoint")
+    del state, resumed
+    shutil.rmtree(QLORA_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # an int8 base
+    reset_launches()
+    t0 = time.perf_counter()
+    state = run.train(*qlora_args(dev, 2, resume=False, bits=8), dataset=ds, cfg=cfg)
+    torch.cuda.synchronize()
+    int8_s = time.perf_counter() - t0
+    counts8 = read_launches()
+    recs8 = qlora_metrics()
+    b_off = all(bool(t.any()) for p, t in named_leaves(state.params["lora"]).items()
+                if p.endswith("B"))
+    int8_gb = param_bytes([t for p, t in named_leaves(state.params["text"]["layers"]).items()
+                           if p.split(".")[-1] in ("w_int8", "scale")]) / 1e9
+    log("qlora", f"int8 base ({int8_gb:.3f} GB with its scales; {int8_s:.1f} s with the init): losses "
+                 f"{[r['train/loss'] for r in recs8]}, step ms "
+                 f"{(recs8[1]['ts'] - recs8[0]['ts']) * 1e3:.3f}; every LoRA B off zero: {b_off}; "
+                 f"launches {counts8}")
+    if (counts8 != {n: c * 2 * 2 for n, c in train_launch_expect(counts8, L).items()}
+            or not b_off or not all(math.isfinite(r["train/loss"]) for r in recs8)):
+        raise RuntimeError("QLoRA over the int8 base did not train through the kernels")
+    del state
+    shutil.rmtree(QLORA_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # --model-path (a released full-SFT directory) + --pretrain-mm-mlp-adapter
+    cfg2 = cfg.replace(text=dataclasses.replace(cfg.text, num_layers=CKPT_TEXT_LAYERS))
+    path = CKPT_DIR / "StreamMind-7B-text2"
+    adapter = CKPT_DIR / "mm_projector.bin"
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        tree = init_streammind_params(torch.Generator(device=dev).manual_seed(31), cfg2,
+                                      device=dev, dtype=torch.bfloat16)
+        write_checkpoint(tree, cfg2, path)
+        # the adapter file's projector differs from the directory's, so the
+        # start shows which one train() kept
+        save_mm_projector_bin(tree_map(lambda t: t * 0.5, tree["projector"]), str(adapter))
+        del tree
+        want = convert_streammind_checkpoint(str(path), cfg2, torch.bfloat16)
+        want["projector"].update(convert_projector(load_state_dict(str(adapter)), cfg2,
+                                                   torch.bfloat16))
+        want = tree_map(lambda t: t.to(dev), want)
+        want["text"] = quantize_text_params(want["text"], bits=8, free_source=True)
+        starts = []
+
+        def recording(params, *a):
+            starts.append(bitwise_differences(params, want))
+            return real_init(params, *a)
+
+        run.init_train_state = recording
+        reset_launches()
+        try:
+            state = run.train(*qlora_args(dev, 2, resume=False, bits=8, stage="adapter",
+                                          model_path=str(path),
+                                          pretrain_mm_mlp_adapter=str(adapter)), dataset=ds)
+        finally:
+            run.init_train_state = real_init
+        torch.cuda.synchronize()
+        counts_mp = read_launches()
+        recs_mp = qlora_metrics()
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        shutil.rmtree(QLORA_DIR, ignore_errors=True)
+    n_leaves = len(named_leaves(want))
+    del want, state
+    torch.cuda.empty_cache()
+    log("qlora", f"--model-path ({CKPT_TEXT_LAYERS}-layer full-SFT .bin, "
+                 f"{time.perf_counter() - t0:.1f} s with writing it) + "
+                 f"--pretrain-mm-mlp-adapter, int8 base, adapter stage: the starting tree's "
+                 f"leaves that differ from convert_streammind_checkpoint + convert_projector + "
+                 f"quantize_text_params(bits=8): {starts[0] if starts else None} of {n_leaves}; "
+                 f"losses {[r['train/loss'] for r in recs_mp]}; launches {counts_mp}")
+    if (starts != [[]] or not all(math.isfinite(r["train/loss"]) for r in recs_mp)
+            or counts_mp != {n: c * 2 * 2 for n, c in
+                             train_launch_expect(counts_mp, CKPT_TEXT_LAYERS).items()}):
+        raise RuntimeError("train() from --model-path did not start from the checkpoint's tree "
+                           "or did not train through the kernels")
+    return dict(step_ms_median=statistics.median(step_ms), losses=losses, peak_gb=peak / 1e9,
+                launches=counts, launches_per_microbatch=per_micro, trainable=n_trainable,
+                base_gb=base_gb, int8_base_gb=int8_gb)
+
+
+QLORA_PARITY_R = 128
+
+
+def qlora_parity(dev, base):
+    """The QLoRA loss, every LoRA and projector gradient and two optimizer
+    steps in fp32 over an int4 base (parity depths, features in) through the
+    plain versions on the CPU and the kernels on the card (TF32 off), then
+    on the card with TF32 on as the control.  ``base`` is ``parity_tree()``,
+    whose decoder is quantized here into a new tree.  LoRA B starts off zero
+    here, so that A has a gradient too."""
+    from streammind_torch.train.lora import attach_lora, init_lora_params
+    from streammind_torch.train.objectives import stage1_llm_loss
+    from streammind_torch.train.run import make_microbatch
+    from streammind_torch.train.trainer import (
+        cosine_schedule, global_norm, init_train_state, make_grad_step, make_optimizer,
+        make_train_step, named_leaves, trainable_mask)
+    from streammind_torch.utils.params import tree_map
+    from streammind_torch.utils.quantize import quantize_text_params
+
+    cfg = parity_config()
+    params = {**base, "text": quantize_text_params(base["text"], bits=4)}
+    g = torch.Generator().manual_seed(8)
+    params["lora"] = init_lora_params(g, params["text"], r=QLORA_PARITY_R)
+    for p, t in named_leaves(params["lora"]).items():
+        if p.endswith("B"):
+            t.normal_(0.0, 0.02, generator=g)
+    scale = 256 / QLORA_PARITY_R
+    sample = MatchTimeShaped([200], frames=16, seed=9).samples[0]   # splices into 256
+
+    def loss_fn(p, b):
+        eff = {**p, "text": attach_lora(p["text"], p["lora"], scale)}
+        return stage1_llm_loss(eff, cfg, b["frames"], b["token_ids"], b["mem_index"],
+                               b["use_mem"], b["attn_mask"], b["labels"], remat=True,
+                               attn_impl="flash!")
+
+    out = {}
+    for name, where, tf32 in (("cpu", "cpu", False), ("card", dev, False),
+                              ("card_tf32", dev, True)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        t0 = time.perf_counter()
+        p = tree_map(lambda t: t.to(where, copy=True), params)
+        mask = trainable_mask({k: v for k, v in p.items() if k != "lora"}, "adapter")
+        mask["lora"] = tree_map(lambda _: True, p["lora"])
+        opt = make_optimizer(cosine_schedule(1e-4, 2))
+        state = init_train_state(p, opt, mask)
+        _, batch = make_microbatch([sample], cfg, p["vision"], "llm", pad_to=1)
+        reset_launches()
+        loss, grads = make_grad_step(loss_fn, mask)(p, batch)
+        step = make_train_step(loss_fn, opt, mask)
+        for _ in range(2):
+            state, _ = step(state, batch)
+        counts = read_launches()
+        out[name] = dict(loss=float(loss), gnorm=float(global_norm(grads.values())),
+                         grads={k: v.cpu() for k, v in grads.items()},
+                         params={k: t.detach().cpu() for k, t in named_leaves(p, mask).items()})
+        log("qlora-parity", f"{name}: loss {out[name]['loss']:.7f}, grad norm "
+                            f"{out[name]['gnorm']:.7f}, {time.perf_counter() - t0:.1f} s, "
+                            f"launches {counts}")
+        if where != "cpu":
+            if counts != {n: 3 * c for n, c in
+                          train_launch_expect(counts, cfg.text.num_layers).items()
+                          } | {f"{n}_tc": 0 for n in TRAIN_KERNELS}:
+                raise RuntimeError(f"the card's run did not take the training kernels alone: "
+                                   f"{counts}")
+            fp32_only(counts, "qlora-parity")
+        del p, state, grads, batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def errs(o):
+        # as training_parity's: params compared where |grad| >= 1e-3 of the
+        # leaf's largest (Adam steps an element by ~lr whatever its size)
+        c = out["cpu"]
+        firm = {k: v.abs() >= 1e-3 * v.abs().max() for k, v in c["grads"].items()}
+        return {"loss": abs(o["loss"] - c["loss"]),
+                "grad_norm": abs(o["gnorm"] - c["gnorm"]) / c["gnorm"],
+                "grads": max(float((o["grads"][k] - v).abs().max() / v.abs().max().clamp(min=1e-30))
+                             for k, v in c["grads"].items()),
+                "params": max(float((o["params"][k] - t)[firm[k]].abs().max())
+                              for k, t in c["params"].items()),
+                "params_all": max(float((o["params"][k] - t).abs().max())
+                                  for k, t in c["params"].items())}
+
+    tol = QLORA_PARITY_TOL
+    got, control = errs(out["card"]), errs(out["card_tf32"])
+    log("qlora-parity", f"int4 base, LoRA r {QLORA_PARITY_R}, text 2 / gate 2 layers at "
+                        f"published widths, fp32, TF32 off: |cpu - card| = {got} (loss abs, grad "
+                        f"norm rel, worst leaf's grad max err / its max |grad|, params after 2 "
+                        f"steps (lr 1e-4) abs where |grad| >= 1e-3 of the leaf's max, and over "
+                        f"all), limits {tol}")
+    log("qlora-parity", f"control, TF32 on: {control}; over the limits: "
+                        f"{[k for k in tol if control[k] > tol[k]]}")
+    if any(got[k] > tol[k] for k in tol):
+        raise RuntimeError("QLoRA on the CPU (plain versions) and the card (kernels) disagree")
+    if not any(control[k] > tol[k] for k in tol):
+        raise RuntimeError("the QLoRA parity limits do not see TF32 matmuls on the card")
+    return got
+
+
+# training_parity's limits: 4-7 times the errors measured here on an H100 with
+# TF32 off (loss 0, grad norm 2.3e-7, grads 1.17e-5, params 4.8e-7)
+QLORA_PARITY_TOL = {"loss": 2e-5, "grad_norm": 1e-6, "grads": 8e-5, "params": 2.4e-6}
 
 
 # ---------------------------------------------------------------------------
@@ -2406,7 +2785,7 @@ GATE_NEW = 16            # new tokens a gate-stream turn
 EGO_TURNS = 6            # narrations every 5 s: 60 frames, one <video> slot a turn
 LTA_FRAMES, LTA_BEAMS, LTA_NEW = 32, 5, 16
 MCQA_FRAMES = 8          # run_mcqa's default frames a question
-MCQA_NEW = 32            # tokens a question decodes before its stop string
+MCQA_NEW = 32            # tokens an MCQA or OQA question decodes before its stop string
 EVAL_PARITY_FRAMES = 8   # frames of each parity half-video
 # the fp32 Ego4D llm evaluation, CPU against the card: lm_ppl |cpu - card| /
 # cpu and max |logits| difference, about ten times the errors measured on an
@@ -2527,9 +2906,9 @@ def eval_phase(model, tok, processor, dev):
     ``llm`` and ``cls`` evaluations; LTA beams and ``score_lta``; MCQA
     through ``run_mcqa.run_inference`` and ``score_answers``, each question
     ended after ``MCQA_NEW`` tokens by a stop string of the id a first,
-    uncounted pass saw it emit there; OQA through ``x_infer`` and
-    ``judge_predictions`` with a stub judge.  Launch counts asserted
-    exactly.  Returns the numbers."""
+    uncounted pass saw it emit there; OQA through ``x_infer``, ended the
+    same way, and ``judge_predictions`` with a stub judge.  Launch counts
+    asserted exactly.  Returns the numbers."""
     from streammind_torch import api, native
     from streammind_torch.data import MatchTimeDataset
     from streammind_torch.data.ego4d import Ego4dNarrationDataset
@@ -2584,8 +2963,9 @@ def eval_phase(model, tok, processor, dev):
         loader = None if ingest else seeded_stream
         threshold, want = gate_threshold(model, videos, loader, GATE_FIRES)
 
-        # the clips of LTA, MCQA and OQA, and what each MCQA question emits
-        # first: a pass that stops the decode once it has fed MCQA_NEW ids
+        # the clips of LTA, MCQA and OQA, and what each MCQA question and the
+        # OQA question emit first: a pass that stops the decode once it has
+        # fed MCQA_NEW ids
         clips = EVAL_DIR / "clips"
         clips.mkdir()
         if ingest:
@@ -2612,6 +2992,15 @@ def eval_phase(model, tok, processor, dev):
             if len(probe.ids) != MCQA_NEW:
                 raise RuntimeError(f"MCQA {rec['q_uid']}: the decode ended after {probe.ids}")
             first_ids.append(probe.ids)
+        oqa_clip = read_clip(str(clips / "b.mp4"), num_frames=MCQA_FRAMES)
+        with DecodeCounter(limit=MCQA_NEW) as probe:
+            try:
+                api.x_infer(oqa_clip, "What is moving?", model, tok, mode="openend")
+            except DecodeCounter.Enough:
+                pass
+        oqa_ids = probe.ids
+        if len(oqa_ids) != MCQA_NEW:
+            raise RuntimeError(f"OQA: the decode ended after {oqa_ids}")
         torch.cuda.synchronize()
         reset_launches()
 
@@ -2760,8 +3149,10 @@ def eval_phase(model, tok, processor, dev):
 
         t0 = sync()
         pred = api.x_infer(read_clip(str(clips / "b.mp4"), num_frames=MCQA_FRAMES),
-                           "What is moving?", model, tok, mode="openend")
+                           "What is moving?", model, StopAtId(oqa_ids[-1]), mode="openend")
         oqa_ms = (sync() - t0) * 1e3
+        if pred.split() != [str(i) for i in oqa_ids[:oqa_ids.index(oqa_ids[-1]) + 1]]:
+            raise RuntimeError(f"OQA: {pred!r}, the first pass fed {oqa_ids}")
         judged = gpt_judge.judge_predictions(
             [{"id": "b", "question": "What is moving?", "answer": "a pattern", "pred": pred}],
             str(EVAL_DIR / "judge"),
@@ -2893,6 +3284,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script measures the card only", file=sys.stderr)
         return 2
     dev = "cuda"
+    t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     global CARD
@@ -2916,23 +3308,38 @@ def main() -> int:
     if not all(hgmma.values()):
         raise RuntimeError(f"a tensor-core kernel holds no HGMMA instruction: {hgmma}")
 
-    kernels = check_kernels(dev)
-    engine, g = build_engine(dev)
-    session = full_width_session(engine, g, dev)
-    serving = serving_phase(engine, g, dev)
-    model, tok, processor, api_run = api_phase(engine, g, dev)
-    worker = worker_phase(model, tok, g, dev)
-    evaluation = eval_phase(model, tok, processor, dev)
+    seconds = {}  # wall seconds of each phase, printed before the kernels line
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    kernels = run("kernels", check_kernels, dev)
+    engine, g = run("engine", build_engine, dev)
+    session = run("session", full_width_session, engine, g, dev)
+    serving = run("serving", serving_phase, engine, g, dev)
+    model, tok, processor, api_run = run("api", api_phase, engine, g, dev)
+    worker = run("worker", worker_phase, model, tok, g, dev)
+    evaluation = run("eval", eval_phase, model, tok, processor, dev)
     del engine, model
     torch.cuda.empty_cache()
     kernels["paged_attention"][0].append(check_paged_serving_case(dev, serving["attn_lengths"][3]))
-    fast = fast_phase(dev)
-    fast_parity(dev)
-    parity(dev)
-    api_parity(dev)
-    eval_parity(dev)
-    training = training_phase(dev)
-    training_parity(dev)
+    fast = run("fast", fast_phase, dev)
+    run("fast_parity", fast_parity, dev)
+    run("parity", parity, dev)
+    run("api_parity", api_parity, dev)
+    run("eval_parity", eval_parity, dev)
+    ds = train_data()
+    training = run("train", training_phase, dev, ds)
+    fp32_tree = parity_tree()
+    run("train_parity", training_parity, dev, fp32_tree)
+    qlora = run("qlora", qlora_phase, dev, ds)
+    del ds
+    run("qlora_parity", qlora_parity, dev, fp32_tree)
+    del fp32_tree
+    log("time", f"phase seconds: {seconds}; total {time.perf_counter() - t_start:.1f} s")
 
     entries = []
     for name, (cases, tol) in kernels.items():
@@ -2949,7 +3356,8 @@ def main() -> int:
                               "train": training["launches"][name],
                               "api": api_run["launches"][name],
                               "worker": worker["launches"][name],
-                              "eval": evaluation["launches"][name]},
+                              "eval": evaluation["launches"][name],
+                              "qlora": qlora["launches"][name]},
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"],
@@ -2964,7 +3372,7 @@ def main() -> int:
                 tc_launches_by_path={p: r["launches"][f"{name}_tc"] for p, r in (
                     ("session", session), ("serving", serving), ("fast", fast),
                     ("train", training), ("api", api_run), ("worker", worker),
-                    ("eval", evaluation))},
+                    ("eval", evaluation), ("qlora", qlora))},
                 hgmma=hgmma[src.split("/")[-1][:-3]], ms_over_bound=head["ms_over_bound"],
                 timing="CUDA graph replay (device time); eager_ms in cases")
     print(json.dumps({"kernels": entries}), flush=True)

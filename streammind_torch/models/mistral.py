@@ -112,9 +112,15 @@ def fuse_text_linears(text_params: dict) -> dict:
     """Serving fusion: q/k/v → one "qkv" leaf and mlp gate/up → one
     "gateup" leaf, rows concatenated along the output dim (each output is
     the same dot as before).  The gate LM's tree must NOT be fused: its
-    single-token shortcut reads only v."""
+    single-token shortcut reads only v.  A tree with LoRA factors attached
+    (``train/lora.py::attach_lora``) is refused: a fused leaf would drop
+    them."""
     out = dict(text_params)
     layers = dict(out["layers"])
+    if any("lora_a" in leaf for leaf in (*layers.values(), *layers.get("mlp", {}).values())
+           if isinstance(leaf, dict)):
+        raise ValueError("fuse_text_linears: the tree carries LoRA factors (attach_lora); "
+                         "merge them first (train/lora.py::apply_lora)")
     if all(k in layers for k in ("q", "k", "v")):
         fused = _fuse_leaves([layers["q"], layers["k"], layers["v"]])
         if fused is not None:

@@ -16,6 +16,15 @@ by their supervised tokens.  On a CUDA device the decoder's attention is the
 flash kernels (lse forward, dQ and dK/dV backward) in every layer, each
 layer rematerialized under ``gradient_checkpointing``.
 
+A ``--model-path`` directory (any of ``utils/convert.py``'s released
+layouts, with ``--vision-tower`` and ``--model-base``) gives the config and
+the starting weights; components it lacks are random from the seed.
+``--pretrain-mm-mlp-adapter`` loads an ``mm_projector.bin`` over the
+projector.  ``--bits 4|8`` stores the frozen decoder int4 (groups of 64) or
+int8; ``--lora-enable`` on the llm stage trains LoRA factors over it
+(``train/lora.py``, attached inside each loss call) with the projector
+minus the gate, and checkpoints only ``{lora, projector}`` (``lora_only``).
+
 Checkpoints are ``checkpoint-{step}`` directories in the JAX package's
 format (``utils/checkpoint.py``), resumed from the latest; the adapter and
 cls stages save the projector alone.
@@ -24,10 +33,11 @@ Without ``dataset=``, ``--dataset`` builds the MatchTime, Ego4D or SFT
 dataset from ``--data-path`` / ``--data-folder`` / ``--anno-path``, with
 the ``transformers`` tokenizer of ``--model-path``, as the JAX package does.
 
-Not ported yet (each raises NotImplementedError, ROADMAP Queue 1 item 17):
-LoRA, the int8/int4 frozen base (``--bits``), the dp/fsdp/tp mesh, and
-loading a released checkpoint (``--model-path`` directory,
-``--pretrain-mm-mlp-adapter``).
+The dp/fsdp/tp mesh is not ported yet (NotImplementedError, ROADMAP Queue 1
+item 17, parallelism).
+
+    python -m streammind_torch.train.run --score-dataset-train-llm true \
+        --bits 4 --lora-enable true --model-path ckpt/ --dataset matchtime ...
 
     python -m streammind_torch.train.run --config run.json [--flag value ...]
 """
@@ -50,6 +60,7 @@ from ..models.vit import vit_forward
 from ..utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint, save_opt_state
 from ..utils.logging import MetricLogger
 from ..utils.metrics_writer import MetricsWriter
+from ..utils.params import tree_map
 from ..utils.prefetch import prefetch_iter
 from .args import DataArguments, ModelArguments, parse_args
 from .objectives import stage1_llm_loss, stage2_gate_loss, text_only_llm_loss
@@ -73,7 +84,6 @@ logger = logging.getLogger("streammind_torch.train")
 
 PLAN_BUCKETS = (128, 256, 512, 1024, 2048)
 FRAME_BUCKETS = (8, 16, 32, 64, 128, 256, 600)
-_TODO = "not ported yet (ROADMAP Queue 1 item 17)"
 
 
 def copy_decoder_layers_into_gate(params, cfg: StreamMindConfig):
@@ -290,19 +300,56 @@ def make_microbatch(samples, cfg, vision_params, stage: str, pad_to: int = 0, de
     return kind, {k: torch.cat([r[k] for r in rows], dim=0) for k in rows[0]}
 
 
-def _check_supported(model_args, training_args):
+def _check_supported(model_args, training_args, stage: str):
+    """Refuse, before any weight is made, what the JAX package refuses and
+    what the port does not run yet."""
     if training_args.dp * training_args.fsdp * training_args.tp > 1:
-        raise NotImplementedError(f"the dp/fsdp/tp mesh is {_TODO}; train on one device")
+        raise NotImplementedError("the dp/fsdp/tp mesh is not ported yet (ROADMAP Queue 1 "
+                                  "item 17, parallelism); train on one device")
     if model_args.bits not in (4, 8, 16):
         raise ValueError(f"--bits must be 4, 8 or 16, got {model_args.bits}")
-    if model_args.bits != 16:
-        raise NotImplementedError(f"the int{model_args.bits} frozen base (--bits) is {_TODO}")
-    if training_args.lora_enable:
-        raise NotImplementedError(f"LoRA (--lora-enable) is {_TODO}")
-    if model_args.model_path and os.path.isdir(model_args.model_path):
-        raise NotImplementedError(f"loading a released checkpoint (--model-path) is {_TODO}")
+    if model_args.bits != 16 and stage == "llm" and not training_args.lora_enable:
+        raise NotImplementedError(
+            "bits<16 freezes the decoder: use the adapter/cls stages, or enable LoRA "
+            "(QLoRA: matmul-time adapters over the quantized base)")
+
+
+def _model_dir(model_args) -> Optional[str]:
+    p = model_args.model_path
+    return p if p and os.path.isdir(p) else None
+
+
+def load_start_params(model_args, cfg: StreamMindConfig, seed: int, device, dtype):
+    """The starting tree: a ``--model-path`` checkpoint (components it lacks
+    random from ``seed``) or random weights, then the
+    ``--pretrain-mm-mlp-adapter`` projector over it."""
+    path = _model_dir(model_args)
+    g = torch.Generator(device=device).manual_seed(seed)
+    if path:
+        from ..api import _init_component
+        from ..utils.convert import convert_streammind_checkpoint
+
+        params = convert_streammind_checkpoint(path, cfg, dtype, vision_path=model_args.vision_tower,
+                                               base_path=model_args.model_base)
+        params = tree_map(lambda t: t.to(device), params)
+        for k in sorted({"vision", "projector", "text"} - set(params)):
+            logger.warning(f"checkpoint {path} lacks {k}; it is randomly initialized")
+            params[k] = _init_component(k, g, cfg, device, dtype)
+    else:
+        params = init_streammind_params(g, cfg, device=device, dtype=dtype)
     if model_args.pretrain_mm_mlp_adapter:
-        raise NotImplementedError(f"--pretrain-mm-mlp-adapter is {_TODO}")
+        # the released mm_projector.bin exists only for the mamba projector
+        if cfg.mm_projector_type != "mamba":
+            raise ValueError(
+                "--pretrain-mm-mlp-adapter expects mm_projector_type='mamba' "
+                f"(got {cfg.mm_projector_type!r}); other projector types load "
+                "from framework checkpoints (checkpoint-N dirs) instead")
+        from ..utils.convert import convert_projector, load_state_dict
+
+        loaded = convert_projector(load_state_dict(model_args.pretrain_mm_mlp_adapter), cfg, dtype)
+        params["projector"].update(tree_map(lambda t: t.to(device), loaded))
+        logger.info(f"loaded projector from {model_args.pretrain_mm_mlp_adapter}")
+    return params
 
 
 def build_dataset(model_args, data_args, training_args):
@@ -335,16 +382,20 @@ def build_dataset(model_args, data_args, training_args):
 
 
 def _resume(state: TrainState, path: str, device) -> TrainState:
-    """Restore params (or, from an adapter-only checkpoint, the projector),
-    the step and, from a full checkpoint of this package, the optimizer
-    state; copies into the live leaves in place."""
+    """Restore params (from an adapter-only checkpoint the projector, from a
+    ``lora_only`` one the LoRA factors and the projector), the step and,
+    from a checkpoint of this package that holds it, the optimizer state;
+    copies into the live leaves in place."""
     loaded, opt_state, meta = load_checkpoint(path, device)
+    if meta.get("lora_only"):
+        loaded = {k: loaded[k] for k in ("lora", "projector") if k in loaded}
     live = named_leaves(state.params)
     with torch.no_grad():
         for p, t in named_leaves(loaded).items():
             live[p].copy_(t)
     fresh = meta.get("adapter_only") or opt_state is None
-    logger.info(f"resumed from {path}" + (" (fresh optimizer state)" if fresh else ""))
+    what = "LoRA adapters" if meta.get("lora_only") else "params"
+    logger.info(f"resumed {what} from {path}" + (" (fresh optimizer state)" if fresh else ""))
     return TrainState(meta["step"], state.params, state.opt_state if fresh else opt_state)
 
 
@@ -354,21 +405,35 @@ def train(model_args=None, data_args=None, training_args=None, dataset=None,
         model_args, data_args, training_args = parse_args()
     stage = _stage_of(model_args, data_args)
     logger.info(f"training stage: {stage}")
-    _check_supported(model_args, training_args)
+    _check_supported(model_args, training_args, stage)
 
     # -- model ---------------------------------------------------------------
     if cfg is None:
-        cfg = StreamMindConfig(mm_projector_type=model_args.mm_projector_type)
+        if _model_dir(model_args):
+            # the decoder's config from the checkpoint (streammind_config.json
+            # or an HF config.json); Qwen2 and Mixtral are refused when converted
+            from ..api import _load_config
+
+            cfg = _load_config(model_args.model_path).replace(
+                mm_projector_type=model_args.mm_projector_type)
+        else:
+            cfg = StreamMindConfig(mm_projector_type=model_args.mm_projector_type)
     if stage == "cls" and cfg.mm_projector_type != "mamba":
         raise ValueError("gate (stage-2) training requires mm_projector_type='mamba' — the "
                          f"2-way gate LM lives inside the mamba projector; got "
                          f"{cfg.mm_projector_type!r}")
     device = torch.device(training_args.device)
     dtype = torch.bfloat16 if training_args.bf16 else torch.float32
-    params = init_streammind_params(torch.Generator(device=device).manual_seed(training_args.seed),
-                                    cfg, device=device, dtype=dtype)
+    params = load_start_params(model_args, cfg, training_args.seed, device, dtype)
     if model_args.train_skip_cls:
         params = copy_decoder_layers_into_gate(params, cfg)
+    if model_args.bits in (4, 8):
+        # the frozen decoder rests int8 (per channel) or int4 (groups of 64)
+        from ..utils.quantize import quantize_text_params
+
+        params["text"] = quantize_text_params(params["text"], bits=model_args.bits,
+                                              free_source=True)
+        logger.info(f"frozen decoder quantized to int{model_args.bits}")
     if dataset is None:
         dataset = build_dataset(model_args, data_args, training_args)
 
@@ -381,8 +446,24 @@ def train(model_args=None, data_args=None, training_args=None, dataset=None,
     else:  # optimizer steps for num_train_epochs passes over the data
         total_steps = max(len(dataset) // global_bs, 1) * max(training_args.num_train_epochs, 1)
 
+    # -- LoRA: factors over the frozen (maybe quantized) decoder -----------------
+    lora_scaling = None
+    if training_args.lora_enable and stage == "llm":
+        from .lora import init_lora_params
+
+        params["lora"] = init_lora_params(
+            torch.Generator(device=device).manual_seed(training_args.seed + 1), params["text"],
+            r=training_args.lora_r, dtype=dtype)
+        lora_scaling = training_args.lora_alpha / training_args.lora_r
+        logger.info(f"LoRA enabled: r={training_args.lora_r} alpha={training_args.lora_alpha}")
+
     # -- optimizer -------------------------------------------------------------
-    mask = trainable_mask(params, stage)
+    if lora_scaling is not None:
+        # the decoder frozen; the LoRA factors and the projector minus the gate train
+        mask = trainable_mask({k: v for k, v in params.items() if k != "lora"}, "adapter")
+        mask["lora"] = tree_map(lambda _: True, params["lora"])
+    else:
+        mask = trainable_mask(params, stage)
     logger.info(f"trainable params: {count_trainable(params, mask) / 1e6:.1f}M")
     optimizer = make_optimizer(
         cosine_schedule(training_args.learning_rate, total_steps, training_args.warmup_ratio),
@@ -406,19 +487,28 @@ def train(model_args=None, data_args=None, training_args=None, dataset=None,
         attn_impl = "flash!"
     remat = training_args.gradient_checkpointing
 
+    def _effective(p):
+        if lora_scaling is None:
+            return p
+        # matmul-time LoRA: no merged weight, the base may rest quantized
+        from .lora import attach_lora
+
+        return {**p, "text": attach_lora(p["text"], p["lora"], lora_scaling)}
+
     if stage == "cls":
         def loss_fn(p, b, with_tokens=False):
             return stage2_gate_loss(p, cfg, b["frames"], b["labels"], b["mask"],
                                     with_tokens=with_tokens)
     else:
         def loss_fn(p, b, with_tokens=False):
-            return stage1_llm_loss(p, cfg, b["frames"], b["token_ids"], b["mem_index"],
-                                   b["use_mem"], b["attn_mask"], b["labels"], remat=remat,
-                                   attn_impl=attn_impl, with_tokens=with_tokens)
+            return stage1_llm_loss(_effective(p), cfg, b["frames"], b["token_ids"],
+                                   b["mem_index"], b["use_mem"], b["attn_mask"], b["labels"],
+                                   remat=remat, attn_impl=attn_impl, with_tokens=with_tokens)
 
     def text_loss_fn(p, b, with_tokens=False):
-        return text_only_llm_loss(p, cfg, b["token_ids"], b["attn_mask"], b["labels"],
-                                  remat=remat, attn_impl=attn_impl, with_tokens=with_tokens)
+        return text_only_llm_loss(_effective(p), cfg, b["token_ids"], b["attn_mask"],
+                                  b["labels"], remat=remat, attn_impl=attn_impl,
+                                  with_tokens=with_tokens)
 
     step_fn = make_train_step(loss_fn, optimizer, mask)
     step_fn_text = make_train_step(text_loss_fn, optimizer, mask)
@@ -484,10 +574,15 @@ def train(model_args=None, data_args=None, training_args=None, dataset=None,
             writer.write(step + 1, {"train/loss": loss, "train/grad_norm": gnorm})
         if (step + 1) % training_args.save_steps == 0 or step + 1 == total_steps:
             adapter_only = stage in ("cls", "adapter")
-            path = save_checkpoint(training_args.output_dir, step + 1, state.params,
+            saved = state.params
+            if lora_scaling is not None:
+                # LoRA runs keep only the trainables (the reference's lora +
+                # non_lora_trainables split)
+                saved = {"lora": saved["lora"], "projector": saved["projector"]}
+            path = save_checkpoint(training_args.output_dir, step + 1, saved,
                                    adapter_only=adapter_only,
                                    keep=training_args.save_total_limit,
-                                   extra={"lora_only": False})
+                                   extra={"lora_only": lora_scaling is not None})
             if not adapter_only:
                 save_opt_state(path, state.opt_state)
     return state

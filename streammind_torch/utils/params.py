@@ -61,10 +61,22 @@ def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
     (ops/int8_matvec.py, ops/int4_matvec.py), which read the quantized
     bytes directly and round once; otherwise int8 takes the JAX package's
     formula (a product in x's dtype, then the scale in x's dtype), and int4
-    the matmul with the dequantized weight.
+    the matmul with the dequantized weight.  The fused kernels have no
+    backward: asked for x's gradient there, linear raises.
+
+    A leaf that carries LoRA factors (``lora_a`` (r, in), ``lora_b`` (out,
+    r), ``lora_scale``, from ``train/lora.py::attach_lora``) adds
+    ``(x @ Aᵀ) @ Bᵀ · scale`` after the base product and before the bias,
+    each factor cast to x's dtype, as the JAX package does.
     """
     t = x.numel() // x.shape[-1]
     fused = x.is_cuda and t <= MAX_TOKENS
+    if fused and ("w_int8" in p or "w_int4pc" in p) and torch.is_grad_enabled() \
+            and x.requires_grad:
+        raise RuntimeError(
+            "linear: the fused int8/int4 matvec kernels have no backward, and x requires "
+            "grad; run under torch.no_grad() or pass more than "
+            f"{MAX_TOKENS} tokens (the dequantized product)")
     if "w_int8" in p:
         if fused:
             y = int8_matvec(x.reshape(t, x.shape[-1]).contiguous(), p["w_int8"], p["scale"]
@@ -84,6 +96,9 @@ def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
         y = F.linear(x, p["weight"].to(x.dtype))
     else:
         raise ValueError(f"linear: unsupported leaf scheme {sorted(p)}")
+    if "lora_a" in p:
+        y = y + ((x @ p["lora_a"].T.to(x.dtype)) @ p["lora_b"].T.to(x.dtype)
+                 ) * p["lora_scale"].to(x.dtype)
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y

@@ -293,6 +293,24 @@ def test_int8_kernel_matches_plain(dev, dtype, b, din, dout):
     _close(out, int8_matvec_ref(x, q["w_int8"], q["scale"]), dtype)
 
 
+@pytest.mark.parametrize("scheme", ["int8", "int4pc"])
+def test_fused_matvec_linear_refuses_a_gradient_to_x(dev, scheme):
+    """The int8 and int4 matvecs have no backward: linear must not drop x's
+    gradient through them silently (a short microbatch of a quantized
+    decoder trained with LoRA would reach them)."""
+    from streammind_torch.utils.params import linear
+
+    rng = np.random.default_rng(14)
+    w = _r(rng, (256, 512), torch.float32, 0.02)
+    leaf = quantize_linear_weight(w) if scheme == "int8" else quantize_linear_weight_int4_pc(w)
+    x = _r(rng, (1, 3, 512), torch.bfloat16).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        linear(x, leaf)
+    with torch.no_grad():  # inference keeps the fused kernels
+        assert linear(x, leaf).shape == (1, 3, 256)
+    assert linear(x.detach(), leaf).shape == (1, 3, 256)
+
+
 def test_int8_quantize_bytes_do_not_depend_on_the_device(dev):
     rng = np.random.default_rng(10)
     w = torch.tensor(rng.standard_normal((4, 512, 1024)) * 0.02, dtype=torch.float32)

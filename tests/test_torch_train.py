@@ -334,19 +334,13 @@ def test_copy_decoder_layers_into_gate_matches_jax(trees):
         np.testing.assert_array_equal(t.numpy(), np.asarray(jpaths[path]), err_msg=path)
 
 
-@pytest.mark.parametrize("change", [
-    dict(training=dict(dp=2)), dict(training=dict(lora_enable=True)),
-    dict(model=dict(bits=8)), dict(model=dict(pretrain_mm_mlp_adapter="mm_projector.bin")),
-    dict(model=dict(model_path="<tmp_path>")),
-])
+@pytest.mark.parametrize("change", [dict(training=dict(dp=2))])
 def test_unported_options_raise(trees, tmp_path, change):
     _, tcfg, _ = trees
     ma, da, ta = _args(tmp_path, "adapter")
-    for k, v in change.get("model", {}).items():
-        setattr(ma, k, str(tmp_path) if v == "<tmp_path>" else v)
-    for k, v in change.get("training", {}).items():
+    for k, v in change["training"].items():
         setattr(ta, k, v)
-    ds = change.get("dataset", FakeScoreDataset(SPLikeTokenizer(), tcfg, n=2))
+    ds = FakeScoreDataset(SPLikeTokenizer(), tcfg, n=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trun.train(ma, da, ta, dataset=ds, cfg=tcfg)
 

@@ -20,7 +20,10 @@ kernels in every layer; forward, recompute and backward, no optimizer
 step), and beside it the training projector's plain scan alone
 (``selective_scan_ref``, which ``mamba_project`` reaches with
 impl="auto"), forward and backward, on the inputs it took in that
-microbatch.  For each region it prints one JSON line:
+microbatch; then the same microbatch on the QLoRA path (the llm stage:
+the decoder int4 in groups of 64, LoRA r 128 on its seven projections,
+gradients of the LoRA factors and the projector).  For each region it
+prints one JSON line:
 host wall time (synchronized), the device's busy time (the sum of kernel
 and copy times the profiler saw), the idle share, the number of device
 operations, and the ten device operations that took the most time.
@@ -174,6 +177,8 @@ def main() -> int:
     fast_tier(cfg, dev)
     torch.cuda.empty_cache()
     train_microbatch(cfg, dev)
+    torch.cuda.empty_cache()
+    qlora_microbatch(cfg, dev)
     return 0
 
 
@@ -288,6 +293,41 @@ def train_microbatch(cfg, dev):
     print(json.dumps(dict(train_bucket=int(batch["token_ids"].shape[1]),
                           train_frames=int(batch["frames"].shape[1]),
                           supervised=int((batch["labels"][:, 1:] != -100).sum()))), flush=True)
+
+
+def qlora_microbatch(cfg, dev):
+    """One microbatch of QLoRA (``train()``'s llm stage with ``bits=4`` and
+    LoRA at its defaults) on a fresh seeded tree: gradients of the LoRA
+    factors and the projector minus the gate, through the int4 decoder."""
+    from streammind_torch.models.meta import init_streammind_params
+    from streammind_torch.train.lora import attach_lora, init_lora_params
+    from streammind_torch.train.objectives import stage1_llm_loss
+    from streammind_torch.train.run import make_microbatch
+    from streammind_torch.train.trainer import apply_trainable, make_grad_step, trainable_mask
+    from streammind_torch.utils.params import tree_map
+    from streammind_torch.utils.quantize import quantize_text_params
+
+    from chip_smoke import MatchTimeShaped
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_streammind_params(g, cfg, device=dev, dtype=torch.bfloat16)
+    params["text"] = quantize_text_params(params["text"], bits=4, free_source=True)
+    params["lora"] = init_lora_params(g, params["text"], r=128, dtype=torch.bfloat16)
+    mask = trainable_mask({k: v for k, v in params.items() if k != "lora"}, "adapter")
+    mask["lora"] = tree_map(lambda _: True, params["lora"])
+    apply_trainable(params, mask)
+    sample = MatchTimeShaped([1980], frames=64, seed=SEED).samples[0]
+    _, batch = make_microbatch([sample], cfg, params["vision"], "llm", pad_to=1)
+
+    def loss_fn(p, b):
+        eff = {**p, "text": attach_lora(p["text"], p["lora"], 2.0)}
+        return stage1_llm_loss(eff, cfg, b["frames"], b["token_ids"], b["mem_index"],
+                               b["use_mem"], b["attn_mask"], b["labels"], remat=True,
+                               attn_impl="flash!")
+
+    grad_step = make_grad_step(loss_fn, mask)
+    grad_step(params, batch)  # warm-up
+    profiled("qlora_microbatch", lambda: grad_step(params, batch))
 
 
 if __name__ == "__main__":
