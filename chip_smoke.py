@@ -129,6 +129,28 @@ Phases, each of which raises (exit code != 0) on failure:
  17. QLoRA in fp32 at reduced depth (text 2, gate 2 layers, LoRA B off zero)
      on the CPU and the card: loss, every LoRA and projector gradient, the
      params after two optimizer steps, and a TF32-on control;
+ 18. (after phase 14, the 7B model freed) StreamMind over Qwen2-7B at full
+     width, bf16, random weights from a seed: the decoder from the
+     published config.json (28 layers, 28 / 4 heads, q/k/v biases, vocab
+     152,064), the gate LM at hidden 3584 (head_dim 112) under
+     quantize_gate="int4", the Mamba at d_model 3584: the session of phase
+     4, the paged broker's K = 3 turn (group 7 in the paged kernel),
+     ``api.model_init`` by a Qwen2 model name (the "qwen" template) and
+     ``infer`` on 16 frames with 32 tokens, then one turn of the decoder
+     through ``load_8bit`` (fused qkv with its bias); exact launch counts
+     and the peak memory of each;
+ 19. StreamMind over Mixtral-8x7B at full width, the decoder at int4 per
+     channel (``load_4bit="pc"``'s layout), drawn one layer's bf16 banks at
+     a time and quantized before the next: the session and the K = 3 paged
+     turn through the int4 kernel on every decode step (fused qkv, o, each
+     token's two experts' gate, up and down slices of the (E, F, D/2)
+     banks); a per-layer tally of the experts chosen, every expert chosen
+     somewhere; the gathered dispatch against the dense one on one decode
+     step's input; the build's peak memory;
+ 20. both decoders in fp32 at depth 2 (Mixtral with its 8 experts) on the
+     CPU and the card, TF32 off: fires, gate decisions and greedy tokens
+     identical, probs, memory and prefill logits within limits; the three
+     MoE dispatches against each other; a TF32-on control;
 then the ``kernels`` JSON line (``launches`` from the serving phase for the
 inference kernels, from the training phase for the training kernels and from
 the fast phase for int8_matvec and selective_scan; ``tc_launches``, ``hgmma``
@@ -136,7 +158,7 @@ and ``ms_over_bound`` for the five tensor-core kernels, ``ms_over_bound`` for
 paged attention, the int8 and int4 matvecs, the scan and the paged write,
 whose launches are the paged attention's launches that wrote a token;
 ``launches_by_path`` of every kernel: session, serving, fast, train, api,
-worker, eval, qlora) and, last,
+worker, eval, qlora, qwen2, mixtral) and, last,
 the ``ok`` JSON line.  The fp32 parity phases must launch no tensor-core kernel.  It
 uses nothing of JAX; without a CUDA card it exits with an error before any
 result.
@@ -144,6 +166,7 @@ result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import shutil
@@ -333,9 +356,12 @@ def check_kernels(dev):
     # bucket 64 with a GQA group of 7 (Qwen2-7B's 28 / 4 heads); then the
     # api's one-shot prefill, bucket 128 from an empty cache; then the eval's
     # one-shot prefills over their whole bucket from an empty cache: LTA's
-    # beams (32 frames, bucket 128), MCQA's and OQA's (8 frames, bucket 64).  Sets
-    # of inputs: the caches are overlapping views of one buffer, each
-    # starting past the rows the previous one reads, so nothing is read warm.
+    # beams (32 frames, bucket 128), MCQA's and OQA's (8 frames, bucket 64);
+    # then Qwen2-7B's (28 / 4 heads) session turns (bucket 64 from an empty
+    # cache, bucket 32 at offset 52), its paged K = 3 prefill and its infer
+    # (bucket 128; Mixtral-8x7B has Mistral-7B's heads).  Sets of inputs: the
+    # caches are overlapping views of one buffer, each starting past the rows
+    # the previous one reads, so nothing is read warm.
     # Kernel and library are timed by graph replay (the bf16 kernel runs in
     # less time than its wrapper's host work), the kernel eagerly as well.
     cases = []
@@ -344,7 +370,12 @@ def check_kernels(dev):
                                         (512, [388, 2000], [900, 2505], 32, 8),
                                         (64, [100], [150], 28, 4),
                                         (128, [0], [65], 32, 8), (128, [0], [128], 32, 8),
-                                        (64, [0], [64], 32, 8)):
+                                        (64, [0], [64], 32, 8),
+                                        # Qwen2-7B at its group of 7: the session's two
+                                        # turns, the K = 3 batched prefill, infer's prefill
+                                        (64, [0], [64], 28, 4), (32, [52], [84], 28, 4),
+                                        (64, [0] * 3, [64] * 3, 28, 4),
+                                        (128, [0], [128], 28, 4)):
         b = len(q_offs)
         visible = sum(min(n, off + i + 1) for off, n in zip(q_offs, kv_lens) for i in range(sq))
         rows = [min(n, off + sq) for off, n in zip(q_offs, kv_lens)]
@@ -411,8 +442,9 @@ def check_kernels(dev):
 
     results["int4_matvec"] = (int4_cases(dev, g) + int4_cases(
         dev, g, shapes=INT4_DECODER_SHAPES, dtypes=(bf16,), batches=(1, API_BEAMS)) + int4_cases(
-        dev, g, shapes=INT4_DECODER_UNFUSED, dtypes=(bf16,), batches=(API_BEAMS,)),
-        INT4_TOL_TEXT)
+        dev, g, shapes=INT4_DECODER_UNFUSED, dtypes=(bf16,), batches=(API_BEAMS,)) + int4_cases(
+        dev, g, shapes=INT4_QWEN2_GATE, dtypes=(bf16,), batches=(1, 4)) + int4_expert_cases(
+        dev, g), INT4_TOL_TEXT)
     results.update(check_paged_kernels(dev, randn))
     results.update(check_train_kernels(dev, randn))
     results.update(check_fast_kernels(dev, g))
@@ -446,22 +478,26 @@ def check_kernels(dev):
 PAGED_SHAPE = dict(hkv=8, h=32, d=128, page=64, maxp=128, n_pages=1024)
 
 
-def paged_pool(randn):
-    """A pool of 1024 pages (268 MB of K and V, five times the L2) at the
-    serving path's shapes: Mistral-7B (32 q / 8 kv heads, D 128), page 64."""
-    sh = PAGED_SHAPE
+# Qwen2-7B's pool: 28 q / 4 kv heads, a GQA group of 7
+PAGED_SHAPE_G7 = dict(PAGED_SHAPE, hkv=4, h=28)
+
+
+def paged_pool(randn, sh=PAGED_SHAPE):
+    """A pool of 1024 pages (268 MB of K and V, five times the L2, at 8 kv
+    heads) at the serving path's shapes: Mistral-7B (32 q / 8 kv heads, D
+    128), page 64; or Qwen2-7B's (``PAGED_SHAPE_G7``)."""
     return tuple(randn(sh["hkv"], sh["n_pages"] + 1, sh["page"], sh["d"]) for _ in range(2))
 
 
-def paged_attention_case(dev, randn, pool_k, pool_v, lengths):
+def paged_attention_case(dev, randn, pool_k, pool_v, lengths, sh=PAGED_SHAPE):
     """paged_decode_attention at one list of row lengths over 128-page tables,
     against its plain version; kernel and yardstick timed by graph replay
     (the kernel runs in less time than its wrapper's host work) and
     eagerly."""
     from streammind_torch.ops import paged_attention as PA
 
-    hkv, h, d, page, maxp, n_pages = (PAGED_SHAPE[k] for k in ("hkv", "h", "d", "page", "maxp",
-                                                               "n_pages"))
+    hkv, h, d, page, maxp, n_pages = (sh[k] for k in ("hkv", "h", "d", "page", "maxp",
+                                                      "n_pages"))
     K = len(lengths)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     visible = sum(min(n, maxp * page) for n in lengths)
@@ -508,7 +544,7 @@ PAGED_WRITE_LENGTHS = ([36, 36, 36], [n - 1 for n in PAGED_LENGTHS[:1]],
                        [n - 1 for n in PAGED_LENGTHS])
 
 
-def paged_write_case(dev, randn, pool_k, pool_v, lengths):
+def paged_write_case(dev, randn, pool_k, pool_v, lengths, sh=PAGED_SHAPE):
     """paged_decode_attention with the step's new K and V tokens (written in
     the same launch) at one list of row lengths over 128-page tables: pools
     and output bitwise what write_tokens_ref then the write-free kernel at
@@ -521,8 +557,8 @@ def paged_write_case(dev, randn, pool_k, pool_v, lengths):
     at slots given, is timed beside (``write_library_ms``)."""
     from streammind_torch.ops import paged_attention as PA
 
-    hkv, h, d, page, maxp, n_pages = (PAGED_SHAPE[k] for k in ("hkv", "h", "d", "page", "maxp",
-                                                               "n_pages"))
+    hkv, h, d, page, maxp, n_pages = (sh[k] for k in ("hkv", "h", "d", "page", "maxp",
+                                                      "n_pages"))
     K = len(lengths)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     lens1 = lens + 1  # the write-free call's lengths, made once: no op of its own in the timing
@@ -578,12 +614,21 @@ def paged_write_case(dev, randn, pool_k, pool_v, lengths):
 def check_paged_kernels(dev, randn):
     """The paged pool's kernel at the serving path's shapes (``PAGED_SHAPE``):
     attention at K 1, 4 and 8 over ``PAGED_LENGTHS``; with the token write
-    folded in, at ``PAGED_WRITE_LENGTHS``."""
+    folded in, at ``PAGED_WRITE_LENGTHS``.  Then Qwen2-7B's group of 7
+    (``PAGED_SHAPE_G7``): attention at K 3 over ragged lengths, and the
+    write folded in at the serving turn's K 3."""
     pool_k, pool_v = paged_pool(randn)
-    results = {"paged_attention": ([paged_attention_case(dev, randn, pool_k, pool_v,
-                                                         PAGED_LENGTHS[:K]) for K in (1, 4, 8)],
-                                   BF16_TOL_TEXT + "; the same bits on a second call")}
+    attn = [paged_attention_case(dev, randn, pool_k, pool_v, PAGED_LENGTHS[:K])
+            for K in (1, 4, 8)]
     cases = [paged_write_case(dev, randn, pool_k, pool_v, n) for n in PAGED_WRITE_LENGTHS]
+    del pool_k, pool_v
+    pool_k, pool_v = paged_pool(randn, PAGED_SHAPE_G7)
+    attn.append(paged_attention_case(dev, randn, pool_k, pool_v, PAGED_LENGTHS[1:4],
+                                     PAGED_SHAPE_G7))
+    cases.append(paged_write_case(dev, randn, pool_k, pool_v, PAGED_WRITE_LENGTHS[0],
+                                  PAGED_SHAPE_G7))
+    del pool_k, pool_v
+    results = {"paged_attention": (attn, BF16_TOL_TEXT + "; the same bits on a second call")}
     for c in cases:
         log("kernel", f"paged_write {c['shape']}: one launch (write + attention) "
                       f"{c['ms']:.4f} ms, the write-free attention {c['write_free_ms']:.4f} "
@@ -818,6 +863,17 @@ INT4_SHAPES = INT8_SHAPES[:4]
 # (the gate's cases run them at B 1, 4 and 8)
 INT4_DECODER_SHAPES = INT8_SHAPES[4:]
 INT4_DECODER_UNFUSED = (INT8_SHAPES[1], INT8_SHAPES[3])
+# the int4 gate at Qwen2-7B's width (hidden 3584, head_dim 112), one token a
+# frame and one a stream of the serving tick
+INT4_QWEN2_GATE = (("qwen2 gate v", 896, 3584), ("qwen2 gate o", 3584, 3584),
+                   ("qwen2 gate gate/up", 14336, 3584), ("qwen2 gate down", 3584, 14336))
+# Mixtral-8x7B's load_4bit="pc" experts, one token's slice of an (E, F, D/2) bank
+INT4_EXPERT_SHAPES = (("mixtral expert gate/up", 14336, 4096),
+                      ("mixtral expert down", 4096, 14336))
+# Qwen2-7B's int8 decoder (load_8bit), fused as the engine serves it; the
+# q/k/v bias is added after the kernel
+INT8_QWEN2_SHAPES = (("qwen2 qkv (fused)", 4608, 3584), ("qwen2 o", 3584, 3584),
+                     ("qwen2 gateup (fused)", 37888, 3584), ("qwen2 down", 3584, 18944))
 
 
 def int4_cases(dev, g, shapes=INT4_SHAPES, dtypes=(torch.bfloat16, torch.float32),
@@ -860,6 +916,49 @@ def int4_cases(dev, g, shapes=INT4_SHAPES, dtypes=(torch.bfloat16, torch.float32
                                  ms_over_bound=ms / b_ms))
             del libs
         del packs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def int4_expert_cases(dev, g, n_experts=8):
+    """int4_matvec on one token against one expert's slice of a Mixtral
+    (E, F, D/2) int4 bank, as the gathered MoE dispatch hands it over: the
+    view ``bank[e]`` itself, no copy.  Each launch takes the next expert's
+    slice (a bank is 235 MB, more than four times the L2, so each reads
+    cold); the yardstick is F.linear on the slice dequantized beforehand."""
+    from streammind_torch.ops.int4_matvec import int4_matvec, int4_matvec_ref
+    from streammind_torch.utils.quantize import (dequantize_linear_weight_int4_pc,
+                                                 quantize_linear_weight_int4_pc)
+
+    rows = []
+    for name, dout, din in INT4_EXPERT_SHAPES:
+        bank = quantize_linear_weight_int4_pc(torch.empty(
+            (n_experts, dout, din), device=dev, dtype=torch.bfloat16).normal_(
+            0.0, 0.02, generator=g))
+        slices = [{k: v[e] for k, v in bank.items()} for e in range(n_experts)]
+        if any(p["w_int4pc"].data_ptr() % 16 or not p["w_int4pc"].is_contiguous()
+               for p in slices):
+            raise RuntimeError(f"{name}: an expert slice is not a contiguous aligned view")
+        libs = [dequantize_linear_weight_int4_pc(p, torch.bfloat16) for p in slices]
+        x = torch.empty((1, din), device=dev, dtype=torch.bfloat16).normal_(generator=g)
+        p0 = slices[1]
+        out = int4_matvec(x, p0["w_int4pc"], p0["scale"])
+        ref = int4_matvec_ref(x, p0["w_int4pc"], p0["scale"])
+        err, over = excess(out, ref, *INT4_TOL)
+        fns = [lambda p=p: int4_matvec(x, p["w_int4pc"], p["scale"]) for p in slices]
+        ms, eager = cuda_ms(fns, graph=True), cuda_ms(fns)
+        plain = cuda_ms([lambda p=p: int4_matvec_ref(x, p["w_int4pc"], p["scale"])
+                         for p in slices], iters=5)
+        lib_fns = [lambda w=w: F.linear(x, w) for w in libs]
+        lib, lib_eager = cuda_ms(lib_fns, graph=True), cuda_ms(lib_fns)
+        b_ms, b_by = bound(dout * din / 2 + 4 * dout + 2 * (din + dout), 2.0 * dout * din,
+                           BF16_FLOPS)
+        rows.append(dict(shape=f"{name}: x(1,{din}) bfloat16 W({dout},{din}/2) int4, bank "
+                               f"({n_experts},{dout},{din}/2)[e]", max_abs_err=err,
+                         ok=over <= 0, ms=ms, eager_ms=eager, plain_ms=plain, library_ms=lib,
+                         library_eager_ms=lib_eager, bound_ms=b_ms, bound_by=b_by,
+                         ms_over_bound=ms / b_ms))
+        del bank, slices, libs
         torch.cuda.empty_cache()
     return rows
 
@@ -937,9 +1036,12 @@ def check_fast_kernels(dev, g):
     and 8, bf16 and fp32 x; the yardstick is F.linear on the weight
     dequantized beforehand into x's dtype.  selective_scan at
     ``SCAN_CASES``."""
-    results = {"int8_matvec": (int8_cases(dev, g), "; ".join(
+    results = {"int8_matvec": (int8_cases(dev, g) + int8_cases(
+        dev, g, shapes=INT8_QWEN2_SHAPES, dtypes=(torch.bfloat16,), batches=(1,)), "; ".join(
         tol_text(INT8_TOL[d], str(d)[6:] + " output") for d in INT8_TOL))}
-    results["selective_scan"] = (scan_cases(dev, g), "y " + "; ".join(
+    # the last case: Qwen2-7B's api clip, the Mamba at d_inner 7168
+    results["selective_scan"] = (scan_cases(dev, g) + scan_cases(
+        dev, g, cases=((torch.bfloat16, 1, 16, False, "time"),), d=7168), "y " + "; ".join(
         tol_text(SCAN_TOL[dt], str(dt)[6:]) for dt in SCAN_TOL) + "; last state "
         + tol_text(SCAN_STATE_TOL, "fp32"))
     return results
@@ -1105,34 +1207,40 @@ def build_engine(dev):
     return engine, g
 
 
-def full_width_session(engine, g, dev):
+def full_width_session(engine, g, dev, tag="session", matvec=None):
+    """10 frames with forced fires on frames 3 and 7, 16 new tokens a turn.
+    ``matvec``: (kernel name, launches a layer of a one-token decode
+    forward) of a quantized decoder (its prefill takes the plain product)."""
     cfg = engine.cfg
-    n_frames, fire = 10, (3, 7)
-    frames = [torch.empty((1, 3, 336, 336), device=dev, dtype=torch.bfloat16).normal_(
+    n_frames, fire, size = 10, (3, 7), cfg.vision.image_size
+    frames = [torch.empty((1, 3, size, size), device=dev, dtype=torch.bfloat16).normal_(
         generator=g) for _ in range(n_frames)]
     torch.cuda.synchronize()
     reset_launches()
-    session, ticks, e2ft = run_session(engine, frames, fire, max_new=16)
+    with DecodeCounter() as dc:
+        session, ticks, e2ft = run_session(engine, frames, fire, max_new=16)
     counts = read_launches()
     turns = len(session.turns)
     n_vit = cfg.vision.num_layers + cfg.vision.select_layer + 1
     expect = {"exact_attention": n_vit * n_frames, "int4_matvec": 5 * cfg.gate.num_layers * n_frames,
               "flash_attention": cfg.text.num_layers * turns, "paged_write": 0,
               "paged_attention": 0, **{n: 0 for n in TRAIN_KERNELS + FAST_KERNELS}}
+    if matvec is not None:
+        expect[matvec[0]] += cfg.text.num_layers * matvec[1] * dc.n
     expect.update({f"{n}_tc": expect[n] for n in TC_KERNELS})  # bf16: every launch
     probs = torch.stack(engine.probs)
     n_tok = sum(len(t) for t in engine.decoded)
     decode_ms_tok = sum(engine.decode_ms) / max(n_tok, 1)
-    log("session", f"frames={n_frames} turns={turns} tokens={[len(t) for t in engine.decoded]} "
-                   f"launches={counts} expected={expect}")
-    log("session", f"tensor-core launches: exact {counts['exact_attention_tc'] / n_frames:g} a "
-                   f"frame, flash {counts['flash_attention_tc'] / max(turns, 1):g} a turn")
-    log("session", f"median tick (silent frames after the first) = "
-                   f"{statistics.median(ticks[1:]):.3f} ms; ticks ms = "
-                   f"{[round(t, 3) for t in ticks]}")
-    log("session", f"event-to-first-token ms = {[round(t, 3) for t in e2ft]}; "
-                   f"decode ms/token = {decode_ms_tok:.3f}")
-    log("session", f"peak device memory = {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(tag, f"frames={n_frames} turns={turns} tokens={[len(t) for t in engine.decoded]} "
+             f"decode forwards={dc.n} launches={counts} expected={expect}")
+    log(tag, f"tensor-core launches: exact {counts['exact_attention_tc'] / n_frames:g} a "
+             f"frame, flash {counts['flash_attention_tc'] / max(turns, 1):g} a turn")
+    log(tag, f"[{CARD}] median tick (silent frames after the first) = "
+             f"{statistics.median(ticks[1:]):.3f} ms; ticks ms = "
+             f"{[round(t, 3) for t in ticks]}")
+    log(tag, f"[{CARD}] event-to-first-token ms = {[round(t, 3) for t in e2ft]}; "
+             f"decode ms/token = {decode_ms_tok:.3f}")
+    log(tag, f"peak device memory = {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if not (torch.isfinite(probs).all() and (probs.sum(-1) - 1).abs().max() < 1e-5):
         raise RuntimeError(f"gate probs not finite or not summing to 1: {probs}")
     if not torch.isfinite(session.state.memory).all():
@@ -1151,12 +1259,16 @@ SERVE_TICKS = 8
 SERVE_FIRES = {3: ("s0", "s1", "s2"), 6: ("s3",)}  # tick -> streams whose gates fire
 
 
-def serving_phase(engine, g, dev):
+def serving_phase(engine, g, dev, ticks=SERVE_TICKS, fires=SERVE_FIRES, tag="serve",
+                  matvec=None):
     """Four client threads submit a frame a tick to one BatchedSessionBroker
-    (paged KV, page 64) for SERVE_TICKS ticks.  The per-stream gate
+    (paged KV, page 64) for ``ticks`` ticks.  The per-stream gate
     threshold, a request knob, is set before each tick: -1 opens a gate, 2
-    keeps it shut, so three streams fire together on one tick and one alone
-    on a later one."""
+    keeps it shut, so the streams of ``fires[t]`` fire together on tick t
+    (by default three on one tick and one alone on a later one).
+    ``matvec``: (kernel name, launches a layer of a lockstep step of K rows
+    as a function of K) of a quantized decoder; the decoder's prefill runs
+    more than 8 tokens, which take the plain product."""
     import threading
 
     from streammind_torch.serve import BatchedSessionBroker
@@ -1183,12 +1295,12 @@ def serving_phase(engine, g, dev):
                    gate_threshold=2.0)
     size = cfg.vision.image_size
     frames = {sid: [torch.empty((1, 3, size, size), device=dev, dtype=torch.bfloat16).normal_(
-        generator=g) for _ in range(SERVE_TICKS)] for sid in sids}
+        generator=g) for _ in range(ticks)] for sid in sids}
     results = {sid: [] for sid in sids}
     start, done = threading.Barrier(len(sids) + 1), threading.Barrier(len(sids) + 1)
 
     def client(sid):
-        for t in range(SERVE_TICKS):
+        for t in range(ticks):
             start.wait()
             results[sid].append(broker.submit(sid, frames[sid][t], timeout=600))
             done.wait()
@@ -1199,9 +1311,9 @@ def serving_phase(engine, g, dev):
     try:
         for th in threads:
             th.start()
-        for t in range(SERVE_TICKS):
+        for t in range(ticks):
             for slot in srv.slots:
-                slot.gate_threshold = -1.0 if slot.stream_id in SERVE_FIRES.get(t, ()) else 2.0
+                slot.gate_threshold = -1.0 if slot.stream_id in fires.get(t, ()) else 2.0
             start.wait(timeout=600)
             done.wait(timeout=600)
         for th in threads:
@@ -1214,54 +1326,57 @@ def serving_phase(engine, g, dev):
     n_vit = cfg.vision.num_layers + cfg.vision.select_layer + 1
     L = cfg.text.num_layers
     steps = pd.steps
-    expect = {"exact_attention": n_vit * SERVE_TICKS,
-              "int4_matvec": 5 * cfg.gate.num_layers * SERVE_TICKS,
+    expect = {"exact_attention": n_vit * ticks,
+              "int4_matvec": 5 * cfg.gate.num_layers * ticks,
               "flash_attention": L * len(pd.decodes), "paged_write": L * steps,
               "paged_attention": L * steps, **{n: 0 for n in TRAIN_KERNELS + FAST_KERNELS}}
+    if matvec is not None:
+        expect[matvec[0]] += sum(L * matvec[1](d["k"]) * d["steps"] for d in pd.decodes)
     expect.update({f"{n}_tc": expect[n] for n in TC_KERNELS})
-    ticks = srv.tick_log
-    log("serve", f"ticks={broker.ticks} frames={broker.frames_seen} fired per tick="
-                 f"{[t['fired'] for t in ticks]}")
-    log("serve", f"lockstep turns (K, steps, ms, first step's attention lengths) = "
-                 f"{[(d['k'], d['steps'], round(d['ms'], 3), d['attn_lengths']) for d in pd.decodes]}; "
-                 f"launches={counts} expected={expect}")
-    log("serve", f"tensor-core launches: exact {counts['exact_attention_tc'] / SERVE_TICKS:g} a "
-                 f"tick, flash {counts['flash_attention_tc'] / len(pd.decodes):g} a batched prefill")
-    silent = [t["ms"] for t in ticks[1:] if not t["fired"]]
-    fire_ticks = [t for t in ticks if t["fired"]]
+    tick_log = srv.tick_log
+    log(tag, f"ticks={broker.ticks} frames={broker.frames_seen} fired per tick="
+             f"{[t['fired'] for t in tick_log]}")
+    log(tag, f"lockstep turns (K, steps, ms, first step's attention lengths) = "
+             f"{[(d['k'], d['steps'], round(d['ms'], 3), d['attn_lengths']) for d in pd.decodes]}; "
+             f"launches={counts} expected={expect}")
+    log(tag, f"tensor-core launches: exact {counts['exact_attention_tc'] / ticks:g} a "
+             f"tick, flash {counts['flash_attention_tc'] / len(pd.decodes):g} a batched prefill")
+    silent = [t["ms"] for t in tick_log[1:] if not t["fired"]]
+    fire_ticks = [t for t in tick_log if t["fired"]]
     per_step = {d["k"]: d["ms"] / max(d["steps"], 1) for d in pd.decodes}
-    log("serve", f"median silent tick at S=4 (after the first) = "
-                 f"{statistics.median(silent):.3f} ms; ticks ms = "
-                 f"{[round(t['ms'], 3) for t in ticks]}")
-    log("serve", f"event-to-first-token ms = "
-                 f"{[(t['fired'], [round(x, 3) for x in t['first_token_ms']]) for t in fire_ticks]}"
-                 f"; decode ms per lockstep step = "
-                 f"{ {k: round(v, 3) for k, v in per_step.items()} }")
-    log("serve", f"peak device memory = {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(tag, f"[{CARD}] median silent tick at S=4 (after the first) = "
+             f"{statistics.median(silent):.3f} ms; ticks ms = "
+             f"{[round(t['ms'], 3) for t in tick_log]}")
+    log(tag, f"[{CARD}] event-to-first-token ms = "
+             f"{[(t['fired'], [round(x, 3) for x in t['first_token_ms']]) for t in fire_ticks]}"
+             f"; decode ms per lockstep step = "
+             f"{ {k: round(v, 3) for k, v in per_step.items()} }")
+    log(tag, f"peak device memory = {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     errors = [r for rs in results.values() for r in rs if "error" in r]
     if errors:
         raise RuntimeError(f"ticks failed inside the broker: {errors}")
     for sid, rs in results.items():
-        want = [sid in SERVE_FIRES.get(t, ()) for t in range(SERVE_TICKS)]
-        if len(rs) != SERVE_TICKS or [r["fire"] for r in rs] != want:
+        want = [sid in fires.get(t, ()) for t in range(ticks)]
+        if len(rs) != ticks or [r["fire"] for r in rs] != want:
             raise RuntimeError(f"{sid}: fires {[r['fire'] for r in rs]}, expected {want}")
         if any(r["fire"] != isinstance(r["text"], str) for r in rs):
             raise RuntimeError(f"{sid}: an utterance is missing or a silence spoke: {rs}")
-        if [r["frame_idx"] for r in rs] != list(range(1, SERVE_TICKS + 1)):
+        if [r["frame_idx"] for r in rs] != list(range(1, ticks + 1)):
             raise RuntimeError(f"{sid}: frame indices {[r['frame_idx'] for r in rs]}")
-    if broker.ticks != SERVE_TICKS or [d["k"] for d in pd.decodes] != [3, 1]:
-        raise RuntimeError(f"expected {SERVE_TICKS} ticks with one K=3 and one K=1 turn, got "
+    want_k = [len(fires[t]) for t in sorted(fires)]
+    if broker.ticks != ticks or [d["k"] for d in pd.decodes] != want_k:
+        raise RuntimeError(f"expected {ticks} ticks with turns of K {want_k}, got "
                            f"{broker.ticks} ticks and turns {pd.decodes}")
     if counts != expect or not all(counts[n] for n in counts
                                    if kernel_of(n) not in TRAIN_KERNELS + FAST_KERNELS):
         raise RuntimeError(f"launch counts {counts} differ from the path's {expect}")
     # the token write has no launch of its own: every paged attention launch
     # wrote its step's token, one a layer a step
-    log("serve", f"paged decode: {counts['paged_attention']} launches in {steps} lockstep steps "
-                 f"({counts['paged_attention'] / max(steps, 1):g} a step), "
-                 f"{counts['paged_write']} of them writing the step's token; no separate write "
-                 f"kernel")
-    probs = torch.cat(engine.probs[-SERVE_TICKS:])
+    log(tag, f"paged decode: {counts['paged_attention']} launches in {steps} lockstep steps "
+             f"({counts['paged_attention'] / max(steps, 1):g} a step), "
+             f"{counts['paged_write']} of them writing the step's token; no separate write "
+             f"kernel")
+    probs = torch.cat(engine.probs[-ticks:])
     if not (torch.isfinite(probs).all() and (probs.sum(-1) - 1).abs().max() < 1e-5):
         raise RuntimeError(f"gate probs not finite or not summing to 1: {probs}")
     attn_lengths = {d["k"]: d["attn_lengths"] for d in pd.decodes}
@@ -3274,6 +3389,424 @@ def eval_parity(dev):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# phases 18-20: StreamMind over the Qwen2-7B and Mixtral-8x7B decoders
+# ---------------------------------------------------------------------------
+# the published config.json of Qwen/Qwen2-7B-Instruct ("use_sliding_window"
+# is false there: full causal attention, as the port runs)
+QWEN2_7B_HF = {"model_type": "qwen2", "hidden_size": 3584, "intermediate_size": 18944,
+               "num_hidden_layers": 28, "num_attention_heads": 28, "num_key_value_heads": 4,
+               "vocab_size": 152064, "rope_theta": 1000000.0, "rms_norm_eps": 1e-6,
+               "max_position_embeddings": 32768, "tie_word_embeddings": False}
+# the published config.json of mistralai/Mixtral-8x7B-v0.1
+MIXTRAL_8X7B_HF = {"model_type": "mixtral", "hidden_size": 4096, "intermediate_size": 14336,
+                   "num_hidden_layers": 32, "num_attention_heads": 32, "num_key_value_heads": 8,
+                   "vocab_size": 32000, "rope_theta": 1000000.0, "rms_norm_eps": 1e-5,
+                   "max_position_embeddings": 32768, "tie_word_embeddings": False,
+                   "num_local_experts": 8, "num_experts_per_tok": 2}
+# the serving turn of both: three streams of four fire together on tick 1
+DECODER_SERVE_TICKS = 3
+DECODER_SERVE_FIRES = {1: ("s0", "s1", "s2")}
+# the gathered MoE dispatch against the dense one on one decode step's input
+# at layer 0 (bf16, int4 slices): the dense form adds the unrouted experts'
+# exact zeros, so the two differ by the order of two bf16 additions at most
+MOE_DISPATCH_TOL = BF16_TOL
+MOE_DISPATCH_TOL_TEXT = BF16_TOL_TEXT
+
+
+def decoder_config(hf: dict):
+    """StreamMind over the decoder of an HF config.json: the decoder from
+    ``text_config_from_hf``, the gate LM and the Mamba projector at its
+    width (``api._load_config`` sets the gate's; the Mamba's it leaves at
+    4096, which the port refuses for another width)."""
+    from streammind_torch.config import StreamMindConfig, text_config_from_hf
+
+    base = StreamMindConfig()
+    text = text_config_from_hf(hf)
+    return base.replace(
+        text=text, mamba=dataclasses.replace(base.mamba, d_model=text.hidden_size),
+        gate=dataclasses.replace(base.gate, hidden_size=text.hidden_size,
+                                 head_dim=text.hidden_size // base.gate.num_heads))
+
+
+def require_freed(tag: str, limit_gb: float = 2.0) -> None:
+    """The models before this one must be gone from the card: collect the
+    reference cycles that hold them (threads, servers, sessions), then
+    raise if more than ``limit_gb`` is still allocated, naming the largest
+    tensors left and what holds them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    log(tag, f"device memory allocated before the build: {held:.2f} GB")
+    if held > limit_gb:
+        alive = sorted((o for o in gc.get_objects() if torch.is_tensor(o) and o.is_cuda),
+                       key=lambda t: -t.numel() * t.element_size())[:3]
+        holders = [[type(r).__name__ + (f"{sorted(r)[:6]}" if isinstance(r, dict) else "")
+                    for r in gc.get_referrers(t)][:4] for t in alive]
+        raise RuntimeError(f"{tag}: {held:.2f} GB still allocated from earlier phases; the "
+                           f"largest tensors {[tuple(t.shape) for t in alive]} held by {holders}")
+
+
+def add_counts(*runs: dict) -> dict:
+    return {n: sum(r[n] for r in runs) for n in runs[0]}
+
+
+def peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def qwen2_phase(dev):
+    """StreamMind over Qwen2-7B at full width (bf16, random weights from a
+    seed; ViT-L/14-336 under "exact", the Mamba at d_model 3584, the int4
+    gate at hidden 3584 and head_dim 112): the 10-frame session, the paged
+    broker's K = 3 turn on the same engine, ``api.model_init`` by a Qwen2
+    model name (the "qwen" template) and ``infer`` on API_FRAMES frames
+    with API_NEW tokens, then one turn of the decoder through
+    ``load_8bit``.  Exact launch counts in each."""
+    from streammind_torch import api
+    from streammind_torch.models.meta import init_streammind_params
+    from streammind_torch.utils.params import param_bytes, param_count
+
+    cfg = decoder_config(QWEN2_7B_HF)
+    L, n_vit = cfg.text.num_layers, cfg.vision.num_layers + cfg.vision.select_layer + 1
+    require_freed("qwen2")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(13)
+    params = init_streammind_params(g, cfg, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log("qwen2", f"StreamMind over Qwen2-7B, bf16: decoder {param_count(params['text'])} "
+                 f"parameters ({param_bytes(params['text']) / 1e9:.2f} GB, q/k/v biases), "
+                 f"the whole tree {param_bytes(params) / 1e9:.2f} GB, built in "
+                 f"{time.perf_counter() - t0:.1f} s; gate hidden {cfg.gate.hidden_size} head_dim "
+                 f"{cfg.gate.head_dim}, Mamba d_inner {cfg.mamba.d_inner}; peak {peak_gb():.2f} GB")
+    engine = make_engine_class()(params, cfg, attn_impl="exact", quantize_gate="int4",
+                                 device=dev)
+    del params
+    # the gate LM's head_dim 112 has no flash kernel (D 64 or 128): serving
+    # reaches the gate only through its single-token shortcut, and a flash
+    # call at D 112 on the card raises rather than take the plain version
+    from streammind_torch.ops.attention import flash_attention
+
+    q = torch.zeros((1, 2, cfg.gate.num_heads, cfg.gate.head_dim), device=dev,
+                    dtype=torch.bfloat16)
+    try:
+        flash_attention(q, q[:, :, :cfg.gate.num_kv_heads], q[:, :, :cfg.gate.num_kv_heads],
+                        causal=True)
+    except ValueError as e:
+        log("qwen2", f"flash_attention at the gate's head_dim {cfg.gate.head_dim} raises: {e}")
+    else:
+        raise RuntimeError(f"flash_attention took head_dim {cfg.gate.head_dim}")
+    torch.cuda.reset_peak_memory_stats()
+    session = full_width_session(engine, g, dev, tag="qwen2")
+    serving = serving_phase(engine, g, dev, ticks=DECODER_SERVE_TICKS, fires=DECODER_SERVE_FIRES,
+                            tag="qwen2")
+
+    tok = StandInTokenizer()
+    model, _, _, version = api.model_init(model_name="StreamMind-Qwen2-7B", params=engine.params,
+                                          cfg=cfg, tokenizer=tok, vit_attn="exact", device=dev)
+    if version != "qwen":
+        raise RuntimeError(f"model_init picked the {version!r} template for a Qwen2 model name")
+    size = cfg.vision.image_size
+    video = torch.empty((API_FRAMES, 3, size, size), device=dev, dtype=torch.bfloat16).normal_(
+        generator=g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    text, infer_ms, forwards = timed(lambda: api.infer(model, video, QUESTION, tok,
+                                                       version=version, max_new_tokens=API_NEW))
+    api_counts = read_launches()
+    expect = {n: 0 for n in api_counts}
+    expect.update(flash_attention=L, flash_attention_tc=L, selective_scan=cfg.mamba.n_layers)
+    log("qwen2", f"[{CARD}] api.infer ({API_FRAMES} frames, the qwen template, {API_NEW} new "
+                 f"tokens at most): {infer_ms:.3f} ms wall, {forwards} one-token forwards, "
+                 f"{len(text.split())} ids; launches {api_counts} expected {expect}; peak "
+                 f"{peak_gb():.2f} GB")
+    check_counts("qwen2 infer", api_counts, expect)
+    del model, video
+
+    # the int8 decoder: model_init(load_8bit=True) quantizes the engine's bf16
+    # decoder leaf by leaf (free_source), so it is not resident twice
+    params = dict(engine.params)
+    del engine
+    torch.cuda.reset_peak_memory_stats()
+    m8, _, _, _ = api.model_init(model_name="StreamMind-Qwen2-7B", params=params, cfg=cfg,
+                                 tokenizer=tok, vit_attn="exact", load_8bit=True, device=dev)
+    del params
+    eng8 = m8.engine
+    eng8.__class__ = make_engine_class()
+    eng8.probs, eng8.prefill_logits, eng8.decoded, eng8.decode_ms = [], [], [], []
+    layers = eng8.params["text"]["layers"]
+    if not ("w_int8" in layers["qkv"] and "bias" in layers["qkv"]):
+        raise RuntimeError(f"the int8 decoder's fused qkv is {sorted(layers['qkv'])}")
+    frames = [torch.empty((1, 3, size, size), device=dev, dtype=torch.bfloat16).normal_(
+        generator=g) for _ in range(2)]
+    torch.cuda.synchronize()
+    reset_launches()
+    with DecodeCounter() as dc:
+        s8, _, e2ft8 = run_session(eng8, frames, (1,), max_new=16)
+    int8_counts = read_launches()
+    expect8 = {n: 0 for n in int8_counts}
+    expect8.update(exact_attention=n_vit * 2, exact_attention_tc=n_vit * 2,
+                   int4_matvec=5 * cfg.gate.num_layers * 2, flash_attention=L,
+                   flash_attention_tc=L, int8_matvec=4 * L * dc.n)
+    n_tok = sum(len(t) for t in eng8.decoded)
+    int8_ms_tok = sum(eng8.decode_ms) / max(n_tok, 1)
+    log("qwen2", f"[{CARD}] int8 decoder (load_8bit, {param_bytes(eng8.params['text']) / 1e9:.2f} "
+                 f"GB): one turn, event-to-first-token {e2ft8[0]:.3f} ms, {n_tok} tokens, decode "
+                 f"{int8_ms_tok:.3f} ms/token; launches {int8_counts} expected {expect8} (4 int8 "
+                 f"a layer of a one-token forward: qkv with its bias after, o, gateup, down); "
+                 f"peak {peak_gb():.2f} GB")
+    check_counts("qwen2 int8", int8_counts, expect8)
+    if len(s8.turns) != 1 or not all(0 <= t < cfg.text.vocab_size for t in eng8.decoded[0]):
+        raise RuntimeError(f"the int8 turn gave {eng8.decoded}")
+    del m8, eng8, s8, layers, frames
+    torch.cuda.empty_cache()
+    launches = add_counts(session["launches"], serving["launches"], api_counts, int8_counts)
+    return dict(session=session, serving=serving, infer_ms=infer_ms,
+                int8_decode_ms_per_token=int8_ms_tok, int8_event_to_first_token_ms=e2ft8[0],
+                launches=launches)
+
+
+class ExpertTally:
+    """While installed, counts how often each expert is chosen at each layer
+    by the gathered MoE dispatch (the decode steps, at most 4 tokens: every
+    layer of a forward takes it, so its calls come in layer order), and
+    keeps the inputs of its first call at layer 0."""
+
+    def __init__(self, layers: int, experts: int):
+        from streammind_torch.models import mistral
+
+        self.mod, self.orig = mistral, mistral._moe_apply_gathered
+        self.counts = torch.zeros((layers, experts), dtype=torch.long)
+        self.calls, self.sample = 0, None
+
+    def __enter__(self):
+        def counted(xt, banks, cfg, topi, topw):
+            layer = self.calls % self.counts.shape[0]
+            self.calls += 1
+            self.counts[layer] += torch.bincount(topi.reshape(-1).cpu(),
+                                                 minlength=self.counts.shape[1])
+            if self.sample is None and layer == 0:
+                self.sample = (xt.clone(), banks, topi.clone(), topw.clone())
+            return self.orig(xt, banks, cfg, topi, topw)
+
+        self.mod._moe_apply_gathered = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._moe_apply_gathered = self.orig
+
+
+def build_mixtral(cfg, dev, seed: int):
+    """StreamMind over Mixtral-8x7B with its decoder at load_4bit="pc" (int4
+    per channel): vision and projector in bf16, the decoder drawn one
+    layer at a time in bf16 and quantized (``quantize_text_params(...,
+    free_source=True)``) before the next is drawn, so at most one layer's
+    bf16 banks (2.8 GB) live at once beside the 24 GB int4 tree."""
+    from streammind_torch.models.meta import init_projector
+    from streammind_torch.models.mistral import init_text_params
+    from streammind_torch.models.vit import init_vit_params
+    from streammind_torch.utils.quantize import quantize_text_params
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(device=dev, dtype=torch.bfloat16)
+    params = {"vision": init_vit_params(g, cfg.vision, **kw),
+              "projector": init_projector(g, cfg, **kw)}
+    params["text"] = init_text_params(g, cfg.text, layer_fn=lambda layer: quantize_text_params(
+        {"layers": layer}, bits=4, free_source=True, scheme="pc")["layers"], **kw)
+    return params, g
+
+
+def mixtral_phase(dev):
+    """StreamMind over Mixtral-8x7B at full width, its decoder at int4 "pc"
+    (built by ``build_mixtral``; 93 GB in bf16 would not fit the card): the
+    10-frame session and the paged broker's K = 3 turn, through the int4
+    kernel at every one-token or lockstep step (the fused qkv, o, and each
+    token's two experts' gate, up and down slices); a per-layer tally of the
+    experts chosen over the decoded tokens, every expert chosen somewhere;
+    and on one decode step's input at layer 0, the gathered dispatch
+    against the dense one."""
+    from streammind_torch.models import mistral as lm
+    from streammind_torch.utils.params import param_bytes, param_count
+
+    cfg = decoder_config(MIXTRAL_8X7B_HF)
+    L, E, k = cfg.text.num_layers, cfg.text.num_experts, cfg.text.num_experts_per_tok
+    require_freed("mixtral")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, g = build_mixtral(cfg, dev, 17)
+    torch.cuda.synchronize()
+    text = params["text"]
+    experts_gb = param_bytes(text["layers"]["experts"]) / 1e9
+    log("mixtral", f"StreamMind over Mixtral-8x7B, decoder int4 per channel: "
+                   f"{param_bytes(text) / 1e9:.2f} GB ({experts_gb:.2f} GB expert banks, "
+                   f"{param_count(text)} stored elements), the whole tree "
+                   f"{param_bytes(params) / 1e9:.2f} GB, built one layer's bf16 banks at a time "
+                   f"in {time.perf_counter() - t0:.1f} s; peak device memory during the build "
+                   f"{peak_gb():.2f} GB")
+    engine = make_engine_class()(params, cfg, attn_impl="exact", quantize_gate="int4",
+                                 device=dev)
+    del params, text
+    torch.cuda.reset_peak_memory_stats()
+    per_token = 2 + 3 * k  # a layer: fused qkv, o, and k experts' gate, up, down
+    with ExpertTally(L, E) as tally:
+        session = full_width_session(engine, g, dev, tag="mixtral",
+                                     matvec=("int4_matvec", per_token))
+        serving = serving_phase(engine, g, dev, ticks=DECODER_SERVE_TICKS,
+                                fires=DECODER_SERVE_FIRES, tag="mixtral",
+                                matvec=("int4_matvec", lambda rows: 2 + 3 * k * rows))
+    chosen = tally.counts
+    log("mixtral", f"experts chosen at each layer over the decoded tokens ({tally.calls} gathered "
+                   f"calls, {int(chosen.sum()) // k} token-layers): "
+                   f"{[row.tolist() for row in chosen]}")
+    log("mixtral", f"experts chosen over all layers: {chosen.sum(0).tolist()}; never chosen at a "
+                   f"layer: {int((chosen == 0).sum())} of {L * E}")
+    if (chosen.sum(0) == 0).any():
+        raise RuntimeError(f"an expert was never chosen: {chosen.sum(0).tolist()}")
+    xt, banks, topi, topw = tally.sample
+    gathered = lm._moe_apply_gathered(xt, banks, cfg.text, topi, topw)
+    dense = lm._moe_apply_dense(xt, banks, cfg.text, topi, topw)
+    err, over = excess(gathered, dense, *MOE_DISPATCH_TOL)
+    log("mixtral", f"gathered vs dense dispatch on one decode step's input at layer 0 "
+                   f"({tuple(xt.shape)}, experts {topi.tolist()}): max |diff| = {err:.3e} within "
+                   f"[{MOE_DISPATCH_TOL_TEXT}]={over <= 0}")
+    if over > 0 or not torch.isfinite(gathered).all():
+        raise RuntimeError("the gathered and dense MoE dispatches disagree")
+    # what a prefill pays for the dense dispatch over int4 banks: all E experts
+    # through linear at the session's first bucket, each weight dequantized
+    # to bf16 first (more than 8 tokens take no matvec kernel)
+    router = engine.params["text"]["layers"]["router"]["weight"][0]
+    x64 = torch.empty((64, cfg.text.hidden_size), device=dev, dtype=torch.bfloat16).normal_(
+        generator=g)
+    w64, i64 = lm.router_top_k(torch.softmax((x64 @ router.T).float(), dim=-1), k)
+    w64 = w64 / w64.sum(dim=-1, keepdim=True)
+    dense_ms = cuda_ms([lambda: lm._moe_apply_dense(x64, banks, cfg.text, i64, w64)], iters=5,
+                       warmup=1)
+    log("mixtral", f"[{CARD}] the dense dispatch over the int4 banks at 64 tokens: {dense_ms:.3f} "
+                   f"ms a layer ({3 * E} dequantized weights), {dense_ms * L:.1f} ms over "
+                   f"{L} layers of a prefill (the session's first-token times above)")
+    del engine, tally, xt, banks, gathered, dense, x64
+    torch.cuda.empty_cache()
+    return dict(session=session, serving=serving, experts_chosen=chosen.tolist(),
+                dispatch_err=err, dense_dispatch_ms=dense_ms,
+                launches=add_counts(session["launches"], serving["launches"]))
+
+
+# about ten times the largest errors measured on an H100 with TF32 off over
+# the two decoders (probs 9.5e-7, memory 1.42e-6, logits 1.84e-5), as the
+# other parity phases' limits were set; TF32 on measured 1.6e-4, 5.6e-4
+# and 7.7e-3
+DECODERS_PARITY_TOL = {"probs": 1e-5, "memory": 1.5e-5, "logits": 2e-4}
+# the three MoE dispatches against each other in fp32 on the card: the same
+# products, summed in another order
+DISPATCH_PARITY_TOL = (1e-5, 1e-5)
+
+
+def parity_depth(cfg):
+    return cfg.replace(vision=dataclasses.replace(cfg.vision, num_layers=3),
+                       text=dataclasses.replace(cfg.text, num_layers=2),
+                       gate=dataclasses.replace(cfg.gate, num_layers=2))
+
+
+def moe_dispatch_parity(params, cfg, dev):
+    """Mixtral's gathered, dense and grouped dispatches against each other on
+    the card in fp32, at layer 0 of the parity tree: 4 rows (all three) and
+    12 rows (dense and grouped)."""
+    from streammind_torch.models import mistral as lm
+    from streammind_torch.utils.params import layer_slice
+
+    lp = layer_slice(params["layers"], 0)
+    xt = torch.randn((12, cfg.hidden_size), generator=torch.Generator().manual_seed(7)).to(dev)
+    probs = torch.softmax((xt @ lp["router"]["weight"].T).float(), dim=-1)
+    topw, topi = lm.router_top_k(probs, cfg.num_experts_per_tok)
+    topw = topw / topw.sum(dim=-1, keepdim=True)
+    banks = tuple({"weight": lp["experts"][n]} for n in ("gate", "up", "down"))
+    dense = lm._moe_apply_dense(xt, banks, cfg, topi, topw)
+    grouped = lm._moe_apply_grouped(xt, lp["experts"], cfg, topi, topw)
+    gathered = lm._moe_apply_gathered(xt[:4], banks, cfg, topi[:4], topw[:4])
+    pairs = {"gathered-dense": (gathered, dense[:4]), "gathered-grouped": (gathered, grouped[:4]),
+             "grouped-dense": (grouped, dense)}
+    return {name: excess(a, b, *DISPATCH_PARITY_TOL) for name, (a, b) in pairs.items()}
+
+
+def decoders_parity(dev):
+    """Qwen2-7B and Mixtral-8x7B (all 8 experts) in fp32 at their published
+    widths, depth cut (vision 3, text 2, gate 2 layers): the same seeded
+    tree and frames through the plain versions on the CPU and the kernels
+    on the card (TF32 off), then on the card with TF32 on, which must break
+    a limit.  Held equal: the forced fires, the gate's decisions at a
+    threshold between the CPU run's probabilities, and the greedy tokens;
+    within limits: the gate probabilities, the memory ring and the prefill
+    logits.  For Mixtral, the three MoE dispatches against each other."""
+    from streammind_torch.models.meta import init_streammind_params
+
+    require_freed("parity")
+    Engine = make_engine_class()
+    errs, controls, dispatch = {}, {}, {}
+    for name, hf, seed in (("qwen2", QWEN2_7B_HF, 31), ("mixtral", MIXTRAL_8X7B_HF, 33)):
+        cfg = parity_depth(decoder_config(hf))
+        t0 = time.perf_counter()
+        params = init_streammind_params(torch.Generator().manual_seed(seed), cfg, device="cpu")
+        rng = torch.Generator().manual_seed(seed + 1)
+        size = cfg.vision.image_size
+        frames = [torch.randn((1, 3, size, size), generator=rng) for _ in range(4)]
+        fire = (1, 3)
+        out = {}
+        for run, where, tf32 in (("cpu", "cpu", False), ("card", dev, False),
+                                 ("card_tf32", dev, True)):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+            eng = Engine(params, cfg, attn_impl="exact", quantize_gate="int4", kv_capacity=1024,
+                         device=where)
+            reset_launches()
+            session, _, _ = run_session(eng, [f.to(where) for f in frames], fire, max_new=8)
+            counts = read_launches()
+            out[run] = dict(probs=torch.stack(eng.probs), memory=session.state.memory[0, :4].cpu(),
+                            logits=torch.cat(eng.prefill_logits), tokens=eng.decoded,
+                            turns=len(session.turns))
+            if where != "cpu":
+                fp32_only(counts, f"{name}_parity")
+                if not all(counts[n] for n in ("exact_attention", "flash_attention",
+                                               "int4_matvec")):
+                    raise RuntimeError(f"{name}: the card's session missed a kernel: {counts}")
+                if run == "card" and name == "mixtral":
+                    dispatch = moe_dispatch_parity(eng.params["text"], cfg.text, where)
+            del eng, session
+            torch.cuda.empty_cache()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        c = out["cpu"]
+        # the threshold halfway across the widest gap between the CPU run's
+        # sorted fire probabilities, so a decision flips only for an error
+        # of half that gap
+        p1 = c["probs"][:, 1].sort().values
+        gap = int((p1[1:] - p1[:-1]).argmax())
+        thr = float(p1[gap] + p1[gap + 1]) / 2
+        decisions = {run: (o["probs"][:, 1] > thr).tolist() for run, o in out.items()}
+        tol = DECODERS_PARITY_TOL
+        errs[name], controls[name] = ({k: float((c[k] - out[run][k]).abs().max()) for k in tol}
+                                      for run in ("card", "card_tf32"))
+        log("parity", f"{name}: depth vit3/gate2/text2 at published widths, fp32 "
+                      f"({time.perf_counter() - t0:.1f} s): max |cpu - card| = {errs[name]}, "
+                      f"tolerance {tol}; fires {c['turns']}/{out['card']['turns']}, gate decisions "
+                      f"at {thr:.6f} equal: {decisions['cpu'] == decisions['card']}, greedy tokens "
+                      f"equal: {c['tokens'] == out['card']['tokens']}")
+        log("parity", f"{name}: control, TF32 on: max |cpu - card| = {controls[name]}; over the "
+                      f"tolerance: {[k for k in tol if controls[name][k] > tol[k]]}")
+        if (any(errs[name][k] > tol[k] for k in tol) or c["tokens"] != out["card"]["tokens"]
+                or c["turns"] != out["card"]["turns"] or decisions["cpu"] != decisions["card"]):
+            raise RuntimeError(f"{name}: CPU (plain versions) and card (kernels) disagree")
+        if not any(controls[name][k] > tol[k] for k in tol):
+            raise RuntimeError(f"{name}: the parity limits do not see TF32 matmuls on the card")
+        del params, out
+    log("parity", f"mixtral: MoE dispatches on the card, fp32, layer 0: (max |diff|, excess over "
+                  f"[{tol_text(DISPATCH_PARITY_TOL, 'fp32')}]) = {dispatch}")
+    if not dispatch or any(over > 0 for _, over in dispatch.values()):
+        raise RuntimeError(f"the MoE dispatches disagree: {dispatch}")
+    return dict(errs=errs, controls=controls, dispatch=dispatch)
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "streammind_torch" / "__init__.py").exists():
@@ -3325,6 +3858,9 @@ def main() -> int:
     evaluation = run("eval", eval_phase, model, tok, processor, dev)
     del engine, model
     torch.cuda.empty_cache()
+    qwen2 = run("qwen2", qwen2_phase, dev)
+    mixtral = run("mixtral", mixtral_phase, dev)
+    run("decoders_parity", decoders_parity, dev)
     kernels["paged_attention"][0].append(check_paged_serving_case(dev, serving["attn_lengths"][3]))
     fast = run("fast", fast_phase, dev)
     run("fast_parity", fast_parity, dev)
@@ -3357,7 +3893,9 @@ def main() -> int:
                               "api": api_run["launches"][name],
                               "worker": worker["launches"][name],
                               "eval": evaluation["launches"][name],
-                              "qlora": qlora["launches"][name]},
+                              "qlora": qlora["launches"][name],
+                              "qwen2": qwen2["launches"][name],
+                              "mixtral": mixtral["launches"][name]},
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"],
@@ -3372,7 +3910,8 @@ def main() -> int:
                 tc_launches_by_path={p: r["launches"][f"{name}_tc"] for p, r in (
                     ("session", session), ("serving", serving), ("fast", fast),
                     ("train", training), ("api", api_run), ("worker", worker),
-                    ("eval", evaluation), ("qlora", qlora))},
+                    ("eval", evaluation), ("qlora", qlora), ("qwen2", qwen2),
+                    ("mixtral", mixtral))},
                 hgmma=hgmma[src.split("/")[-1][:-3]], ms_over_bound=head["ms_over_bound"],
                 timing="CUDA graph replay (device time); eager_ms in cases")
     print(json.dumps({"kernels": entries}), flush=True)

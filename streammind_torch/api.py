@@ -113,11 +113,14 @@ def model_init(
     The tokenizer comes from ``transformers`` when it is installed and the
     checkpoint holds one; otherwise it is None (pass ``tokenizer=``).  The
     version (conversation template) follows the model name: "v1" for
-    vicuna, "qwen" for qwen, else "llama_2"."""
+    vicuna, "qwen" for qwen, else "llama_2".  The decoder may be Mistral,
+    Qwen2 or Mixtral (``load_8bit`` / ``load_4bit`` quantize Mixtral's
+    expert banks too).  A config whose Mamba width differs from the
+    decoder's is refused before anything is built (``ValueError``)."""
     model_name = model_name or get_model_name_from_path(model_path or "StreamMind-7B")
     if cfg is None:
         cfg = _load_config(model_path) if model_path else StreamMindConfig()
-    lm.require_dense_decoder(cfg.text)
+    proj_mod.check_mamba_width(cfg)
 
     if params is None:
         g = torch.Generator(device=device).manual_seed(seed)

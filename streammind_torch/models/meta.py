@@ -23,6 +23,7 @@ def init_streammind_params(g: torch.Generator, cfg: StreamMindConfig, device="cu
                            dtype=torch.float32):
     """Random full model weights made directly on ``device`` from the
     generator ``g`` (which must live on that device)."""
+    proj.check_mamba_width(cfg)
     kw = dict(device=device, dtype=dtype)
     return {
         "vision": init_vit_params(g, cfg.vision, **kw),

@@ -22,10 +22,25 @@ from . import mistral as lm
 from .mamba import MambaState, init_video_mamba_params, video_mamba_forward, video_mamba_step
 
 
+def check_mamba_width(cfg: StreamMindConfig) -> None:
+    """The Mamba projector runs at the decoder's width (pre_net maps the
+    vision features to ``text.hidden_size``, which the Mamba's in_proj
+    takes).  Raise ``ValueError`` where ``mamba.d_model`` differs: an
+    HF config.json of another width (Qwen2-7B's 3584) gives such a config
+    through ``api._load_config``, as in the JAX package, which fails later
+    on a shape."""
+    if cfg.mm_projector_type == "mamba" and cfg.mamba.d_model != cfg.text.hidden_size:
+        raise ValueError(
+            f"the Mamba projector's d_model {cfg.mamba.d_model} differs from the decoder's "
+            f"hidden_size {cfg.text.hidden_size}; set cfg.mamba.d_model = "
+            f"{cfg.text.hidden_size}")
+
+
 def init_projector_params(g: torch.Generator, cfg: StreamMindConfig, device="cuda",
                           dtype=torch.float32):
     if cfg.mm_projector_type != "mamba":
         raise NotImplementedError(f"projector type {cfg.mm_projector_type!r} is not ported")
+    check_mamba_width(cfg)
     d_in, d_out = cfg.mm_hidden_size, cfg.text.hidden_size
     kw = dict(device=device, dtype=dtype)
     return {

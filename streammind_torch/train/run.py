@@ -102,8 +102,12 @@ def copy_decoder_layers_into_gate(params, cfg: StreamMindConfig):
             return src[:n].clone().to(dst.dtype)
         return dst
 
-    for name in ("q", "k", "v", "o", "input_norm", "post_norm", "mlp"):
+    for name in ("q", "k", "v", "o", "input_norm", "post_norm"):
         gate[name] = take(text[name], gate[name])
+    if "mlp" in text:
+        gate["mlp"] = take(text["mlp"], gate["mlp"])
+    else:  # a Mixtral decoder has no dense MLP: the gate's keeps its init
+        logger.info("skip_cls: MoE decoder has no dense mlp; gate MLP keeps init")
     logger.info("complete aligning cls_weight (decoder → gate)")
     return params
 
@@ -411,7 +415,7 @@ def train(model_args=None, data_args=None, training_args=None, dataset=None,
     if cfg is None:
         if _model_dir(model_args):
             # the decoder's config from the checkpoint (streammind_config.json
-            # or an HF config.json); Qwen2 and Mixtral are refused when converted
+            # or an HF config.json: a mixtral or qwen2 model_type trains as such)
             from ..api import _load_config
 
             cfg = _load_config(model_args.model_path).replace(

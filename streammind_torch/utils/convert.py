@@ -14,9 +14,9 @@ read by the small reader below (JSON header, then the byte ranges), so no
 ``safetensors`` package is needed.  Conversion is name mapping, stacking
 and reshaping; a cast to the target dtype goes through fp32, so an fp32 →
 bf16 conversion rounds as the JAX package's ``astype(jnp.bfloat16)`` does
-(to nearest, ties to even).  Only the mamba projector and the dense
-Mistral / Llama decoder are converted: the other projector types wait for
-ROADMAP Queue 1 item 14, Qwen2 and Mixtral for item 12.
+(to nearest, ties to even).  The decoder may be Mistral / Llama, Qwen2 or
+Mixtral; only the mamba projector is converted: the other projector types
+wait for ROADMAP Queue 1 item 14.
 """
 from __future__ import annotations
 
@@ -30,7 +30,6 @@ import numpy as np
 import torch
 
 from ..config import StreamMindConfig, TextConfig, VisionConfig
-from ..models.mistral import require_dense_decoder
 
 _SAFETENSORS_DTYPES = {
     "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
@@ -129,31 +128,48 @@ def convert_clip_vision(sd: Dict, cfg: VisionConfig, dtype=torch.float32) -> Dic
 
 
 # ---------------------------------------------------------------------------
-# Mistral / Llama decoder (HF naming)
+# Mistral / Llama / Qwen2 / Mixtral decoder (HF naming)
 # ---------------------------------------------------------------------------
 def convert_hf_text(sd: Dict, cfg: TextConfig, dtype=torch.float32) -> Dict:
-    require_dense_decoder(cfg)
+    """Qwen2 (``qkv_bias``) adds the q/k/v projections' biases; Mixtral
+    (``num_experts > 1``) takes ``block_sparse_moe``: the router from its
+    ``gate`` and (L, E, F, D) banks from the experts' w1 (gate), w3 (up) and
+    w2 (down)."""
     pre = "model." if any(k.startswith("model.") for k in sd) else ""
 
     def g(k):
         return _cast(sd[k], dtype)
 
-    def stack(name):
-        return {"weight": torch.stack([g(f"{pre}layers.{i}.{name}.weight")
-                                       for i in range(cfg.num_layers)])}
+    def stack(name, leaf="weight"):
+        return torch.stack([g(f"{pre}layers.{i}.{name}.{leaf}") for i in range(cfg.num_layers)])
 
+    layers = {
+        "input_norm": {"weight": stack("input_layernorm")},
+        "q": {"weight": stack("self_attn.q_proj")},
+        "k": {"weight": stack("self_attn.k_proj")},
+        "v": {"weight": stack("self_attn.v_proj")},
+        "o": {"weight": stack("self_attn.o_proj")},
+        "post_norm": {"weight": stack("post_attention_layernorm")},
+    }
+    if cfg.qkv_bias:  # Qwen2's biases are on q/k/v only
+        for name in ("q", "k", "v"):
+            layers[name]["bias"] = stack(f"self_attn.{name}_proj", "bias")
+    if cfg.num_experts > 1:
+        layers["router"] = {"weight": stack("block_sparse_moe.gate")}
+
+        def bank(w):
+            return torch.stack([torch.stack([
+                g(f"{pre}layers.{i}.block_sparse_moe.experts.{e}.{w}.weight")
+                for e in range(cfg.num_experts)]) for i in range(cfg.num_layers)])
+
+        layers["experts"] = {"gate": bank("w1"), "up": bank("w3"), "down": bank("w2")}
+    else:
+        layers["mlp"] = {"gate": {"weight": stack("mlp.gate_proj")},
+                         "up": {"weight": stack("mlp.up_proj")},
+                         "down": {"weight": stack("mlp.down_proj")}}
     out = {
         "embed_tokens": g(pre + "embed_tokens.weight"),
-        "layers": {
-            "input_norm": stack("input_layernorm"),
-            "q": stack("self_attn.q_proj"),
-            "k": stack("self_attn.k_proj"),
-            "v": stack("self_attn.v_proj"),
-            "o": stack("self_attn.o_proj"),
-            "post_norm": stack("post_attention_layernorm"),
-            "mlp": {"gate": stack("mlp.gate_proj"), "up": stack("mlp.up_proj"),
-                    "down": stack("mlp.down_proj")},
-        },
+        "layers": layers,
         "final_norm": {"weight": g(pre + "norm.weight")},
     }
     if not cfg.tie_word_embeddings:
@@ -266,8 +282,6 @@ def convert_streammind_checkpoint(model_path: str, cfg: StreamMindConfig, dtype=
     three layouts (module docstring).  ``base_path`` is the base decoder
     dir of the LoRA and the base + mm_projector.bin layouts; the vision
     tower may come from a separate CLIP checkpoint (``vision_path``)."""
-    require_dense_decoder(cfg.text)
-    require_dense_decoder(cfg.gate)
     adapter_file = None
     if os.path.isdir(model_path):
         for f in ("adapter_model.bin", "adapter_model.safetensors"):

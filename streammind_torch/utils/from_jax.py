@@ -4,8 +4,9 @@ The two packages share one tree layout, so the conversion is leaf by
 leaf: nested dicts (and the Mamba ``blocks`` list) of numpy arrays become
 the same structure of tensors.  Both the separate ``q/k/v`` and ``gate/up``
 leaves and the fused ``qkv``/``gateup`` leaves pass through unchanged, as
-do quantized leaves (``w_int8``, ``w_int4``, ``w_int4pc`` and their
-scales).  This module never imports JAX:
+do Qwen2's q/k/v biases, Mixtral's router and (L, E, F, D) expert banks
+and quantized leaves (``w_int8``, ``w_int4``, ``w_int4pc`` and their
+scales), of linears and of expert banks alike.  This module never imports JAX:
 the caller hands in numpy arrays (``jax.tree.map(np.asarray, params)``).
 """
 from __future__ import annotations

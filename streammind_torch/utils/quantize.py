@@ -123,8 +123,9 @@ def quantize_text_params(text_params: dict, bits: int = 8, free_source: bool = F
     """The decoder's ``load_8bit`` / ``load_4bit`` transform: every
     attention and MLP projection stored int8 (per channel, ``bits=8``) or
     packed int4 (``bits=4``: ``scheme="group"``, groups of 64, or ``"pc"``,
-    per channel with the column-halved pack); embeddings, norms and lm_head
-    keep their precision.
+    per channel with the column-halved pack); Mixtral's expert banks the
+    same way; embeddings, norms, the router and lm_head keep their
+    precision.
 
     ``free_source=True`` pops each source weight out of the INPUT tree
     right before quantizing it, so a full-precision tree and its quantized
@@ -147,9 +148,6 @@ def quantize_text_params(text_params: dict, bits: int = 8, free_source: bool = F
 
     out = dict(text_params)
     layers = dict(out["layers"])
-    if "experts" in layers:
-        raise NotImplementedError("quantizing MoE expert banks is not ported "
-                                  "(ROADMAP Queue 1 item 15)")
     for name in ("q", "k", "v", "o"):
         layers[name] = quant(layers[name])
     if "mlp" in layers:
@@ -157,6 +155,23 @@ def quantize_text_params(text_params: dict, bits: int = 8, free_source: bool = F
         for name in ("gate", "up", "down"):
             mlp[name] = quant(mlp[name])
         layers["mlp"] = mlp
+    if "experts" in layers:
+        # Mixtral's (L, E, F, D) banks, quantized along the input (last) axis
+        # like any linear (one (F, D) matrix at a time); the router keeps its
+        # precision.  free_source pops each raw bank out of the input tree
+        # before quantizing it: the banks are ~90% of a Mixtral's weights.
+        orig = layers["experts"]
+        experts = {}
+        for name in ("gate", "up", "down"):
+            src = orig[name]
+            if isinstance(src, dict):
+                experts[name] = quant(src)
+                continue
+            if free_source:
+                orig.pop(name)
+            experts[name] = quant({"weight": src})
+            del src
+        layers["experts"] = experts
     out["layers"] = layers
     return out
 

@@ -8,7 +8,7 @@ checkpoint layouts (full SFT, base + mm_projector.bin, LoRA), the trainer
 artifact skip list, the port's own safetensors reader against the
 safetensors package, the mm_projector.bin export against the released
 manifest, model_init from a checkpoint directory, and the configs the port
-refuses (Qwen2 / Mixtral: item 12; other projectors: item 14).
+refuses (other projectors: item 14).
 """
 import dataclasses
 import json
@@ -317,14 +317,36 @@ def _flat(tree, prefix=""):
 
 
 def test_unported_configs_raise_before_converting(tmp_path):
+    """Qwen2 and Mixtral decoders, once refused here, convert: transformers'
+    Qwen2ForCausalLM and MixtralForCausalLM state dicts (q/k/v biases; the
+    block_sparse_moe router and w1/w3/w2 experts) bitwise as the JAX
+    package converts them, at fp32 and bf16, and a Mixtral full-SFT
+    checkpoint directory through convert_streammind_checkpoint.  The other
+    projector types are still refused (item 14)."""
     base = tconfig.tiny_streammind_config()
-    torch.save({"model.embed_tokens.weight": torch.zeros(4, 4)}, tmp_path / "pytorch_model.bin")
-    for text in (dataclasses.replace(base.text, qkv_bias=True),
-                 dataclasses.replace(base.text, num_experts=8)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tconv.convert_streammind_checkpoint(str(tmp_path), base.replace(text=text))
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tconv.convert_hf_text({}, text)
+    small = dict(vocab_size=96, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                 num_attention_heads=4, num_key_value_heads=2)
+    torch.manual_seed(2)
+    models = {"qwen2": transformers.Qwen2ForCausalLM(transformers.Qwen2Config(
+        **small, tie_word_embeddings=False)),
+        "mixtral": transformers.MixtralForCausalLM(transformers.MixtralConfig(
+            **small, num_local_experts=4, num_experts_per_tok=2))}
+    for model_type, model in models.items():
+        sd = _sd_torch(model)
+        cfg = tconfig.text_config_from_hf(dict(small, model_type=model_type,
+                                               num_local_experts=4 if model_type == "mixtral"
+                                               else 1))
+        jcfg = TextConfig(**dataclasses.asdict(cfg))
+        for dtype in (torch.float32, torch.bfloat16):
+            _assert_trees_bitwise(tconv.convert_hf_text(sd, cfg, dtype),
+                                  jconv.convert_hf_text(_sd_numpy(sd), jcfg, JAX_DTYPE[dtype]))
+        if model_type == "mixtral":
+            full = base.replace(text=cfg)
+            torch.save(sd, tmp_path / "pytorch_model.bin")
+            tree = tconv.convert_streammind_checkpoint(str(tmp_path), full)
+            assert tree["text"]["layers"]["experts"]["down"].shape == (2, 4, 64, 128)
+            assert torch.equal(tree["text"]["layers"]["experts"]["up"][1, 3],
+                               sd["model.layers.1.block_sparse_moe.experts.3.w3.weight"])
     for ptype in ("linear", "mlp2x_gelu", "stc_connector", "identity"):
         with pytest.raises(NotImplementedError, match="item 14"):
             tconv.convert_projector_dispatch({}, base.replace(mm_projector_type=ptype))
@@ -373,8 +395,11 @@ def test_model_init_checkpoint_edge_cases(tmp_path):
           "vocab_size": 256}
     (tmp_path / "config.json").write_text(json.dumps(hf))
     assert tapi._load_config(str(tmp_path)) == japi_config(str(tmp_path))
+    # Qwen2: the same config in both packages, whose Mamba stays at 4096 while
+    # the decoder is 64 wide; the port refuses it before building anything
     (tmp_path / "config.json").write_text(json.dumps(dict(hf, model_type="qwen2")))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    assert tapi._load_config(str(tmp_path)) == japi_config(str(tmp_path))
+    with pytest.raises(ValueError, match="d_model 4096 differs"):
         tapi.model_init(str(tmp_path), tokenizer=tok, device="cpu")
 
 

@@ -130,8 +130,21 @@ def test_quantize_rejects_what_the_jax_package_rejects():
         tquant.quantize_text_params(w, bits=3)
     with pytest.raises(ValueError, match="bits"):
         tquant.quantize_gate_params(w, bits=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        tquant.quantize_text_params({"layers": {**w["layers"], "experts": {}}}, bits=8)
+    # expert banks, once refused here, quantize as the JAX package's do
+    rng = np.random.default_rng(3)
+    experts = {n: rng.standard_normal((2, 3, 8, 8)).astype(np.float32) for n in
+               ("gate", "up", "down")}
+    qkvo = {n: {"weight": np.zeros((2, 4, 8), np.float32)} for n in "qkvo"}
+    for bits, scheme in ((8, "group"), (4, "group"), (4, "pc")):
+        tree = {"layers": {**qkvo, "experts": experts}}
+        want = jquant.quantize_text_params(jax.tree.map(jnp.asarray, tree), bits=bits,
+                                           scheme=scheme)["layers"]["experts"]
+        got = tquant.quantize_text_params(params_from_numpy(tree, "cpu"), bits=bits,
+                                          scheme=scheme)["layers"]["experts"]
+        for n in experts:
+            assert set(got[n]) == set(want[n])
+            for k in want[n]:
+                assert torch.equal(got[n][k], torch.from_numpy(np.array(want[n][k]))), (n, k)
 
 
 @pytest.mark.parametrize("bits,scheme", [(8, "group"), (4, "group"), (4, "pc")])

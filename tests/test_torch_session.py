@@ -205,5 +205,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "serve.safety", "mm_utils", "utils.checkpoint", "native", "data.matchtime",
               "data.ego4d", "data.sft", "data.extract", "data.run_extract", "eval.metrics",
               "eval.mcqa", "eval.nlg", "eval.gpt_judge", "eval.run_gate_stream",
-              "eval.run_ego4d_stream", "eval.run_ego4d_lta", "eval.run_mcqa", "eval.run_oqa"):
+              "eval.run_ego4d_stream", "eval.run_ego4d_lta", "eval.run_mcqa", "eval.run_oqa",
+              "models.mistral", "models.projector", "models.meta", "utils.from_jax",
+              "utils.params", "streaming.paged", "streaming.multistream"):
         assert "streammind_torch." + m in mods
