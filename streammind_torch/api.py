@@ -42,7 +42,7 @@ from .streaming.engine import (
     decode_tokens_to_text,
     stop_id_matrix,
 )
-from .utils.params import tree_map
+from .utils.params import fill_layers, tree_leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -80,12 +80,27 @@ def _load_config(model_path: str) -> StreamMindConfig:
     return StreamMindConfig()
 
 
-def _init_component(name: str, g: torch.Generator, cfg: StreamMindConfig, device, dtype):
+def _init_component(name: str, g: torch.Generator, cfg: StreamMindConfig, device, dtype,
+                    quant=None):
     if name == "vision":
         return init_vit_params(g, cfg.vision, device=device, dtype=dtype)
     if name == "projector":
         return init_projector(g, cfg, device=device, dtype=dtype)
-    return lm.init_text_params(g, cfg.text, device=device, dtype=dtype)
+    return lm.init_text_params(g, cfg.text, device=device, dtype=dtype, layer_fn=quant)
+
+
+def _text_to_device(text: dict, device, quant=None) -> dict:
+    """A converted (host) decoder on ``device``.  With ``quant`` its layers
+    go over one at a time and are quantized there, so the device never holds
+    more than one layer of them in full precision."""
+    if quant is None:
+        return tree_map(lambda t: t.to(device), text)
+    layers = text["layers"]
+    out = {k: tree_map(lambda t: t.to(device), v) for k, v in text.items() if k != "layers"}
+    n = next(iter(tree_leaves(layers))).shape[0]
+    out["layers"] = fill_layers(
+        n, lambda i: quant(tree_map(lambda t: t[i:i + 1].to(device), layers)))
+    return out
 
 
 def model_init(
@@ -115,12 +130,32 @@ def model_init(
     version (conversation template) follows the model name: "v1" for
     vicuna, "qwen" for qwen, else "llama_2".  The decoder may be Mistral,
     Qwen2 or Mixtral (``load_8bit`` / ``load_4bit`` quantize Mixtral's
-    expert banks too).  A config whose Mamba width differs from the
-    decoder's is refused before anything is built (``ValueError``)."""
+    expert banks too).  A decoder that model_init draws or loads is
+    quantized one layer at a time on the device, so a full-precision copy
+    of it is never resident there (a bf16 Mixtral-8x7B is 93 GB, its int4
+    "pc" decoder 24 GB); ``params`` given are quantized as they are.  A
+    config whose Mamba width differs from the decoder's is refused before
+    anything is built (``ValueError``)."""
     model_name = model_name or get_model_name_from_path(model_path or "StreamMind-7B")
     if cfg is None:
         cfg = _load_config(model_path) if model_path else StreamMindConfig()
     proj_mod.check_mamba_width(cfg)
+
+    quant = None
+    if load_8bit or load_4bit:
+        # the decoder rests int8 (per channel) or packed int4 (groups of 64,
+        # or per channel with the column-halved pack of the int4 kernel)
+        from .utils.quantize import quantize_text_params
+
+        qkw = dict(bits=4 if load_4bit else 8, free_source=True,
+                   scheme="pc" if load_4bit == "pc" else "group")
+
+        def quant(layers):
+            return quantize_text_params({"layers": layers}, **qkw)["layers"]
+
+        if params is not None:
+            params = dict(params)
+            params["text"] = quantize_text_params(params["text"], **qkw)
 
     if params is None:
         g = torch.Generator(device=device).manual_seed(seed)
@@ -133,15 +168,19 @@ def model_init(
             from .utils.convert import convert_streammind_checkpoint
 
             params = convert_streammind_checkpoint(model_path, cfg, dtype, base_path=model_base)
+            text = params.pop("text", None)
             params = tree_map(lambda t: t.to(device), params)
+            if text is not None:
+                params["text"] = _text_to_device(text, device, quant)
+                del text
             missing = {"vision", "projector", "text"} - set(params)
             if missing:
                 warnings.warn(f"checkpoint {model_path} lacks {sorted(missing)}; those "
                               "components are randomly initialized")
                 for k in sorted(missing):
-                    params[k] = _init_component(k, g, cfg, device, dtype)
+                    params[k] = _init_component(k, g, cfg, device, dtype, quant)
         else:
-            params = {k: _init_component(k, g, cfg, device, dtype)
+            params = {k: _init_component(k, g, cfg, device, dtype, quant)
                       for k in ("vision", "projector", "text")}
 
     if tokenizer is None and model_path:
@@ -153,16 +192,6 @@ def model_init(
                 tokenizer.pad_token = tokenizer.unk_token
         except Exception:  # noqa: BLE001 — no transformers, or no tokenizer files
             tokenizer = None
-
-    if load_8bit or load_4bit:
-        # the decoder rests int8 (per channel) or packed int4 (groups of 64,
-        # or per channel with the column-halved pack of the int4 kernel)
-        from .utils.quantize import quantize_text_params
-
-        params = dict(params)
-        params["text"] = quantize_text_params(
-            params["text"], bits=4 if load_4bit else 8, free_source=True,
-            scheme="pc" if load_4bit == "pc" else "group")
 
     eos_id = getattr(tokenizer, "eos_token_id", None) if tokenizer else None
     if eos_id is None:  # `or 2` would remap a legitimate eos_token_id of 0

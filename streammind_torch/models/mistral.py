@@ -24,8 +24,7 @@ from ..config import TextConfig
 from ..ops.attention import _repeat_kv, attention, decode_attention, flash_attention
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rope, rope_cos_sin
-from ..utils.params import (linear, normal_init, ones, tree_leaves, tree_map, unstack_layers,
-                            zeros)
+from ..utils.params import fill_layers, linear, normal_init, ones, unstack_layers, zeros
 
 
 class KVCache(NamedTuple):
@@ -72,15 +71,7 @@ def init_text_params(g: torch.Generator, cfg: TextConfig, device="cuda", dtype=t
     if layer_fn is None:
         params["layers"] = _init_layers(g, cfg, L, kw)
     else:
-        stacked = None
-        for i in range(L):
-            one = layer_fn(_init_layers(g, cfg, 1, kw))
-            if stacked is None:
-                stacked = tree_map(lambda t: t.new_empty((L, *t.shape[1:])), one)
-            for dst, src in zip(tree_leaves(stacked), tree_leaves(one)):
-                dst[i] = src[0]
-            del one
-        params["layers"] = stacked
+        params["layers"] = fill_layers(L, lambda i: layer_fn(_init_layers(g, cfg, 1, kw)))
     params["final_norm"] = {"weight": ones((d,), **kw)}
     if not cfg.tie_word_embeddings:
         params["lm_head"] = {"weight": normal_init(g, (cfg.vocab_size, d), **kw)}

@@ -143,10 +143,6 @@ class StreamMindEngine:
         self.buckets = tuple(b for b in prefill_buckets if b <= cfg.text.max_position_embeddings)
         self.kv_capacity = kv_capacity or min(cfg.text.max_position_embeddings, 8192)
         self.attn_impl = attn_impl
-        # the decoder's MoE dispatch (Mixtral), passed to every text_forward:
-        # one device, so None (the grouped form; the JAX package's engine
-        # passes its mesh here)
-        self.moe_dispatch = None
 
     # -- perception -------------------------------------------------------
     @torch.no_grad()
@@ -208,8 +204,7 @@ class StreamMindEngine:
         real_len = torch.full((1,), plan.length, dtype=torch.int32, device=dev)
         logits, cache = lm.text_forward(self.params["text"], self.cfg.text,
                                         inputs_embeds=embeds, cache=cache,
-                                        cache_advance=real_len,
-                                        moe_dispatch=self.moe_dispatch)
+                                        cache_advance=real_len)
         return logits[:, max(plan.length - 1, 0), :], cache
 
     @torch.no_grad()
@@ -260,7 +255,7 @@ class StreamMindEngine:
         """Feed one token; returns (the next token, the cache advanced by 1)."""
         ids = torch.tensor([[tok]], dtype=torch.long, device=self.device)
         logits, cache = lm.text_forward(self.params["text"], self.cfg.text, input_ids=ids,
-                                        cache=cache, moe_dispatch=self.moe_dispatch)
+                                        cache=cache)
         return sample_token(generator, logits[0, -1], temperature, top_k, top_p), cache
 
     @torch.no_grad()
@@ -327,7 +322,7 @@ class StreamMindEngine:
                 break
             ids = torch.tensor(toks, dtype=torch.long, device=self.device)[:, None]
             logits, cache = lm.text_forward(self.params["text"], self.cfg.text, input_ids=ids,
-                                            cache=cache, moe_dispatch=self.moe_dispatch)
+                                            cache=cache)
             logp = torch.log_softmax(logits[:, -1].float(), dim=-1).cpu().numpy()
             # finished beams only propose repeating eos at their frozen score
             cand = scores[:, None] + logp
@@ -436,8 +431,7 @@ class StreamMindEngine:
         real_len = torch.tensor([pl.length for pl in plans], dtype=torch.int32, device=dev)
         logits, cache = lm.text_forward(self.params["text"], self.cfg.text,
                                         inputs_embeds=embeds, cache=cache,
-                                        cache_advance=real_len,
-                                        moe_dispatch=self.moe_dispatch)
+                                        cache_advance=real_len)
         last = torch.clamp(real_len.long() - 1, min=0)
         return logits[torch.arange(len(plans), device=dev), last], cache
 
@@ -462,8 +456,7 @@ class StreamMindEngine:
             ids = torch.tensor(toks, dtype=torch.long, device=self.device)[:, None]
             adv = torch.tensor(advance, dtype=torch.int32, device=self.device)
             logits, cache = lm.text_forward(self.params["text"], self.cfg.text, input_ids=ids,
-                                            cache=cache, cache_advance=adv,
-                                            moe_dispatch=self.moe_dispatch)
+                                            cache=cache, cache_advance=adv)
             return logits[:, -1]
 
         buf, steps = lockstep_decode(step, first, limits, self.eos_token_id, knobs, generator,

@@ -161,6 +161,23 @@ def cast_tree(tree, dtype: torch.dtype):
     return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, tree)
 
 
+def fill_layers(n: int, layer_at):
+    """A layer-stacked tree built one layer at a time: ``layer_at(i)`` gives
+    layer i's tree (every leaf with a leading axis of 1), copied into
+    stacked (n, ...) leaves allocated from the first result, so one layer's
+    intermediate tree (a full-precision one before a quantizer, say) lives
+    at a time."""
+    stacked = None
+    for i in range(n):
+        one = layer_at(i)
+        if stacked is None:
+            stacked = tree_map(lambda t: t.new_empty((n, *t.shape[1:])), one)
+        for dst, src in zip(tree_leaves(stacked), tree_leaves(one)):
+            dst[i] = src[0]
+        del one
+    return stacked
+
+
 def stack_layers(layer_params: list):
     """Identical per-layer trees stacked along a new leading layer axis."""
     first = layer_params[0]

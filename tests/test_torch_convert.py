@@ -403,6 +403,71 @@ def test_model_init_checkpoint_edge_cases(tmp_path):
         tapi.model_init(str(tmp_path), tokenizer=tok, device="cpu")
 
 
+@pytest.mark.parametrize("flag", [dict(load_8bit=True), dict(load_4bit=True),
+                                  dict(load_4bit="pc")], ids=["int8", "int4", "int4pc"])
+def test_model_init_quantizes_the_decoder_a_layer_at_a_time(tmp_path, monkeypatch, flag):
+    """model_init(load_8bit / load_4bit) over a decoder it draws from a seed
+    or loads from a checkpoint directory (a tiny Mixtral: expert banks)
+    quantizes one layer at a time, so the device never holds the whole
+    decoder in full precision: every quantize call sees one layer, and the
+    served tree is bitwise what quantizing the whole decoder gives (the
+    checkpoint) or the per-layer draws give (the seed)."""
+    from streammind_torch.models import mistral as tlm
+    from streammind_torch.models.meta import init_projector
+    from streammind_torch.models.vit import init_vit_params
+    from streammind_torch.utils import quantize as tquant
+    from streammind_torch.utils.params import tree_leaves
+
+    small = dict(vocab_size=96, hidden_size=64, intermediate_size=128, num_hidden_layers=3,
+                 num_attention_heads=4, num_key_value_heads=2)
+    text = tconfig.text_config_from_hf(dict(small, model_type="mixtral", num_local_experts=4,
+                                            num_experts_per_tok=2))
+    cfg = tconfig.tiny_streammind_config().replace(text=text)
+    bits = 8 if "load_8bit" in flag else 4
+    qkw = dict(bits=bits, scheme="pc" if flag.get("load_4bit") == "pc" else "group")
+    seen, real = [], tquant.quantize_text_params
+
+    def spy(tree, **kw):
+        seen.append({t.shape[0] for t in tree_leaves(tree["layers"])})
+        return real(tree, **kw)
+
+    monkeypatch.setattr(tquant, "quantize_text_params", spy)
+
+    def quant(layers):
+        return real({"layers": layers}, free_source=True, **qkw)["layers"]
+
+    def assert_bitwise(got, want, path="text"):
+        if isinstance(want, dict):
+            assert set(got) == set(want), path
+            for k in want:
+                assert_bitwise(got[k], want[k], f"{path}.{k}")
+        else:
+            assert got.dtype == want.dtype and torch.equal(got, want), path
+
+    # a seed: the layers drawn one at a time through the quantizer
+    model, _, _, _ = tapi.model_init(cfg=cfg, seed=5, dtype=torch.float32, device="cpu", **flag)
+    assert seen == [{1}] * 3
+    g = torch.Generator().manual_seed(5)
+    init_vit_params(g, cfg.vision, device="cpu", dtype=torch.float32)
+    init_projector(g, cfg, device="cpu", dtype=torch.float32)
+    want = tlm.init_text_params(g, cfg.text, device="cpu", dtype=torch.float32, layer_fn=quant)
+    assert_bitwise(model.params["text"], tlm.fuse_text_linears(want))
+
+    # a checkpoint directory: the converted decoder quantized layer by layer
+    torch.manual_seed(2)
+    hf = transformers.MixtralForCausalLM(transformers.MixtralConfig(
+        **small, num_local_experts=4, num_experts_per_tok=2))
+    torch.save(_sd_torch(hf), tmp_path / "pytorch_model.bin")
+    seen.clear()
+    with pytest.warns(UserWarning, match="vision"):
+        model, _, _, _ = tapi.model_init(str(tmp_path), cfg=cfg, tokenizer=SPLikeTokenizer(),
+                                         dtype=torch.float32, device="cpu", **flag)
+    assert seen == [{1}] * 3
+    whole = tconv.convert_streammind_checkpoint(str(tmp_path), cfg, torch.float32)["text"]
+    want = real(whole, **qkw)
+    assert_bitwise(model.params["text"], tlm.fuse_text_linears(want))
+
+
 def japi_config(path):
     """The JAX package's _load_config, carried over through its JSON."""
     return tconfig.StreamMindConfig.from_json(japi._load_config(path).to_json())
