@@ -153,6 +153,25 @@ Phases, each of which raises (exit code != 0) on failure:
      CPU and the card, TF32 off: fires and greedy tokens identical, probs,
      memory and prefill logits within limits; the three MoE dispatches
      against each other; a TF32-on control;
+ 21. (after phase 14, while phase 4's StreamMind-7B tree is resident) the
+     VideoLLaMA2 projectors at full width over its vision tower and decoder
+     (bf16): for stc_connector, stp_connector, stc_connector_v35,
+     spatial_conv, spatial_pool, linear and mlp2x_gelu, the projector drawn
+     from a seed, ``project_memory`` on 8 frames (the median of 5
+     synchronized runs, beside its bound), the memory-token count against
+     VideoLLaMA2's (845, 576, 576, 1690, 1152, 576, 576), ``api.infer`` with
+     32 greedy tokens (32 flash launches, at bucket 1024 or 2048); then a
+     released STC checkpoint (mm_projector.bin in timm naming with its
+     gate, beside a full-SFT .bin whose decoder is cut to 2 layers) loaded
+     by ``model_init(path, load_4bit="pc")``, every leaf bitwise, and
+     answered through the int4 kernel; then ``train()`` on the adapter
+     stage over the STC connector, 3 steps of one 8-frame SFT clip
+     (``VideoLLaVASFTDataset``): step ms, tokens/s, peak memory, 64 lse
+     forwards, 32 dQ and 32 dK/dV a step;
+ 22. every projector type's ``simple_project`` at full width on 2 frames,
+     and one Mamba-2 block at mamba2-2.7b's widths (a forward over 512
+     tokens, then 4 steps), in fp32 on the CPU and the card (TF32 off for
+     matmuls and cuDNN), within limits, and a TF32-on control;
 then the ``kernels`` JSON line (``launches`` from the serving phase for the
 inference kernels, from the training phase for the training kernels and from
 the fast phase for int8_matvec and selective_scan; ``tc_launches``, ``hgmma``
@@ -160,7 +179,7 @@ and ``ms_over_bound`` for the five tensor-core kernels, ``ms_over_bound`` for
 paged attention, the int8 and int4 matvecs, the scan and the paged write,
 whose launches are the paged attention's launches that wrote a token;
 ``launches_by_path`` of every kernel: session, serving, fast, train, api,
-worker, eval, qlora, qwen2, mixtral) and, last,
+worker, eval, qlora, qwen2, mixtral, projectors) and, last,
 the ``ok`` JSON line.  The fp32 parity phases must launch no tensor-core kernel.  It
 uses nothing of JAX; without a CUDA card it exits with an error before any
 result.
@@ -361,7 +380,10 @@ def check_kernels(dev):
     # beams (32 frames, bucket 128), MCQA's and OQA's (8 frames, bucket 64);
     # then Qwen2-7B's (28 / 4 heads) session turns (bucket 64 from an empty
     # cache, bucket 32 at offset 52), its paged K = 3 prefill and its infer
-    # (bucket 128; Mixtral-8x7B has Mistral-7B's heads).  Sets of inputs: the
+    # (bucket 128; Mixtral-8x7B has Mistral-7B's heads); then the clip
+    # projectors' one-shot infer prefill at bucket 1024 (STC's 845 memory
+    # tokens, the 576 of STP, v35, linear and MLP; spatial_conv and
+    # spatial_pool fill bucket 2048, the second case's shape).  Sets of inputs: the
     # caches are overlapping views of one buffer, each starting past the rows
     # the previous one reads, so nothing is read warm.
     # Kernel and library are timed by graph replay (the bf16 kernel runs in
@@ -377,7 +399,8 @@ def check_kernels(dev):
                                         # turns, the K = 3 batched prefill, infer's prefill
                                         (64, [0], [64], 28, 4), (32, [52], [84], 28, 4),
                                         (64, [0] * 3, [64] * 3, 28, 4),
-                                        (128, [0], [128], 28, 4)):
+                                        (128, [0], [128], 28, 4),
+                                        (1024, [0], [1024], 32, 8)):
         b = len(q_offs)
         visible = sum(min(n, off + i + 1) for off, n in zip(q_offs, kv_lens) for i in range(sq))
         rows = [min(n, off + sq) for off, n in zip(q_offs, kv_lens)]
@@ -690,7 +713,8 @@ def check_train_kernels(dev, randn):
     """The training kernels at the adapter stage's shape: Mistral-7B
     attention (32 q / 8 kv heads, D 128) over the 2048 bucket, causal;
     a ragged batch (B 2, kv_len 2048 and 1531), one D 64 case and a GQA
-    group of 7 (28 / 4 heads).  The lse forward, dQ and dK/dV each against
+    group of 7 (28 / 4 heads); then the adapter step over the STC
+    connector: the 1024 bucket, its spliced length valid.  The lse forward, dQ and dK/dV each against
     its plain version on the same inputs; SDPA (causal, enable_gqa) is the
     yardstick: its forward, and its forward+backward less the forward (which
     computes dQ, dK and dV at once).  Kernels and yardsticks are timed by
@@ -701,7 +725,8 @@ def check_train_kernels(dev, randn):
     for b, s, h, hkv, d, kv_len in ((1, 2048, 32, 8, 128, [2048]),
                                     (2, 2048, 32, 8, 128, [2048, 1531]),
                                     (1, 2048, 32, 8, 64, [2048]),
-                                    (1, 2048, 28, 4, 128, [2048])):
+                                    (1, 2048, 28, 4, 128, [2048]),
+                                    (1, 1024, 32, 8, 128, [connector_step_len()])):
         shape = f"q({b},{s},{h},{d}) kv({b},{s},{hkv},{d}) causal kv_len={kv_len}"
         lens = torch.tensor(kv_len, dtype=torch.int32, device=dev)
         pairs = h * sum(sum(min(i + 1, n) for i in range(s)) for n in kv_len)
@@ -2442,28 +2467,34 @@ def bitwise_differences(got, want) -> list:
     return bad
 
 
-def full_sft_state_dict(tree, cfg) -> dict:
-    """A StreamMind param tree under the released full-SFT key names (HF
-    Mistral, the mm_projector, HF CLIP under the vision tower), as CPU
-    copies; CLIP's post_layernorm, which the model does not read, as
-    ones and zeros."""
-    from streammind_torch.utils.checkpoint import export_projector_torch_sd
-
-    sd = {}
-    t = tree["text"]
-    sd["model.embed_tokens.weight"] = t["embed_tokens"]
-    sd["model.norm.weight"] = t["final_norm"]["weight"]
-    sd["lm_head.weight"] = t["lm_head"]["weight"]
+def hf_text_state_dict(t, prefix: str = "model.") -> dict:
+    """A decoder tree (unfused, unquantized) under HF Mistral's names."""
+    sd = {prefix + "embed_tokens.weight": t["embed_tokens"],
+          prefix + "norm.weight": t["final_norm"]["weight"]}
+    if "lm_head" in t:
+        sd["lm_head.weight"] = t["lm_head"]["weight"]
     names = {"input_norm": "input_layernorm", "post_norm": "post_attention_layernorm",
              "q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
              "o": "self_attn.o_proj"}
-    for i in range(cfg.text.num_layers):
+    for i in range(t["layers"]["q"]["weight"].shape[0]):
         for ours, theirs in names.items():
-            sd[f"model.layers.{i}.{theirs}.weight"] = t["layers"][ours]["weight"][i]
+            sd[f"{prefix}layers.{i}.{theirs}.weight"] = t["layers"][ours]["weight"][i]
         for p in ("gate", "up", "down"):
-            sd[f"model.layers.{i}.mlp.{p}_proj.weight"] = t["layers"]["mlp"][p]["weight"][i]
-    for k, x in export_projector_torch_sd(tree["projector"]).items():
-        sd["model.mm_projector." + k] = x
+            sd[f"{prefix}layers.{i}.mlp.{p}_proj.weight"] = t["layers"]["mlp"][p]["weight"][i]
+    return sd
+
+
+def full_sft_state_dict(tree, cfg) -> dict:
+    """A StreamMind param tree under the released full-SFT key names (HF
+    Mistral, the mm_projector where the tree has the mamba projector, HF
+    CLIP under the vision tower), as CPU copies; CLIP's post_layernorm,
+    which the model does not read, as ones and zeros."""
+    from streammind_torch.utils.checkpoint import export_projector_torch_sd
+
+    sd = hf_text_state_dict(tree["text"])
+    if "projector" in tree:
+        for k, x in export_projector_torch_sd(tree["projector"]).items():
+            sd["model.mm_projector." + k] = x
     v, c = tree["vision"], cfg.vision
     pre = "model.vision_tower.vision_tower.vision_model."
     sd[pre + "embeddings.class_embedding"] = v["class_embedding"]
@@ -2484,15 +2515,17 @@ def full_sft_state_dict(tree, cfg) -> dict:
     return {k: x.detach().to("cpu", copy=True).contiguous() for k, x in sd.items()}
 
 
-def check_against_manifest(sd: dict, text_layers: int):
+def check_against_manifest(sd: dict, text_layers: int, projector: bool = True):
     """The key names and shapes of ``sd`` must be the released full-SFT
-    manifest's, the decoder's layers cut to ``text_layers``."""
+    manifest's, the decoder's layers cut to ``text_layers`` (and without
+    the mamba projector's keys where ``projector`` is False)."""
     import re
 
     with open(MANIFEST) as f:
         manifest = json.load(f)
     want = {k: s for k, s in manifest.items()
-            if not (m := re.match(r"model\.layers\.(\d+)\.", k)) or int(m.group(1)) < text_layers}
+            if (not (m := re.match(r"model\.layers\.(\d+)\.", k)) or int(m.group(1)) < text_layers)
+            and (projector or not k.startswith("model.mm_projector."))}
     got = {k: list(x.shape) for k, x in sd.items()}
     if got != want:
         diff = sorted(set(got) ^ set(want)) or [k for k in want if got[k] != want[k]]
@@ -3818,6 +3851,404 @@ def decoders_parity(dev):
     return dict(errs=errs, controls=controls, dispatch=dispatch)
 
 
+# ---------------------------------------------------------------------------
+# phases 21-22: the VideoLLaMA2 projectors and Mamba-2
+# ---------------------------------------------------------------------------
+# memory tokens of an 8-frame clip of 576 patches a frame, by projector type
+PROJ_TOKENS = {"stc_connector": 845, "stp_connector": 576, "stc_connector_v35": 576,
+               "spatial_conv": 1690, "spatial_pool": 1152, "linear": 576, "mlp2x_gelu": 576}
+PROJ_FRAMES = 8        # VideoLLaMA2's frames a clip (constants.NUM_FRAMES)
+PROJ_NEW = 32          # greedy tokens of each infer
+PROJ_REPEATS = 5       # timed projections a type (the median is kept)
+PROJ_TRAIN_STEPS = 3
+PROJ_SAMPLES = 4
+PROJ_DIR = Path(__file__).resolve().parent / "_smoke_proj"
+# CPU against card in fp32 (TF32 off): the same convolutions, norms and
+# products in another order; a TF32 matmul or convolution crosses it
+PROJ_PARITY_TOL = (1e-4, 1e-4)
+PROJ_PARITY_FRAMES = 2
+# state-spaces/mamba2-2.7b's widths
+MAMBA2_27B = dict(d_model=2560, d_state=128, headdim=64, ngroups=1, expand=2, chunk_size=256)
+MAMBA2_L = 512
+MAMBA2_STEPS = 4
+
+
+def connector_records(n: int = PROJ_SAMPLES) -> list:
+    """VideoLLaVA pretrain records: one clip each, a caption longer than the
+    stand-in tokenizer's 24 ids, so every sample has the same length."""
+    return [{"id": f"v{i}", "video": f"clip{i}.mp4", "conversations": [
+        {"from": "human", "value": "<video>\nDescribe the clip."},
+        {"from": "gpt", "value": f"clip {i}: a winger crosses from the left and the striker heads"
+                                 f" it in"}]} for i in range(n)]
+
+
+def connector_step_len() -> int:
+    """The spliced length of one adapter-stage sample over the STC connector:
+    the plain template's ids with the <video> slot replaced by its 845
+    memory tokens (the attention's kv_len in the connector training step)."""
+    from streammind_torch.data.sft import preprocess_plain
+
+    (n,) = {preprocess_plain(r["conversations"], StandInTokenizer())["input_ids"].shape[1]
+            for r in connector_records()}
+    return n - 1 + PROJ_TOKENS["stc_connector"]
+
+
+def connector_dataset(root: Path, size: int):
+    """The records through data/sft.py's VideoLLaVASFTDataset (the plain
+    style of the adapter stage), PROJ_FRAMES seeded size × size frames a
+    clip."""
+    from streammind_torch.data.sft import VideoLLaVASFTDataset
+
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "sft.json").write_text(json.dumps(connector_records()))
+
+    def frames(path, is_video):
+        i = int(Path(path).stem[len("clip"):])
+        return np.random.default_rng(100 + i).standard_normal((PROJ_FRAMES, 3, size, size),
+                                                              dtype=np.float32)
+
+    return VideoLLaVASFTDataset(str(root / "sft.json"), str(root), StandInTokenizer(),
+                                num_frames=PROJ_FRAMES, style="plain", frame_loader=frames)
+
+
+def projection_bound(cfg, feats_shape):
+    """(bound ms, bound_by, flops) of one clip's simple_project: its products
+    and convolutions (counted by FlopCounterMode on shape-only tensors) at
+    the bf16 peak, against the projector's weights (the gate excluded) and
+    the features and tokens read or written once."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from streammind_torch.models.projector import init_projector_params, simple_project
+    from streammind_torch.utils.params import param_bytes
+
+    p = init_projector_params(torch.Generator(), cfg, device="meta", dtype=torch.bfloat16)
+    p.pop("cls_net", None)
+    with FlopCounterMode(display=False) as fc:
+        out = simple_project(p, cfg, torch.empty(feats_shape, device="meta", dtype=torch.bfloat16))
+    nbytes = param_bytes(p) + 2 * (math.prod(feats_shape) + out.numel())
+    return (*bound(nbytes, fc.get_total_flops(), BF16_FLOPS), fc.get_total_flops())
+
+
+def connector_state_dict(proj) -> dict:
+    """A connector tree under the released mm_projector.bin's names: timm's
+    RegStage (s{1,2}.b{n}.conv{1,2,3}.{conv,bn}, .se.fc{1,2}, .downsample),
+    sampler.0, readout.{0,2}, and the gate LM in HF Mistral naming under
+    cls_net.cls_model; CPU copies."""
+    sd = {}
+    for stage in ("s1", "s2"):
+        for i, blk in enumerate(proj[stage]):
+            pre = f"{stage}.b{i + 1}"
+            for n in (1, 2, 3):
+                sd[f"{pre}.conv{n}.conv.weight"] = blk[f"conv{n}"]
+                sd[f"{pre}.conv{n}.bn.weight"] = blk[f"ln{n}"]["weight"]
+                sd[f"{pre}.conv{n}.bn.bias"] = blk[f"ln{n}"]["bias"]
+            for n in (1, 2):
+                sd[f"{pre}.se.fc{n}.weight"] = blk[f"se_fc{n}"]
+                sd[f"{pre}.se.fc{n}.bias"] = blk[f"se_fc{n}_bias"]
+            if "proj" in blk:
+                sd[f"{pre}.downsample.conv.weight"] = blk["proj"]
+                sd[f"{pre}.downsample.bn.weight"] = blk["proj_ln"]["weight"]
+                sd[f"{pre}.downsample.bn.bias"] = blk["proj_ln"]["bias"]
+    if "sampler" in proj:
+        sd["sampler.0.weight"] = proj["sampler"]["weight"]
+        sd["sampler.0.bias"] = proj["sampler"]["bias"]
+    for i, layer in enumerate(proj["readout"]):
+        sd[f"readout.{2 * i}.weight"] = layer["weight"]
+        sd[f"readout.{2 * i}.bias"] = layer["bias"]
+    for k, x in hf_text_state_dict(proj["cls_net"]).items():
+        sd["cls_net.cls_model." + k] = x
+    return {k: x.detach().to("cpu", copy=True).contiguous() for k, x in sd.items()}
+
+
+def with_released_extras(proj, g):
+    """A drawn connector with the leaves only a released (timm) one has:
+    each block's SE biases and the norm of s1's width-changing shortcut."""
+    def small(t):
+        return torch.empty_like(t).normal_(0.0, 0.05, generator=g)
+
+    for blk in proj["s1"] + proj["s2"]:
+        blk["se_fc1_bias"] = small(blk["se_fc1"][:, 0, 0, 0])
+        blk["se_fc2_bias"] = small(blk["se_fc2"][:, 0, 0, 0])
+        if "proj" in blk:
+            blk["proj_ln"] = {"weight": 1.0 + small(blk["ln1"]["weight"]),
+                              "bias": small(blk["ln1"]["bias"])}
+    return proj
+
+
+def projector_infer(api, model, tok, video, what: str) -> dict:
+    """Greedy ``infer`` (PROJ_NEW tokens) timed, with its launches and the
+    bucket of its prefill."""
+    reset_launches()
+    text, infer_ms, forwards = timed(lambda: api.infer(model, video, QUESTION, tok,
+                                                       max_new_tokens=PROJ_NEW))
+    counts = read_launches()
+    plan, mem = api._prepare_cognition_inputs(model, video, QUESTION, tok, "llama_2")
+    ids = [int(t) for t in text.split()]
+    if not ids or any(not 0 <= t < model.cfg.text.vocab_size for t in ids):
+        raise RuntimeError(f"{what}: infer gave {text!r}")
+    return dict(infer_ms=infer_ms, forwards=forwards, launches=counts,
+                bucket=len(plan.token_ids), spliced=plan.length, tokens=len(ids))
+
+
+def projectors_phase(engine, g, dev):
+    """The VideoLLaMA2 projectors at full width over the session's
+    StreamMind-7B vision tower and decoder (bf16): for each type its
+    projector drawn from a seed, ``project_memory`` on PROJ_FRAMES frames
+    (timed, the token count against the table), ``api.infer`` with
+    PROJ_NEW greedy tokens (one flash prefill a layer); then a released
+    STC checkpoint (mm_projector.bin in timm naming with its gate, beside a
+    full-SFT .bin whose decoder is cut to CKPT_TEXT_LAYERS layers) loaded
+    by ``model_init(path, load_4bit="pc")`` bitwise and answered; then
+    ``train()`` on the adapter stage over the STC connector, PROJ_TRAIN_STEPS
+    steps of one SFT clip each.  Returns the numbers."""
+    from streammind_torch import api
+    from streammind_torch.config import StreamMindConfig
+    from streammind_torch.models.meta import bucket_length, encode_frames, init_streammind_params
+    from streammind_torch.models.mistral import fuse_text_linears
+    from streammind_torch.models.projector import (init_projector_params, project_memory,
+                                                   projected_token_count)
+    from streammind_torch.models.vit import fuse_vit_qkv
+    from streammind_torch.train.args import DataArguments, ModelArguments, TrainingArguments
+    from streammind_torch.train.run import PLAN_BUCKETS, train
+    from streammind_torch.utils.params import flatten_with_paths, param_count
+    from streammind_torch.utils.quantize import quantize_text_params
+
+    base, bf16 = engine.cfg, torch.bfloat16
+    L, L2 = base.text.num_layers, CKPT_TEXT_LAYERS
+    tok = StandInTokenizer()
+    size = base.vision.image_size
+    video = torch.empty((PROJ_FRAMES, 3, size, size), device=dev, dtype=bf16).normal_(generator=g)
+    shared = {"vision": engine.params["vision"], "text": engine.params["text"]}
+    with torch.no_grad():
+        feats = encode_frames(shared, base, video)
+    rows, runs = {}, []
+    for i, (ptype, want) in enumerate(PROJ_TOKENS.items()):
+        cfg = base.replace(mm_projector_type=ptype)
+        proj = init_projector_params(torch.Generator(device=dev).manual_seed(50 + i), cfg,
+                                     device=dev, dtype=bf16)
+        model, _, _, _ = api.model_init(params={**shared, "projector": proj}, cfg=cfg,
+                                        tokenizer=tok, device=dev)
+        p = model.params["projector"]
+        with torch.no_grad():
+            mem = project_memory(p, cfg, feats)
+            ms = []
+            for _ in range(PROJ_REPEATS):
+                t0 = sync()
+                project_memory(p, cfg, feats)
+                ms.append((sync() - t0) * 1e3)
+        n = mem.shape[1]
+        if (n != want or n != projected_token_count(cfg, PROJ_FRAMES, feats.shape[2])
+                or mem.shape[2] != base.text.hidden_size or not torch.isfinite(mem).all()):
+            raise RuntimeError(f"{ptype}: memory {tuple(mem.shape)}, want {want} tokens")
+        r = projector_infer(api, model, tok, video, ptype)
+        expect = {k: 0 for k in r["launches"]}
+        expect.update(flash_attention=L, flash_attention_tc=L)
+        check_counts(f"projectors {ptype}", r["launches"], expect)
+        b_ms, b_by, flops = projection_bound(cfg, tuple(feats.shape))
+        r.update(memory_tokens=n, project_ms=statistics.median(ms), project_ms_all=ms,
+                 bound_ms=b_ms, bound_by=b_by, flops=flops,
+                 params=param_count({k: v for k, v in proj.items() if k != "cls_net"}))
+        rows[ptype] = r
+        runs.append(r["launches"])
+        log("projectors", f"[{CARD}] {ptype}: {n} memory tokens from {PROJ_FRAMES} frames "
+                          f"({r['params']} projector parameters besides the gate); project_memory "
+                          f"median {r['project_ms']:.3f} ms of {[round(x, 3) for x in ms]} "
+                          f"(bound {b_ms:.4f} ms by {b_by}, {flops / 1e12:.4f} TFLOP); infer wall "
+                          f"({PROJ_FRAMES} frames, prefill, {PROJ_NEW} tokens) {r['infer_ms']:.3f} "
+                          f"ms, {r['forwards']} decode forwards; prefill of {r['spliced']} tokens "
+                          f"in bucket {r['bucket']}: {r['launches']['flash_attention']} flash "
+                          f"launches ({r['launches']['flash_attention_tc']} tensor-core)")
+        del model, proj, p, mem
+        torch.cuda.empty_cache()
+
+    # the released layout: mm_projector.bin (timm names, gate embedded) beside
+    # a full-SFT .bin of the decoder (cut to L2 layers) and the vision tower
+    cfg2 = base.replace(mm_projector_type="stc_connector",
+                        text=dataclasses.replace(base.text, num_layers=L2))
+    tree = init_streammind_params(torch.Generator(device=dev).manual_seed(23), cfg2, device=dev,
+                                  dtype=bf16)
+    with_released_extras(tree["projector"], torch.Generator(device=dev).manual_seed(24))
+    path = PROJ_DIR / "VideoLLaMA2-7B-stc-text2"
+    shutil.rmtree(PROJ_DIR, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        sd = full_sft_state_dict({k: v for k, v in tree.items() if k != "projector"}, cfg2)
+        n_keys, _ = check_against_manifest(sd, L2, projector=False)
+        proj_sd = {"model.mm_projector." + k: x
+                   for k, x in connector_state_dict(tree["projector"]).items()}
+        path.mkdir(parents=True)
+        torch.save(sd, path / "pytorch_model.bin")
+        torch.save(proj_sd, path / "mm_projector.bin")
+        (path / "streammind_config.json").write_text(cfg2.to_json())
+        gb = sum(x.numel() * x.element_size() for x in (*sd.values(), *proj_sd.values())) / 1e9
+        write_s = time.perf_counter() - t0
+        del sd, proj_sd
+        (m2, _, _, _), load_ms, _ = timed(lambda: api.model_init(str(path), tokenizer=tok,
+                                                                 load_4bit="pc", device=dev))
+        want = {"vision": fuse_vit_qkv(tree["vision"]), "projector": tree["projector"],
+                "text": fuse_text_linears(quantize_text_params(tree["text"], bits=4,
+                                                               scheme="pc"))}
+        bad = bitwise_differences(m2.params, want)
+        n_proj = len(list(flatten_with_paths(want["projector"])))
+        del want, tree
+        if bad or m2.cfg != cfg2:
+            raise RuntimeError(f"the loaded STC checkpoint differs from the written one: "
+                               f"{bad[:8]}, config equal {m2.cfg == cfg2}")
+        log("projectors", f"released STC layout: {n_keys} full-SFT keys (the decoder cut to {L2} "
+                          f"layers) + mm_projector.bin ({n_proj} projector leaves: timm's "
+                          f"RegStage names with the downsample norms and SE biases, the gate "
+                          f"under cls_net.cls_model), {gb:.2f} GB bf16 written in {write_s:.1f} s; "
+                          f"model_init(path, load_4bit='pc') in {load_ms:.1f} ms: every leaf "
+                          f"bitwise the written one (the projector's {n_proj} as they are)")
+        ckpt = projector_infer(api, m2, tok, video, "stc checkpoint")
+        expect = {k: 0 for k in ckpt["launches"]}
+        expect.update(flash_attention=L2, flash_attention_tc=L2,
+                      int4_matvec=4 * L2 * ckpt["forwards"])
+        check_counts("projectors checkpoint", ckpt["launches"], expect)
+        log("projectors", f"[{CARD}] STC checkpoint (int4 'pc' decoder, {L2} layers): infer wall "
+                          f"{ckpt['infer_ms']:.3f} ms, {ckpt['forwards']} decode forwards, "
+                          f"launches {ckpt['launches']}")
+        del m2
+        torch.cuda.empty_cache()
+        runs.append(ckpt["launches"])
+
+        # train(): the adapter stage over the STC connector at full width
+        cfg = base.replace(mm_projector_type="stc_connector")
+        ds = connector_dataset(PROJ_DIR / "data", size)
+        out = PROJ_DIR / "train"
+        args = (ModelArguments(tune_mm_mlp_adapter=True, mm_projector_type="stc_connector"),
+                DataArguments(num_workers=2),
+                TrainingArguments(output_dir=str(out), learning_rate=TRAIN_LR, bf16=True,
+                                  max_steps=PROJ_TRAIN_STEPS, save_steps=PROJ_TRAIN_STEPS,
+                                  logging_steps=1, per_device_train_batch_size=1,
+                                  gradient_accumulation_steps=1, gradient_checkpointing=True,
+                                  seed=0, resume=False, device=dev))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        state = train(*args, dataset=ds, cfg=cfg)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        with open(out / "logs" / "metrics.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r["train/loss"] for r in recs]
+        step_ms = [(b["ts"] - a["ts"]) * 1e3 for a, b in zip(recs, recs[1:])]
+        sample = ds[0]
+        supervised = int((sample["labels"][0, 1:] != -100).sum())
+        expect = {k: 0 for k in counts}
+        expect.update(flash_attention_lse=2 * L * PROJ_TRAIN_STEPS,
+                      flash_bwd_dq=L * PROJ_TRAIN_STEPS, flash_bwd_dkv=L * PROJ_TRAIN_STEPS)
+        expect.update({f"{n}_tc": expect[n] for n in TRAIN_KERNELS})
+        trainable = param_count({k: v for k, v in state.params["projector"].items()
+                                 if k != "cls_net"})
+        n_step = connector_step_len()
+        log("projectors", f"[{CARD}] train(): adapter stage over stc_connector, {PROJ_FRAMES}-frame "
+                          f"SFT clips ({n_step} spliced tokens, bucket "
+                          f"{bucket_length(n_step, PLAN_BUCKETS)}), remat, "
+                          f"B 1: losses {losses}; step ms (synchronized, after the first) "
+                          f"{[round(t, 3) for t in step_ms]}, median "
+                          f"{statistics.median(step_ms):.3f}; supervised tokens/s "
+                          f"{supervised / statistics.median(step_ms) * 1e3:.3f} ({supervised} a "
+                          f"step); peak {peak / 1e9:.2f} GB; {trainable} trainable parameters; "
+                          f"launches {counts}")
+        if len(losses) != PROJ_TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"connector training losses: {losses}")
+        check_counts("projectors train", counts, expect)
+        runs.append(counts)
+        del state
+    finally:
+        shutil.rmtree(PROJ_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(rows=rows, ckpt=ckpt, train=dict(losses=losses, step_ms=step_ms,
+                                                 peak_gb=peak / 1e9, supervised=supervised),
+                launches=add_counts(*runs))
+
+
+def clip_projector_params(cfg, g, device="cpu"):
+    """A clip projector drawn from ``g`` without the gate LM that the
+    connectors embed (``simple_project`` does not read it)."""
+    from streammind_torch.models import connectors, projector
+
+    t = cfg.mm_projector_type
+    if t in projector._SPATIAL:
+        return projector._SPATIAL[t][0](g, cfg, device=device)
+    if t in projector._CONNECTORS:
+        return connectors.init_stc_connector(g, cfg, variant=projector._CONNECTORS[t],
+                                             device=device)
+    return projector.init_projector_params(g, cfg, device=device)
+
+
+def projectors_parity(dev):
+    """Every projector type's ``simple_project`` at StreamMind-7B's widths on
+    PROJ_PARITY_FRAMES frames (338 STC tokens), and one Mamba-2 block at
+    mamba2-2.7b's widths (``mamba2_forward`` over MAMBA2_L tokens, then
+    MAMBA2_STEPS ``mamba2_step``s), in fp32 on the CPU and on the card with
+    TF32 off (matmul and cuDNN), within PROJ_PARITY_TOL; then on the card
+    with TF32 on, which must cross it."""
+    from streammind_torch.config import StreamMindConfig
+    from streammind_torch.models import mamba2 as m2
+    from streammind_torch.models.projector import simple_project
+    from streammind_torch.utils.params import tree_map
+
+    base = StreamMindConfig()
+    rng = torch.Generator().manual_seed(61)
+    feats = torch.randn((1, PROJ_PARITY_FRAMES, 576, base.mm_hidden_size), generator=rng)
+    m2cfg = m2.Mamba2Config(**MAMBA2_27B)
+    u = 0.5 * torch.randn((1, MAMBA2_L, m2cfg.d_model), generator=rng)
+    steps = 0.5 * torch.randn((1, MAMBA2_STEPS, m2cfg.d_model), generator=rng)
+
+    def mamba2_run(p, where):
+        y, st = m2.mamba2_forward(p, m2cfg, u.to(where), return_state=True)
+        ys = []
+        for t in range(MAMBA2_STEPS):
+            y_t, st = m2.mamba2_step(p, m2cfg, steps[:, t].to(where), st)
+            ys.append(y_t)
+        return torch.cat([y.flatten(), torch.stack(ys, 1).flatten(), st.ssm.flatten()]).cpu()
+
+    cases = {t: base.replace(mm_projector_type=t) for t in (*PROJ_TOKENS, "identity")}
+    cases["mamba2"] = None
+    errs, controls = {}, {}
+    t0 = time.perf_counter()
+    for i, (name, cfg) in enumerate(cases.items()):
+        g = torch.Generator().manual_seed(62 + i)
+        if cfg is None:
+            params = m2.init_mamba2_params(g, m2cfg, device="cpu")
+            fn = mamba2_run
+        else:
+            params = clip_projector_params(cfg, g)
+            fn = (lambda c: lambda p, where: simple_project(p, c, feats.to(where)).cpu())(cfg)
+        with torch.no_grad():
+            ref = fn(params, "cpu")
+            card = tree_map(lambda t: t.to(dev), params)
+            out = {}
+            for run, tf32 in (("card", False), ("card_tf32", True)):
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                torch.backends.cudnn.allow_tf32 = tf32
+                out[run] = fn(card, dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        errs[name] = excess(out["card"], ref, *PROJ_PARITY_TOL)
+        controls[name] = excess(out["card_tf32"], ref, *PROJ_PARITY_TOL)
+        if not torch.isfinite(ref).all() or ref.shape != out["card"].shape:
+            raise RuntimeError(f"projectors parity {name}: {tuple(ref.shape)} vs "
+                               f"{tuple(out['card'].shape)}")
+        del params, card, ref, out
+        torch.cuda.empty_cache()
+    tol = tol_text(PROJ_PARITY_TOL, "fp32")
+    log("parity", f"projectors ({PROJ_PARITY_FRAMES} frames, StreamMind-7B widths) and a Mamba-2 "
+                  f"block (mamba2-2.7b widths, L {MAMBA2_L} + {MAMBA2_STEPS} steps), fp32 "
+                  f"({time.perf_counter() - t0:.1f} s): (max |cpu - card|, excess over [{tol}]) = "
+                  f"{errs}")
+    crossed = sorted(n for n, (_, over) in controls.items() if over > 0)
+    log("parity", f"projectors: control, TF32 on (matmul and cuDNN): {controls}; over the limit: "
+                  f"{crossed}")
+    if any(over > 0 for _, over in errs.values()):
+        raise RuntimeError(f"projectors: CPU (fp32) and card disagree: {errs}")
+    if not crossed:
+        raise RuntimeError("projectors: the parity limit does not see TF32 on the card")
+    return dict(errs=errs, controls=controls)
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "streammind_torch" / "__init__.py").exists():
@@ -3867,11 +4298,13 @@ def main() -> int:
     model, tok, processor, api_run = run("api", api_phase, engine, g, dev)
     worker = run("worker", worker_phase, model, tok, g, dev)
     evaluation = run("eval", eval_phase, model, tok, processor, dev)
+    projectors = run("projectors", projectors_phase, engine, g, dev)
     del engine, model
     torch.cuda.empty_cache()
     qwen2 = run("qwen2", qwen2_phase, dev)
     mixtral = run("mixtral", mixtral_phase, dev)
     run("decoders_parity", decoders_parity, dev)
+    run("projectors_parity", projectors_parity, dev)
     kernels["paged_attention"][0].append(check_paged_serving_case(dev, serving["attn_lengths"][3]))
     fast = run("fast", fast_phase, dev)
     run("fast_parity", fast_parity, dev)
@@ -3906,7 +4339,8 @@ def main() -> int:
                               "eval": evaluation["launches"][name],
                               "qlora": qlora["launches"][name],
                               "qwen2": qwen2["launches"][name],
-                              "mixtral": mixtral["launches"][name]},
+                              "mixtral": mixtral["launches"][name],
+                              "projectors": projectors["launches"][name]},
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"],
@@ -3922,7 +4356,7 @@ def main() -> int:
                     ("session", session), ("serving", serving), ("fast", fast),
                     ("train", training), ("api", api_run), ("worker", worker),
                     ("eval", evaluation), ("qlora", qlora), ("qwen2", qwen2),
-                    ("mixtral", mixtral))},
+                    ("mixtral", mixtral), ("projectors", projectors))},
                 hgmma=hgmma[src.split("/")[-1][:-3]], ms_over_bound=head["ms_over_bound"],
                 timing="CUDA graph replay (device time); eager_ms in cases")
     print(json.dumps({"kernels": entries}), flush=True)

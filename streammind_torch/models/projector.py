@@ -1,16 +1,22 @@
-"""The Video_Mamba_seq projector (StreamMind's default) and its gate LM.
+"""Multimodal projectors: Video_Mamba_seq (StreamMind's default), its gate
+LM, and the VideoLLaMA2 baselines.
 
-Per frame: spatial mean-pool 576→1 token, PreNet linear + leaky-relu,
-a VideoMamba step with carried state, PostNet leaky-relu + linear; the
-gate (ClsNet) is a small Mistral with a 2-token vocabulary, run on the
-newest memory token alone; a burst of frames after a stall continues the
-carried state in one chunked scan (``mamba_project_chunk``).  Only the
-``"mamba"`` projector type is ported.
-Training adds ``project_memory`` (the whole clip at once) and the
-class-weighted ``gate_loss``.
+Video_Mamba_seq, per frame: spatial mean-pool 576→1 token, PreNet linear +
+leaky-relu, a VideoMamba step with carried state, PostNet leaky-relu +
+linear; the gate (ClsNet) is a small Mistral with a 2-token vocabulary, run
+on the newest memory token alone; a burst of frames after a stall continues
+the carried state in one chunked scan (``mamba_project_chunk``).
+
+The other types project a whole clip (``simple_project``): the STC / STP
+connectors and their spatial (depth-0) forms (``models/connectors.py``),
+each with an embedded gate LM, and linear / mlpNx_gelu / identity over the
+clip's mean over time.  ``project_memory`` dispatches by type;
+``projected_token_count`` gives the memory tokens one clip projects to.
+Training adds the class-weighted ``gate_loss``.
 """
 from __future__ import annotations
 
+import re
 from typing import Optional, Tuple
 
 import torch
@@ -18,6 +24,7 @@ import torch.nn.functional as F
 
 from ..config import StreamMindConfig
 from ..utils.params import linear, torch_linear_init
+from . import connectors
 from . import mistral as lm
 from .mamba import MambaState, init_video_mamba_params, video_mamba_forward, video_mamba_step
 
@@ -36,19 +43,48 @@ def check_mamba_width(cfg: StreamMindConfig) -> None:
             f"{cfg.text.hidden_size}")
 
 
+# STC-family type → stc_forward's variant; spatial type → (init, forward)
+_CONNECTORS = {
+    "stc_connector": "stc", "stp_connector": "stp", "stc_connector_v35": "stc_v35",
+}
+_SPATIAL = {
+    "spatial_conv": (connectors.init_spatial_conv, connectors.spatial_conv_forward),
+    "spatial_pool": (connectors.init_spatial_pool, connectors.spatial_pool_forward),
+}
+_MLP = re.compile(r"^mlp(\d+)x_gelu$")
+
+
 def init_projector_params(g: torch.Generator, cfg: StreamMindConfig, device="cuda",
                           dtype=torch.float32):
-    if cfg.mm_projector_type != "mamba":
-        raise NotImplementedError(f"projector type {cfg.mm_projector_type!r} is not ported")
-    check_mamba_width(cfg)
+    t = cfg.mm_projector_type
     d_in, d_out = cfg.mm_hidden_size, cfg.text.hidden_size
     kw = dict(device=device, dtype=dtype)
-    return {
-        "pre_net": torch_linear_init(g, d_out, d_in, **kw),
-        "mamba": init_video_mamba_params(g, cfg.mamba, **kw),
-        "post_net": torch_linear_init(g, d_out, d_out, **kw),
-        "cls_net": lm.init_text_params(g, cfg.gate, **kw),
-    }
+    if t == "mamba":
+        check_mamba_width(cfg)
+        return {
+            "pre_net": torch_linear_init(g, d_out, d_in, **kw),
+            "mamba": init_video_mamba_params(g, cfg.mamba, **kw),
+            "post_net": torch_linear_init(g, d_out, d_out, **kw),
+            "cls_net": lm.init_text_params(g, cfg.gate, **kw),
+        }
+    if t == "linear":
+        return {"proj": torch_linear_init(g, d_out, d_in, **kw)}
+    m = _MLP.match(t)
+    if m:
+        depth = int(m.group(1))
+        return {"mlp": [torch_linear_init(g, d_out, d_in if i == 0 else d_out, **kw)
+                        for i in range(depth)]}
+    if t == "identity":
+        return {}
+    if t in _CONNECTORS:
+        p = connectors.init_stc_connector(g, cfg, variant=_CONNECTORS[t], **kw)
+    elif t in _SPATIAL:
+        p = _SPATIAL[t][0](g, cfg, **kw)
+    else:
+        raise ValueError(f"Unknown projector type: {t}")
+    # every connector embeds a gate LM, as the reference's do
+    p["cls_net"] = lm.init_text_params(g, cfg.gate, **kw)
+    return p
 
 
 def spatial_pool(frames_features: torch.Tensor) -> torch.Tensor:
@@ -77,17 +113,59 @@ def mamba_project_chunk(params, cfg: StreamMindConfig, frames_features: torch.Te
     return x, state
 
 
+_PROJ_COUNT_MEMO: dict = {}
+
+
+def projected_token_count(cfg: StreamMindConfig, t: int, n_patches: int) -> int:
+    """How many memory tokens one <video> slot of t frames of n_patches
+    patches expands to: t for the mamba projector; for the other types the
+    token axis of ``simple_project``'s output, found by running it on
+    shape-only ("meta") tensors, so the splice plan is sized before any
+    device work."""
+    ty = cfg.mm_projector_type
+    if ty == "mamba":
+        return t
+    key = (ty, cfg.mm_hidden_size, cfg.text.hidden_size, t, n_patches)
+    if key not in _PROJ_COUNT_MEMO:
+        params = init_projector_params(torch.Generator(), cfg, device="meta")
+        feats = torch.empty((1, t, n_patches, cfg.mm_hidden_size), device="meta")
+        _PROJ_COUNT_MEMO[key] = int(simple_project(params, cfg, feats).shape[1])
+    return _PROJ_COUNT_MEMO[key]
+
+
 def project_memory(params, cfg: StreamMindConfig, frames_features: torch.Tensor,
                    impl: str = "auto") -> torch.Tensor:
-    """Full-clip projection (B, T, N, H) → (B, T, hidden) memory tokens, one a
-    frame.  ``impl`` is the scan's: "auto" (differentiable, for training) or
-    "pallas" (the scan kernel, for inference).  Only the mamba projector is
-    ported."""
-    if cfg.mm_projector_type != "mamba":
-        raise NotImplementedError(
-            f"projector type {cfg.mm_projector_type!r} is not ported (ROADMAP Queue 1 item 14)")
-    memory, _ = mamba_project(params, cfg, frames_features, impl=impl)
-    return memory
+    """Full-clip projection (B, T, N, H) → (B, M, hidden) memory tokens (M =
+    ``projected_token_count``).  For the mamba projector, one token a frame
+    and ``impl`` is the scan's: "auto" (differentiable, for training) or
+    "pallas" (the scan kernel, for inference); the other types go through
+    ``simple_project`` and ignore ``impl``."""
+    if cfg.mm_projector_type == "mamba":
+        memory, _ = mamba_project(params, cfg, frames_features, impl=impl)
+        return memory
+    return simple_project(params, cfg, frames_features)
+
+
+def simple_project(params, cfg: StreamMindConfig, frames_features: torch.Tensor) -> torch.Tensor:
+    """Every non-mamba type over (B, T, N, H) frame features: the connectors
+    over the whole clip; linear / mlpNx_gelu / identity over its mean over
+    time (B, N, H)."""
+    t = cfg.mm_projector_type
+    if t in _CONNECTORS:
+        return connectors.stc_forward(frames_features, params, variant=_CONNECTORS[t])
+    if t in _SPATIAL:
+        return _SPATIAL[t][1](frames_features, params)
+    video_features = frames_features.mean(dim=1)
+    if t == "identity":
+        return video_features
+    if t == "linear":
+        return linear(video_features, params["proj"])
+    if not _MLP.match(t):
+        raise ValueError(f"Unknown projector type: {t}")
+    x = linear(video_features, params["mlp"][0])
+    for layer in params["mlp"][1:]:
+        x = linear(F.gelu(x), layer)
+    return x
 
 
 def mamba_project_step(params, cfg: StreamMindConfig, frame_features: torch.Tensor,

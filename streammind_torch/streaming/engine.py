@@ -66,6 +66,17 @@ def _float_dtype(tree) -> torch.dtype:
     return first if first is not None else torch.bfloat16
 
 
+def require_streaming_projector(cfg: StreamMindConfig, what: str) -> None:
+    """Streaming perception needs the mamba projector's per-frame step (its
+    pre_net, carried Mamba state and gate); raise ``ValueError`` for any
+    other type before a frame is taken.  (The JAX package fails later, with
+    a KeyError at the first frame.)"""
+    if cfg.mm_projector_type != "mamba":
+        raise ValueError(f"{what} streams through the mamba projector's per-frame step; "
+                         f"mm_projector_type={cfg.mm_projector_type!r} projects whole clips "
+                         "only (use api.infer / x_infer)")
+
+
 def top_stable(values: np.ndarray, n: int) -> np.ndarray:
     """``np.argsort(-values, kind="stable")[:n]`` without sorting every
     value: the n-th largest value bounds the set, and only that set is
@@ -730,6 +741,7 @@ class StreamSession:
         sample_type: str = "all",
         sample_per: float = 0.5,
     ):
+        require_streaming_projector(engine.cfg, "StreamSession")
         self.engine = engine
         self.tokenizer = tokenizer
         self.max_new_tokens = max_new_tokens

@@ -29,6 +29,7 @@ from .engine import (
     ensure_turn_capacity,
     post_turn_pending,
     rebuild_history_pending,
+    require_streaming_projector,
     run_cognition_turn,
     split_kv_cache,
     stack_kv_caches,
@@ -74,6 +75,7 @@ class MultiStreamServer:
         defaults to half the dense-equivalent page count, and on pool
         pressure the capacity guard resets dialogues with their recent
         turns re-carried as text."""
+        require_streaming_projector(engine.cfg, "MultiStreamServer")
         self.engine = engine
         self.capacity = capacity
         self.batch_cognition = batch_cognition

@@ -144,18 +144,23 @@ def _encode_video(video: np.ndarray, t_bucket: int, cfg, vision_params, device):
 def _plan_geometry(sample, cfg, stage: str, frame_bucket=None):
     """(t, frame_bucket, spans) shared by the batch builders and
     _natural_buckets: frame truncation (the last frames are kept), the frame
-    bucket, and the splice span of each <video> slot (one memory token a
-    frame); spans is None for cls rows."""
-    if cfg.mm_projector_type != "mamba":
-        raise NotImplementedError(
-            f"projector type {cfg.mm_projector_type!r} is not ported (ROADMAP Queue 1 item 14)")
+    bucket, and the splice span of each <video> slot; spans is None for cls
+    rows.  Mamba: one memory token a frame, frames padded to a bucket.  The
+    other types: the frame count is the bucket (they are trained at a fixed
+    frame count) and the span is ``projected_token_count`` of it."""
+    from ..models.projector import projected_token_count
+
+    mamba = cfg.mm_projector_type == "mamba"
     video = np.asarray(sample["video"])
     t = min(video.shape[0], FRAME_BUCKETS[-1])
-    fb = frame_bucket or bucket_length(t, FRAME_BUCKETS)
+    fb = frame_bucket or (bucket_length(t, FRAME_BUCKETS) if mamba else t)
     t = min(t, fb)
     if stage == "cls":
         return t, fb, None
     if "span_frames" in sample and "modal" not in sample:
+        if not mamba:
+            raise ValueError("multi-turn streaming samples need one memory token a frame "
+                             f"(mm_projector_type='mamba'); got {cfg.mm_projector_type!r}")
         # multi-turn samples: shrink spans from the front (earliest turns),
         # never below 1 a slot, so the slot count keeps matching the ids
         spans = list(sample["span_frames"])
@@ -167,7 +172,15 @@ def _plan_geometry(sample, cfg, stage: str, frame_bucket=None):
             drop -= take
             i += 1
         return t, fb, spans
-    return t, fb, [t]
+    if mamba:
+        return t, fb, [t]
+    if video.ndim == 3:  # pre-extracted features carry their patch count
+        n_patches = video.shape[1]
+    else:
+        n_patches = (cfg.vision.image_size // cfg.vision.patch_size) ** 2
+        if cfg.vision.select_feature == "cls_patch":
+            n_patches += 1  # the CLS token is kept
+    return t, fb, [projected_token_count(cfg, fb, n_patches)]
 
 
 def _truncate_to_cap(ids, labels, spans):
@@ -280,6 +293,13 @@ def make_microbatch(samples, cfg, vision_params, stage: str, pad_to: int = 0, de
     if pad_to > n_real:
         samples = list(samples) + [samples[0]] * (pad_to - n_real)
     metas = [_natural_buckets(s, cfg, stage) for s in samples]
+    if cfg.mm_projector_type != "mamba":
+        fbs = {m[0] for m in metas if m[0]}
+        if len(fbs) > 1:
+            raise ValueError(
+                f"mm_projector_type={cfg.mm_projector_type!r} needs one frame count a batch "
+                f"(its memory-token count depends on the frame axis it convolves or pools "
+                f"over); got {sorted(fbs)}")
     fb = max(m[0] for m in metas) or None
     tb = max(m[1] for m in metas) or None
     rows, kind = [], "cls" if stage == "cls" else "media"

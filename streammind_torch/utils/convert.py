@@ -15,8 +15,11 @@ read by the small reader below (JSON header, then the byte ranges), so no
 and reshaping; a cast to the target dtype goes through fp32, so an fp32 →
 bf16 conversion rounds as the JAX package's ``astype(jnp.bfloat16)`` does
 (to nearest, ties to even).  The decoder may be Mistral / Llama, Qwen2 or
-Mixtral; only the mamba projector is converted: the other projector types
-wait for ROADMAP Queue 1 item 14.
+Mixtral; the projector any of cfg.mm_projector_type's types: the mamba
+projector (Video_Mamba_seq naming), the STC / STP / v35 connectors and
+their spatial (depth-0) forms (timm RegStage naming, with the embedded gate
+LM), linear and mlpNx_gelu (nn.Linear / nn.Sequential naming) and
+identity.
 """
 from __future__ import annotations
 
@@ -226,13 +229,94 @@ def convert_projector(sd: Dict, cfg: StreamMindConfig, dtype=torch.float32) -> D
     return out
 
 
+def convert_stc_connector(sd: Dict, depth: int = 4, mlp_depth: int = 2, variant: str = "stc",
+                          dtype=torch.float32) -> Dict:
+    """A timm-style STCConnector state dict → the connectors tree.  The
+    reference builds its RegStages with LayerNorm2d, which timm still names
+    'bn'.  Keys: s{1,2}.b{n}.conv{1,2,3}.{conv.weight,bn.weight,bn.bias},
+    .se.fc{1,2}.{weight,bias}, .downsample.{conv.weight,bn.*} (where the
+    width changes), sampler.0.{weight,bias} (the conv variants) and
+    readout.{0,2,...}.{weight,bias}; the embedded gate (cls_net.*) is left
+    to the caller."""
+    def g(k):
+        return _cast(sd[k], dtype)
+
+    def affine(k):
+        return {"weight": g(k + ".weight"), "bias": g(k + ".bias")}
+
+    def block(prefix):
+        p = {
+            "conv1": g(prefix + ".conv1.conv.weight"),
+            "ln1": affine(prefix + ".conv1.bn"),
+            "conv2": g(prefix + ".conv2.conv.weight"),
+            "ln2": affine(prefix + ".conv2.bn"),
+            "se_fc1": g(prefix + ".se.fc1.weight"),
+            "se_fc1_bias": g(prefix + ".se.fc1.bias"),
+            "se_fc2": g(prefix + ".se.fc2.weight"),
+            "se_fc2_bias": g(prefix + ".se.fc2.bias"),
+            "conv3": g(prefix + ".conv3.conv.weight"),
+            "ln3": affine(prefix + ".conv3.bn"),
+        }
+        if prefix + ".downsample.conv.weight" in sd:
+            p["proj"] = g(prefix + ".downsample.conv.weight")
+            p["proj_ln"] = affine(prefix + ".downsample.bn")
+        return p
+
+    out = {
+        "s1": [block(f"s1.b{i + 1}") for i in range(depth)],
+        "s2": [block(f"s2.b{i + 1}") for i in range(depth)],
+        "readout": [affine(f"readout.{2 * i}") for i in range(mlp_depth)],
+    }
+    if variant in ("stc", "stc_v35"):
+        out["sampler"] = affine("sampler.0")
+    return out
+
+
+def convert_simple_projector(sd: Dict, cfg: StreamMindConfig, dtype=torch.float32) -> Dict:
+    """linear / mlpNx_gelu projector state dicts: a bare nn.Linear
+    ({weight, bias}) or an nn.Sequential with GELUs between ({0,2,4,...}.*)."""
+    t = cfg.mm_projector_type
+    if t == "linear":
+        return {"proj": {"weight": _cast(sd["weight"], dtype), "bias": _cast(sd["bias"], dtype)}}
+    m = re.match(r"^mlp(\d+)x_gelu$", t)
+    if not m:
+        raise ValueError(f"not a simple projector type: {t!r}")
+    return {"mlp": [{"weight": _cast(sd[f"{2 * i}.weight"], dtype),
+                     "bias": _cast(sd[f"{2 * i}.bias"], dtype)} for i in range(int(m.group(1)))]}
+
+
+_CONNECTOR_VARIANTS = {"stc_connector": ("stc", 4), "stp_connector": ("stp", 4),
+                       "stc_connector_v35": ("stc_v35", 4), "spatial_conv": ("stc", 0),
+                       "spatial_pool": ("stp", 0)}
+
+
 def convert_projector_dispatch(sd: Dict, cfg: StreamMindConfig, dtype=torch.float32) -> Dict:
-    """The converter of cfg.mm_projector_type; only "mamba" is ported."""
-    if cfg.mm_projector_type == "mamba":
+    """The converter of cfg.mm_projector_type.  The keys may carry the
+    ``model.mm_projector.`` or ``mm_projector.`` prefix; a connector's
+    embedded gate (``cls_net.cls_model.*``, HF Mistral naming) becomes
+    ``projector["cls_net"]``."""
+    t = cfg.mm_projector_type
+    if t == "mamba":
         return convert_projector(sd, cfg, dtype)
-    raise NotImplementedError(
-        f"mm_projector_type={cfg.mm_projector_type!r} checkpoints are not converted yet "
-        "(ROADMAP Queue 1 item 14); only the mamba projector is ported")
+    psd = dict(sd)
+    for candidate in ("model.mm_projector.", "mm_projector."):
+        if any(k.startswith(candidate) for k in sd):
+            psd = _strip(sd, candidate)
+            break
+    if t in _CONNECTOR_VARIANTS:
+        variant, depth = _CONNECTOR_VARIANTS[t]
+        out = convert_stc_connector(psd, depth=depth, variant=variant, dtype=dtype)
+        cls_sd = _strip(psd, "cls_net.cls_model.")
+        if cls_sd:
+            out["cls_net"] = convert_hf_text(cls_sd, cfg.gate, dtype)
+        return out
+    if t == "identity":
+        return {}
+    if t == "linear" or re.match(r"^mlp(\d+)x_gelu$", t):
+        return convert_simple_projector(psd, cfg, dtype)
+    raise ValueError(
+        f"no converter for mm_projector_type={t!r} checkpoints; use one of mamba, linear, "
+        "mlpNx_gelu, stc/stp/v35 connectors, spatial_conv/spatial_pool or identity")
 
 
 # ---------------------------------------------------------------------------

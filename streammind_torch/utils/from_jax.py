@@ -1,8 +1,9 @@
 """Carry a JAX-package param tree over to this package.
 
 The two packages share one tree layout, so the conversion is leaf by
-leaf: nested dicts (and the Mamba ``blocks`` list) of numpy arrays become
-the same structure of tensors.  Both the separate ``q/k/v`` and ``gate/up``
+leaf: nested dicts and lists (the Mamba ``blocks``, the connectors'
+``s1`` / ``s2`` stages and ``readout``, the MLP projector's ``mlp``) of
+numpy arrays become the same structure of tensors.  Both the separate ``q/k/v`` and ``gate/up``
 leaves and the fused ``qkv``/``gateup`` leaves pass through unchanged, as
 do Qwen2's q/k/v biases, Mixtral's router and (L, E, F, D) expert banks
 and quantized leaves (``w_int8``, ``w_int4``, ``w_int4pc`` and their
@@ -16,9 +17,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-# Leaves the JAX package keeps in fp32 whatever the tree's dtype:
-# Mamba's A_log and D, and quantization scales (per channel and per group).
-_KEEP_FP32 = frozenset({"A_log", "D", "scale", "scale4"})
+# Leaves the JAX package keeps in fp32 whatever the tree's dtype: Mamba's
+# A_log and D, Mamba-2's dt_bias, and quantization scales (per channel and
+# per group).
+_KEEP_FP32 = frozenset({"A_log", "D", "dt_bias", "scale", "scale4"})
 
 
 def array_to_tensor(a) -> torch.Tensor:
@@ -43,7 +45,8 @@ def _tensor(a, device, dtype: Optional[torch.dtype], name: str) -> torch.Tensor:
 def params_from_numpy(tree, device="cuda", dtype: Optional[torch.dtype] = None,
                       _name: str = ""):
     """Numpy param tree → tensor tree on ``device``.  ``dtype`` casts the
-    floating leaves (except A_log, D and the scales, which stay fp32); None
+    floating leaves (except A_log, D, dt_bias and the scales, which stay
+    fp32); None
     keeps each leaf's own dtype."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype, k) for k, v in tree.items()}

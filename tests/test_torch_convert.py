@@ -7,8 +7,8 @@ equal at fp32 and at bf16, stored as fp32 or as bf16.  Also: the three
 checkpoint layouts (full SFT, base + mm_projector.bin, LoRA), the trainer
 artifact skip list, the port's own safetensors reader against the
 safetensors package, the mm_projector.bin export against the released
-manifest, model_init from a checkpoint directory, and the configs the port
-refuses (other projectors: item 14).
+manifest, model_init from a checkpoint directory, and the other projector
+types' state dicts through the dispatch.
 """
 import dataclasses
 import json
@@ -321,8 +321,7 @@ def test_unported_configs_raise_before_converting(tmp_path):
     Qwen2ForCausalLM and MixtralForCausalLM state dicts (q/k/v biases; the
     block_sparse_moe router and w1/w3/w2 experts) bitwise as the JAX
     package converts them, at fp32 and bf16, and a Mixtral full-SFT
-    checkpoint directory through convert_streammind_checkpoint.  The other
-    projector types are still refused (item 14)."""
+    checkpoint directory through convert_streammind_checkpoint."""
     base = tconfig.tiny_streammind_config()
     small = dict(vocab_size=96, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
                  num_attention_heads=4, num_key_value_heads=2)
@@ -347,9 +346,35 @@ def test_unported_configs_raise_before_converting(tmp_path):
             assert tree["text"]["layers"]["experts"]["down"].shape == (2, 4, 64, 128)
             assert torch.equal(tree["text"]["layers"]["experts"]["up"][1, 3],
                                sd["model.layers.1.block_sparse_moe.experts.3.w3.weight"])
-    for ptype in ("linear", "mlp2x_gelu", "stc_connector", "identity"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            tconv.convert_projector_dispatch({}, base.replace(mm_projector_type=ptype))
+
+
+@pytest.mark.parametrize("ptype", ["linear", "mlp2x_gelu", "stc_connector", "identity"])
+def test_convert_projector_dispatch_other_types_bitwise(ptype):
+    """The projector types once refused here convert bitwise as the JAX
+    package's dispatch converts them, from the released layouts under the
+    model.mm_projector. prefix (STC: timm's names, the gate embedded)."""
+    from test_torch_connectors import connector_state_dict, gate_state_dict
+
+    tcfg = tconfig.tiny_streammind_config().replace(mm_projector_type=ptype)
+    jcfg = tiny_streammind_config().replace(mm_projector_type=ptype)
+    h, d = tcfg.text.hidden_size, tcfg.mm_hidden_size
+    rng = np.random.default_rng(8)
+    if ptype == "stc_connector":
+        sd, _ = connector_state_dict(ptype)
+        sd.update({f"cls_net.cls_model.{k}": v for k, v in gate_state_dict(tcfg).items()})
+    else:
+        shapes = {"linear": {"weight": (h, d), "bias": (h,)},
+                  "mlp2x_gelu": {"0.weight": (h, d), "0.bias": (h,), "2.weight": (h, h),
+                                 "2.bias": (h,)},
+                  "identity": {}}[ptype]
+        sd = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for k, s in shapes.items()}
+    sd = {f"model.mm_projector.{k}": v for k, v in sd.items()}
+    for dtype in (torch.float32, torch.bfloat16):
+        t = tconv.convert_projector_dispatch(sd, tcfg, dtype)
+        _assert_trees_bitwise(t, jconv.convert_projector_dispatch(_sd_numpy(sd), jcfg,
+                                                                  JAX_DTYPE[dtype]))
+    assert ("cls_net" in t) == (ptype == "stc_connector") and (t == {}) == (ptype == "identity")
 
 
 def test_model_init_from_checkpoint_matches_jax(tmp_path):

@@ -325,6 +325,101 @@ def test_train_runs_each_stage_and_resumes(trees, tmp_path, monkeypatch, stage):
     assert again.step == 4 and len(applies) == 4
 
 
+def _sft_dataset(pkg, tmp, cfg, frames=(4, 4)):
+    """The vllava SFT records of the JAX package's own test (a video, a
+    text-only turn, and a second video), frames seeded by the loader (each
+    video its own count from ``frames``)."""
+    mod = importlib.import_module(f"{pkg}.data.sft")
+    records = [
+        {"id": "m", "video": "a.mp4", "conversations": [
+            {"from": "human", "value": "<video>\ndescribe"},
+            {"from": "gpt", "value": "things happen"}]},
+        {"id": "t", "conversations": [
+            {"from": "human", "value": "hello there"}, {"from": "gpt", "value": "hi friend"}]},
+        {"id": "n", "video": "b.mp4", "conversations": [
+            {"from": "human", "value": "<video>\nwhat next"},
+            {"from": "gpt", "value": "a goal"}]},
+    ]
+    path = os.path.join(str(tmp), "sft.json")
+    with open(path, "w") as f:
+        json.dump(records, f)
+
+    def loader(media, is_video):
+        n = frames[media.endswith("b.mp4")] if is_video else 1
+        return np.random.default_rng(len(media)).standard_normal(
+            (n, 3, cfg.vision.image_size, cfg.vision.image_size)).astype(np.float32)
+
+    return mod.VideoLLaVASFTDataset(path, str(tmp), SPLikeTokenizer(), frame_loader=loader)
+
+
+def _metric_losses(out):
+    with open(os.path.join(str(out), "logs", "metrics.jsonl")) as f:
+        return [json.loads(line)["train/loss"] for line in f]
+
+
+@pytest.mark.parametrize("ptype", ["stc_connector", "linear", "mlp2x_gelu"])
+def test_train_clip_projectors_matches_jax(tmp_path, monkeypatch, ptype):
+    """train() on the llm stage over an SFT set (video and text-only records)
+    with a clip projector, from one carried-over tree, in both packages: the
+    splice spans are the projector's own token count, and the per-step
+    losses agree (1e-5 relative: the same steps of the optimizer)."""
+    jcfg = tiny_streammind_config().replace(mm_projector_type=ptype)
+    tcfg = tconfig.tiny_streammind_config().replace(mm_projector_type=ptype)
+    jp = j_init(jax.random.PRNGKey(3), jcfg)
+    tp = _port_tree(jp)  # before JAX's train(), which donates jp's buffers
+    monkeypatch.setattr(jrun, "init_streammind_params", lambda *a, **k: jp)
+    monkeypatch.setattr(trun, "init_streammind_params", lambda *a, **k: tp)
+    jargs = importlib.import_module("streammind_tpu.train.args")
+    steps = 3
+    losses = {}
+    for pkg, args, run in (("streammind_tpu", jargs, jrun),
+                           ("streammind_torch", importlib.import_module(
+                               "streammind_torch.train.args"), trun)):
+        out = tmp_path / pkg
+        extra = dict(device="cpu") if pkg == "streammind_torch" else {}
+        ta = args.TrainingArguments(output_dir=str(out), learning_rate=1e-3, bf16=False,
+                                    save_steps=10, logging_steps=1, max_steps=steps,
+                                    resume=False, **extra)
+        state = run.train(args.ModelArguments(mm_projector_type=ptype, train_skip_cls=False),
+                          args.DataArguments(dataset="sft", score_dataset_train_llm=True,
+                                             num_workers=1),
+                          ta, dataset=_sft_dataset(pkg, tmp_path, jcfg),
+                          cfg=jcfg if pkg == "streammind_tpu" else tcfg)
+        assert int(state.step) == steps
+        losses[pkg] = _metric_losses(out)
+    assert len(losses["streammind_torch"]) == steps
+    np.testing.assert_allclose(losses["streammind_torch"], losses["streammind_tpu"], **LOSS)
+
+
+def test_clip_projector_batches_refuse_mixed_frame_counts(tmp_path):
+    """A clip projector's token count depends on the frame count: two videos
+    of 4 and 6 frames in one microbatch are refused, as in the JAX package;
+    the mamba projector pads them to one frame bucket."""
+    jcfg, tcfg = (c.replace(mm_projector_type="stc_connector")
+                  for c in (tiny_streammind_config(), tconfig.tiny_streammind_config()))
+    samples = [s for s in (_sft_dataset("streammind_torch", tmp_path, jcfg, frames=(4, 6))[i]
+                           for i in (0, 2))]
+    vision = _port_tree(j_init(jax.random.PRNGKey(0), tiny_streammind_config()))["vision"]
+    with pytest.raises(ValueError, match="frame count"):
+        trun.make_microbatch(samples, tcfg, vision, "llm")
+    kind, batch = trun.make_microbatch(samples, tconfig.tiny_streammind_config(), vision, "llm")
+    assert kind == "media" and batch["frames"].shape[:2] == (2, 8)
+    # multi-turn streaming samples need one memory token a frame
+    streaming = {"video": np.zeros((4, 3, 56, 56), np.float32), "span_frames": [2, 2]}
+    with pytest.raises(ValueError, match="multi-turn"):
+        trun._plan_geometry(streaming, tcfg, "llm")
+
+
+def test_cls_stage_refuses_clip_projectors(trees, tmp_path):
+    """The gate stage trains the mamba projector's gate: a clip projector is
+    refused by name before any weight is made (ValueError naming "mamba")."""
+    _, tcfg, _ = trees
+    ds = FakeScoreDataset(SPLikeTokenizer(), tcfg, n=2)
+    with pytest.raises(ValueError, match="mamba"):
+        trun.train(*_args(tmp_path, "cls"), dataset=ds,
+                   cfg=tcfg.replace(mm_projector_type="stc_connector"))
+
+
 def test_copy_decoder_layers_into_gate_matches_jax(trees):
     jcfg, tcfg, jp = trees
     jout = jrun.copy_decoder_layers_into_gate(jax.tree.map(jnp.copy, jp), jcfg)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's main path goes, on one CUDA card.
 
-    python3 tools/torch_profile.py
+    python3 tools/torch_profile.py [--only stc_projection]
 
 Builds StreamMind-7B in bf16 from a seed (as ``chip_smoke.py`` does: exact
 ViT attention, int4 gate), warms up one forced turn, then runs five
@@ -26,7 +26,11 @@ gradients of the LoRA factors and the projector).  For each region it
 prints one JSON line:
 host wall time (synchronized), the device's busy time (the sum of kernel
 and copy times the profiler saw), the idle share, the number of device
-operations, and the ten device operations that took the most time.
+operations, and the ten device operations that took the most time.  Last
+(or alone, with ``--only stc_projection``), the STC connector of
+VideoLLaMA2-7B (``mm_projector_type="stc_connector"`` at StreamMind-7B's
+widths, bf16 from a seed) projecting one 8-frame clip: forward, and
+forward + backward as the adapter stage runs it.
 Imports nothing of JAX; fails without a CUDA card.
 """
 from __future__ import annotations
@@ -89,12 +93,23 @@ def profiled(name, fn, reps=1, units=None):
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", choices=["stc_projection"], default=None,
+                    help="profile this region alone")
+    only = ap.parse_args().only
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    if only == "stc_projection":
+        from streammind_torch.config import StreamMindConfig
+
+        stc_projection(StreamMindConfig(), "cuda")
+        return 0
 
     from streammind_torch.config import StreamMindConfig
     from streammind_torch.constants import VIDEO_TOKEN_INDEX
@@ -179,7 +194,39 @@ def main() -> int:
     train_microbatch(cfg, dev)
     torch.cuda.empty_cache()
     qlora_microbatch(cfg, dev)
+    torch.cuda.empty_cache()
+    stc_projection(cfg, dev)
     return 0
+
+
+STC_FRAMES = 8  # VideoLLaMA2's frames a clip
+
+
+def stc_projection(cfg, dev):
+    """The STC connector over one clip of STC_FRAMES frames of 576 patches
+    (its gate LM, which the projection does not read, left out): three
+    forwards under no_grad, then one forward + backward to the features'
+    and the connector's gradients, each after a warm-up."""
+    from streammind_torch.models.projector import init_projector_params, project_memory
+    from streammind_torch.utils.params import tree_leaves
+
+    cfg = cfg.replace(mm_projector_type="stc_connector")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    proj = init_projector_params(g, cfg, device=dev, dtype=torch.bfloat16)
+    del proj["cls_net"]
+    feats = torch.empty((1, STC_FRAMES, 576, cfg.mm_hidden_size), device=dev,
+                        dtype=torch.bfloat16).normal_(generator=g)
+    with torch.no_grad():
+        project_memory(proj, cfg, feats)  # warm-up
+        profiled("stc_projection", lambda: project_memory(proj, cfg, feats), reps=3)
+    leaves = [t.requires_grad_() for t in tree_leaves(proj)]
+
+    def fwd_bwd():
+        out = project_memory(proj, cfg, feats)
+        return torch.autograd.grad(out.float().square().mean(), leaves)
+
+    fwd_bwd()  # warm-up
+    profiled("stc_projection_fwd_bwd", fwd_bwd)
 
 
 def fast_tier(cfg, dev):
