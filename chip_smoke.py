@@ -172,6 +172,28 @@ Phases, each of which raises (exit code != 0) on failure:
      and one Mamba-2 block at mamba2-2.7b's widths (a forward over 512
      tokens, then 4 steps), in fp32 on the CPU and the card (TF32 off for
      matmuls and cuDNN), within limits, and a TF32-on control;
+ 23. (last, every model freed) parallelism at world size 1: an NCCL process
+     group through ``utils/dist.init_process_group`` (a file:// rendezvous
+     under ``_smoke_parallel/``, no port), ``barrier``,
+     ``allgather_object``, ``allreduce_mean`` and a bf16 all_reduce,
+     all_gather_into_tensor and reduce_scatter_tensor; on its (1,1,1)
+     ``DeviceMesh``: every kernel of the sharded paths at the shapes one
+     rank of tp 2, 4 and 8 holds (flash forward and the training kernels at
+     (16, 4), (8, 2), (4, 1) heads, exact at 8, 4, 2 heads, the int8 and
+     int4 matvecs at the column and row shards of q, o, gate/up and down —
+     the int4 row shards repacked as placed, their ranks' fp32 products
+     summed against the whole — the scan at 4096, 2048, 1024 channels),
+     appended to the kernels line's cases; the phase 4 session through
+     ``StreamMindEngine(mesh=...)`` and the meshless engine on the same
+     frames, in turns (memory and logits within BF16_TOL, equal launches,
+     the greedy tokens that agree, ticks and decode ms/token); that session
+     in fp32 at the parity depths on the CPU and the card (tokens equal,
+     ``parity``'s limits, a TF32-on control); one Mixtral-8x7B MoE layer
+     (bf16, 64 tokens): the expert-parallel dispatch bitwise the grouped
+     one, and the rank bodies of tp 2 and 4 summed within BF16_TOL; 2
+     adapter steps of ``train()`` on the mesh (launches through
+     ``flash_mha_sharded``, peak memory), then the group destroyed and the
+     same 2 steps with no process group: losses within 1e-3;
 then the ``kernels`` JSON line (``launches`` from the serving phase for the
 inference kernels, from the training phase for the training kernels and from
 the fast phase for int8_matvec and selective_scan; ``tc_launches``, ``hgmma``
@@ -179,7 +201,7 @@ and ``ms_over_bound`` for the five tensor-core kernels, ``ms_over_bound`` for
 paged attention, the int8 and int4 matvecs, the scan and the paged write,
 whose launches are the paged attention's launches that wrote a token;
 ``launches_by_path`` of every kernel: session, serving, fast, train, api,
-worker, eval, qlora, qwen2, mixtral, projectors) and, last,
+worker, eval, qlora, qwen2, mixtral, projectors, parallel) and, last,
 the ``ok`` JSON line.  The fp32 parity phases must launch no tensor-core kernel.  It
 uses nothing of JAX; without a CUDA card it exits with an error before any
 result.
@@ -358,49 +380,44 @@ def excess(out, ref, atol: float, rtol: float):
     return float(d.max()), float((d - (atol + rtol * ref.float().abs())).max())
 
 
-# ---------------------------------------------------------------------------
-# phase 3: each kernel against its plain version
-# ---------------------------------------------------------------------------
-def check_kernels(dev):
+# flash: Mistral-7B prefill over a capacity-8192 cache (H 32/8, D 128) at
+# the buckets 64 and 2048 (B 1), and 32 and 512 with B 2 and a ragged,
+# nonzero q_offset (the second row's bucket padded by a few tokens); then
+# bucket 64 with a GQA group of 7 (Qwen2-7B's 28 / 4 heads); then the
+# api's one-shot prefill, bucket 128 from an empty cache; then the eval's
+# one-shot prefills over their whole bucket from an empty cache: LTA's
+# beams (32 frames, bucket 128), MCQA's and OQA's (8 frames, bucket 64);
+# then Qwen2-7B's (28 / 4 heads) session turns (bucket 64 from an empty
+# cache, bucket 32 at offset 52), its paged K = 3 prefill and its infer
+# (bucket 128; Mixtral-8x7B has Mistral-7B's heads); then the clip
+# projectors' one-shot infer prefill at bucket 1024 (STC's 845 memory
+# tokens, the 576 of STP, v35, linear and MLP; spatial_conv and
+# spatial_pool fill bucket 2048, the second case's shape)
+FLASH_SHAPES = ((64, [100], [150], 32, 8), (2048, [0], [2048], 32, 8),
+                (32, [100, 1517], [132, 1544], 32, 8),
+                (512, [388, 2000], [900, 2505], 32, 8),
+                (64, [100], [150], 28, 4),
+                (128, [0], [65], 32, 8), (128, [0], [128], 32, 8),
+                (64, [0], [64], 32, 8),
+                # Qwen2-7B at its group of 7: the session's two turns, the
+                # K = 3 batched prefill, infer's prefill
+                (64, [0], [64], 28, 4), (32, [52], [84], 28, 4),
+                (64, [0] * 3, [64] * 3, 28, 4),
+                (128, [0], [128], 28, 4),
+                (1024, [0], [1024], 32, 8))
+
+
+def flash_cases(dev, randn, shapes, tag=""):
+    """flash_attention against its plain version at each (bucket, q
+    offsets, kv lengths, heads, kv heads).  Sets of inputs: the caches are
+    overlapping views of one buffer, each starting past the rows the
+    previous one reads, so nothing is read warm.  Kernel and library are
+    timed by graph replay (the bf16 kernel runs in less time than its
+    wrapper's host work), the kernel eagerly as well."""
     from streammind_torch.ops import attention as A
 
-    g = torch.Generator(device=dev).manual_seed(1234)
-    bf16 = torch.bfloat16
-    results = {}
-
-    def randn(*shape, std=1.0):
-        return torch.empty(shape, device=dev, dtype=bf16).normal_(0.0, std, generator=g)
-
-    # flash: Mistral-7B prefill over a capacity-8192 cache (H 32/8, D 128) at
-    # the buckets 64 and 2048 (B 1), and 32 and 512 with B 2 and a ragged,
-    # nonzero q_offset (the second row's bucket padded by a few tokens); then
-    # bucket 64 with a GQA group of 7 (Qwen2-7B's 28 / 4 heads); then the
-    # api's one-shot prefill, bucket 128 from an empty cache; then the eval's
-    # one-shot prefills over their whole bucket from an empty cache: LTA's
-    # beams (32 frames, bucket 128), MCQA's and OQA's (8 frames, bucket 64);
-    # then Qwen2-7B's (28 / 4 heads) session turns (bucket 64 from an empty
-    # cache, bucket 32 at offset 52), its paged K = 3 prefill and its infer
-    # (bucket 128; Mixtral-8x7B has Mistral-7B's heads); then the clip
-    # projectors' one-shot infer prefill at bucket 1024 (STC's 845 memory
-    # tokens, the 576 of STP, v35, linear and MLP; spatial_conv and
-    # spatial_pool fill bucket 2048, the second case's shape).  Sets of inputs: the
-    # caches are overlapping views of one buffer, each starting past the rows
-    # the previous one reads, so nothing is read warm.
-    # Kernel and library are timed by graph replay (the bf16 kernel runs in
-    # less time than its wrapper's host work), the kernel eagerly as well.
     cases = []
-    for sq, q_offs, kv_lens, h, hkv in ((64, [100], [150], 32, 8), (2048, [0], [2048], 32, 8),
-                                        (32, [100, 1517], [132, 1544], 32, 8),
-                                        (512, [388, 2000], [900, 2505], 32, 8),
-                                        (64, [100], [150], 28, 4),
-                                        (128, [0], [65], 32, 8), (128, [0], [128], 32, 8),
-                                        (64, [0], [64], 32, 8),
-                                        # Qwen2-7B at its group of 7: the session's two
-                                        # turns, the K = 3 batched prefill, infer's prefill
-                                        (64, [0], [64], 28, 4), (32, [52], [84], 28, 4),
-                                        (64, [0] * 3, [64] * 3, 28, 4),
-                                        (128, [0], [128], 28, 4),
-                                        (1024, [0], [1024], 32, 8)):
+    for sq, q_offs, kv_lens, h, hkv in shapes:
         b = len(q_offs)
         visible = sum(min(n, off + i + 1) for off, n in zip(q_offs, kv_lens) for i in range(sq))
         rows = [min(n, off + sq) for off, n in zip(q_offs, kv_lens)]
@@ -433,17 +450,21 @@ def check_kernels(dev):
         del sets, lib_sets, kbuf, vbuf
         b_ms, b_by = bound(nbytes, 4.0 * 128 * h * visible, BF16_FLOPS)
         cases.append(dict(shape=f"q({b},{sq},{h},128) cache({b},8192,{hkv},128) q_offset={q_offs} "
-                                f"kv_len={kv_lens}", max_abs_err=err, ok=over <= 0, ms=ms,
+                                f"kv_len={kv_lens}{tag}", max_abs_err=err, ok=over <= 0, ms=ms,
                           eager_ms=eager, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                           bound_by=b_by))
-    results["flash_attention"] = (cases, BF16_TOL_TEXT)
+    return cases
 
-    # exact: the ViT-L/14-336 attention, q/k/v strided views of the fused qkv,
-    # at B 1 (a session's frame), 4 (the serving tick) and 8
+
+def exact_cases(dev, randn, batches, h=16, tag=""):
+    """exact_attention at the ViT-L/14-336's shape (577 tokens, D 64) with
+    ``h`` heads, q/k/v strided views of the fused qkv, at each batch."""
+    from streammind_torch.ops import attention as A
+
     cases = []
-    for b in (1, 4, 8):
-        nbytes = 4 * 2 * b * 577 * 16 * 64
-        qkvs = [randn(b, 577, 3, 16, 64) for _ in range(n_sets(nbytes))]
+    for b in batches:
+        nbytes = 4 * 2 * b * 577 * h * 64
+        qkvs = [randn(b, 577, 3, h, 64) for _ in range(n_sets(nbytes))]
         sets = [(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]) for qkv in qkvs]
         out = A.exact_attention(*sets[0])
         ref = A.exact_attention_ref(*sets[0])
@@ -459,11 +480,27 @@ def check_kernels(dev):
         # same inputs
         one_pass = cuda_ms([lambda s=s: A.flash_attention(*s) for s in sets], graph=True)
         del qkvs, sets, lib_sets
-        b_ms, b_by = bound(nbytes, 4.0 * b * 16 * 577 * 577 * 64, BF16_FLOPS)
-        cases.append(dict(shape=f"({b},577,16,64)", max_abs_err=err, ok=over <= 0, ms=ms,
+        b_ms, b_by = bound(nbytes, 4.0 * b * h * 577 * 577 * 64, BF16_FLOPS)
+        cases.append(dict(shape=f"({b},577,{h},64){tag}", max_abs_err=err, ok=over <= 0, ms=ms,
                           eager_ms=eager, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                           bound_by=b_by, one_pass_flash_ms=one_pass))
-    results["exact_attention"] = (cases, BF16_TOL_TEXT)
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain version
+# ---------------------------------------------------------------------------
+def check_kernels(dev):
+    g = torch.Generator(device=dev).manual_seed(1234)
+    bf16 = torch.bfloat16
+    results = {}
+
+    def randn(*shape, std=1.0):
+        return torch.empty(shape, device=dev, dtype=bf16).normal_(0.0, std, generator=g)
+
+    results["flash_attention"] = (flash_cases(dev, randn, FLASH_SHAPES), BF16_TOL_TEXT)
+    # exact at B 1 (a session's frame), 4 (the serving tick) and 8
+    results["exact_attention"] = (exact_cases(dev, randn, (1, 4, 8)), BF16_TOL_TEXT)
 
     results["int4_matvec"] = (int4_cases(dev, g) + int4_cases(
         dev, g, shapes=INT4_DECODER_SHAPES, dtypes=(bf16,), batches=(1, API_BEAMS)) + int4_cases(
@@ -474,26 +511,29 @@ def check_kernels(dev):
     results.update(check_train_kernels(dev, randn))
     results.update(check_fast_kernels(dev, g))
 
+    return report_cases(results)
+
+
+def report_cases(results: dict) -> dict:
+    """Log every case ({kernel: (cases, tolerance text)}), add kernel / bound
+    to the tensor-core kernels' cases, and raise if any case disagrees."""
     for name, (cases, tol) in results.items():
         for c in cases:
+            if name in TC_KERNELS:
+                c["ms_over_bound"] = c["ms"] / c["bound_ms"]
             lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f} ms"
             eager = f" (eager {c['eager_ms']:.4f} ms)" if "eager_ms" in c else ""
             if "library_eager_ms" in c:
                 lib += f" (eager {c['library_eager_ms']:.4f} ms)"
-            log("kernel", f"{name} {c['shape']}: max_abs_err={c['max_abs_err']:.3e} "
+            one_pass = (f"; the one-pass flash forward on the same inputs: "
+                        f"{c['one_pass_flash_ms']:.4f} ms" if "one_pass_flash_ms" in c else "")
+            log("kernel", f"[{CARD}] {name} {c['shape']}: max_abs_err={c['max_abs_err']:.3e} "
                           f"{'(each output: ' + str(c['errs']) + ') ' if 'errs' in c else ''}"
                           f"within [{tol}]={c['ok']} kernel={c['ms']:.4f} ms{eager} "
                           f"plain={c['plain_ms']:.4f} ms library={lib} "
                           f"bound={c['bound_ms']:.4f} ms ({c['bound_by']})"
                           + (f" kernel/bound={c['ms_over_bound']:.2f}"
-                             if "ms_over_bound" in c else ""))
-    for name in TC_KERNELS:
-        for c in results[name][0]:
-            c["ms_over_bound"] = c["ms"] / c["bound_ms"]
-            one_pass = (f"; the one-pass flash forward on the same inputs: "
-                        f"{c['one_pass_flash_ms']:.4f} ms" if "one_pass_flash_ms" in c else "")
-            log("kernel", f"{name} {c['shape']}: kernel / bound = {c['ms_over_bound']:.2f} "
-                          f"(tensor-core kernel, graph-timed){one_pass}")
+                             if "ms_over_bound" in c else "") + one_pass)
     bad = [(n, c["shape"]) for n, (cs, _) in results.items() for c in cs if not c["ok"]]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: {bad}")
@@ -719,15 +759,26 @@ def check_train_kernels(dev, randn):
     yardstick: its forward, and its forward+backward less the forward (which
     computes dQ, dK and dV at once).  Kernels and yardsticks are timed by
     graph replay, the kernels eagerly too."""
+    rows = train_kernel_cases(dev, randn, (
+        (1, 2048, 32, 8, 128, [2048]), (2, 2048, 32, 8, 128, [2048, 1531]),
+        (1, 2048, 32, 8, 64, [2048]), (1, 2048, 28, 4, 128, [2048]),
+        (1, 1024, 32, 8, 128, [connector_step_len()])))
+    return {"flash_attention_lse": (rows["flash_attention_lse"],
+                                    f"out {BF16_TOL_TEXT}; lse {LSE_TOL_TEXT}"),
+            "flash_bwd_dq": (rows["flash_bwd_dq"], f"{BWD_TOL_TEXT}, fed the plain lse and "
+                                                   f"the kernel's"),
+            "flash_bwd_dkv": (rows["flash_bwd_dkv"], f"dK and dV {BWD_TOL_TEXT}, fed the plain "
+                                                     f"lse and the kernel's")}
+
+
+def train_kernel_cases(dev, randn, shapes, tag=""):
+    """The lse forward, dQ and dK/dV at each (B, S, H, Hkv, D, kv_len),
+    causal, each against its plain version, beside SDPA; {kernel: cases}."""
     from streammind_torch.ops import attention as A
 
     rows = {n: [] for n in TRAIN_KERNELS}
-    for b, s, h, hkv, d, kv_len in ((1, 2048, 32, 8, 128, [2048]),
-                                    (2, 2048, 32, 8, 128, [2048, 1531]),
-                                    (1, 2048, 32, 8, 64, [2048]),
-                                    (1, 2048, 28, 4, 128, [2048]),
-                                    (1, 1024, 32, 8, 128, [connector_step_len()])):
-        shape = f"q({b},{s},{h},{d}) kv({b},{s},{hkv},{d}) causal kv_len={kv_len}"
+    for b, s, h, hkv, d, kv_len in shapes:
+        shape = f"q({b},{s},{h},{d}) kv({b},{s},{hkv},{d}) causal kv_len={kv_len}{tag}"
         lens = torch.tensor(kv_len, dtype=torch.int32, device=dev)
         pairs = h * sum(sum(min(i + 1, n) for i in range(s)) for n in kv_len)
         qb, kvb, rowb = 2 * b * s * h * d, 2 * b * s * hkv * d, 4 * b * s * h
@@ -805,12 +856,7 @@ def check_train_kernels(dev, randn):
                       f"{lib_bwd_eager:.4f} ms); bound {dq_row['bound_ms'] + dkv_row['bound_ms']:.4f} ms")
         del sets, lib_sets
         torch.cuda.empty_cache()
-    return {"flash_attention_lse": (rows["flash_attention_lse"],
-                                    f"out {BF16_TOL_TEXT}; lse {LSE_TOL_TEXT}"),
-            "flash_bwd_dq": (rows["flash_bwd_dq"], f"{BWD_TOL_TEXT}, fed the plain lse and "
-                                                   f"the kernel's"),
-            "flash_bwd_dkv": (rows["flash_bwd_dkv"], f"dK and dV {BWD_TOL_TEXT}, fed the plain "
-                                                     f"lse and the kernel's")}
+    return rows
 
 
 # int8 against its plain version: fp32 sums in another order, then one
@@ -4249,6 +4295,375 @@ def projectors_parity(dev):
     return dict(errs=errs, controls=controls)
 
 
+# ---------------------------------------------------------------------------
+# phase 23: parallelism (dp / fsdp / tp over torch.distributed) at world size 1
+# ---------------------------------------------------------------------------
+PARALLEL_DIR = Path(__file__).resolve().parent / "_smoke_parallel"
+TP_SIZES = (2, 4, 8)
+PAR_TRAIN_STEPS = 2
+PAR_LOSS_TOL = 1e-3
+
+
+def rank_matvec_shapes(tp: int):
+    """Mistral-7B's decoder linears as one rank of tp holds them: q and
+    gate/up column shards (out / tp), o and down row shards (in / tp)."""
+    return ((f"tp{tp} rank: q (column)", 4096 // tp, 4096),
+            (f"tp{tp} rank: o (row)", 4096, 4096 // tp),
+            (f"tp{tp} rank: gate/up (column)", 14336 // tp, 4096),
+            (f"tp{tp} rank: down (row)", 4096, 14336 // tp))
+
+
+def int4_row_shard_cases(dev, g):
+    """Per-channel int4 o and down cut by tp on the in dim as the
+    partitioning places them (``local_shard``: each rank's columns unpacked
+    and repacked column-halved, so its shard reads its own two ranges of
+    x): the kernel on every rank's shard against its plain version (bf16
+    x), and, with fp32 x (one rounding less a rank), the ranks' kernel
+    products summed against the whole matrix's plain product."""
+    from streammind_torch.ops.int4_matvec import int4_matvec, int4_matvec_ref
+    from streammind_torch.parallel.partitioning import local_shard, spec_for
+    from streammind_torch.utils.quantize import (dequantize_linear_weight_int4_pc,
+                                                 quantize_linear_weight_int4_pc)
+
+    rows = []
+    for name, path, din in (("o", "text.layers.o.w_int4pc", 4096),
+                            ("down", "text.layers.mlp.down.w_int4pc", 14336)):
+        dout = 4096
+        full = quantize_linear_weight_int4_pc(torch.empty((dout, din), device=dev).normal_(
+            0.0, 0.02, generator=g))
+        x = torch.empty((1, din), device=dev, dtype=torch.bfloat16).normal_(generator=g)
+        whole32 = int4_matvec_ref(x.float(), full["w_int4pc"], full["scale"])
+        spec = spec_for(path, 3)
+        for tp in TP_SIZES:
+            shards = [local_shard(full["w_int4pc"][None], spec, {"tp": tp}, {"tp": r}, path)[0]
+                      for r in range(tp)]
+            xs = [c.contiguous() for c in x.chunk(tp, dim=1)]
+            outs = [int4_matvec(xs[r], shards[r], full["scale"]) for r in range(tp)]
+            errs = [excess(outs[r], int4_matvec_ref(xs[r], shards[r], full["scale"]), *INT4_TOL)
+                    for r in range(tp)]
+            x32 = [t.float() for t in xs]
+            errs.append(excess(sum(int4_matvec(x32[r], shards[r], full["scale"])
+                                   for r in range(tp)), whole32, *INT4_TOL))
+            packs = [shards[0]] + [shards[0].clone() for _ in range(n_sets(shards[0].numel()) - 1)]
+            fns = [lambda w=w: int4_matvec(xs[0], w, full["scale"]) for w in packs]
+            ms, eager = cuda_ms(fns, graph=True), cuda_ms(fns)
+            plain = cuda_ms([lambda w=w: int4_matvec_ref(xs[0], w, full["scale"]) for w in packs],
+                            iters=5)
+            libs = [dequantize_linear_weight_int4_pc({"w_int4pc": w, "scale": full["scale"]},
+                                                     torch.bfloat16) for w in packs]
+            lib = cuda_ms([lambda w=w: F.linear(xs[0], w) for w in libs], graph=True)
+            k = din // tp
+            b_ms, b_by = bound(dout * k / 2 + 4 * dout + 2 * (k + dout), 2.0 * dout * k,
+                               BF16_FLOPS)
+            rows.append(dict(shape=f"tp{tp} rank: {name} (row, repacked): x(1,{k}) bfloat16 "
+                                   f"W({dout},{k}/2) int4; the {tp} ranks' fp32 sum vs the "
+                                   f"whole",
+                             max_abs_err=max(e for e, _ in errs), errs=[e for e, _ in errs],
+                             ok=all(o <= 0 for _, o in errs), ms=ms, eager_ms=eager,
+                             plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                             ms_over_bound=ms / b_ms))
+            del packs, libs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def rank_kernel_cases(dev):
+    """Every kernel of the sharded paths at the shapes one rank of tp 2, 4
+    and 8 holds: the flash forward at (16, 4), (8, 2) and (4, 1) heads (the
+    2048 bucket from an empty cache and the session's bucket 64 at offset
+    100), the three training kernels at the 2048 bucket, exact attention at
+    8, 4 and 2 of the ViT's heads, the int8 and int4 matvecs at the column
+    and row shards of q, o, gate/up and down (the int4 row shards repacked
+    as placed), the scan at 4096, 2048 and 1024 of the Mamba's channels."""
+    g = torch.Generator(device=dev).manual_seed(4321)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, std=1.0):
+        return torch.empty(shape, device=dev, dtype=bf16).normal_(0.0, std, generator=g)
+
+    out = {n: [] for n in ("flash_attention", "exact_attention", "flash_attention_lse",
+                           "flash_bwd_dq", "flash_bwd_dkv", "int8_matvec", "int4_matvec",
+                           "selective_scan")}
+    for tp in TP_SIZES:
+        tag = f" (tp{tp} rank)"
+        h, hkv = 32 // tp, 8 // tp
+        out["flash_attention"] += flash_cases(
+            dev, randn, ((2048, [0], [2048], h, hkv), (64, [100], [150], h, hkv)), tag)
+        out["exact_attention"] += exact_cases(dev, randn, (1,), h=16 // tp, tag=tag)
+        for name, rows in train_kernel_cases(dev, randn, ((1, 2048, h, hkv, 128, [2048]),),
+                                             tag).items():
+            out[name] += rows
+        out["int8_matvec"] += int8_cases(dev, g, rank_matvec_shapes(tp), (bf16,), (1,))
+        out["int4_matvec"] += int4_cases(dev, g, rank_matvec_shapes(tp)[::2], (bf16,), (1,))
+        for c in scan_cases(dev, g, ((bf16, 1, 32, True, "time"),), d=8192 // tp):
+            c["shape"] += tag
+            out["selective_scan"].append(c)
+    out["int4_matvec"] += int4_row_shard_cases(dev, g)
+    return out
+
+
+def mesh_sessions(dev, mesh):
+    """The 10-frame two-turn session of phase 4 on StreamMind-7B (bf16,
+    seed 0) through the meshless engine and through
+    ``StreamMindEngine(mesh=(1,1,1))`` on the same frames: memory ring and
+    prefill logits within BF16_TOL of each other, equal kernel launches
+    (the mesh issues no collective and fuses no q/k/v), the greedy tokens
+    that agree counted (the meshless engine's fused ViT q/k/v is another
+    cuBLAS shape, so bf16 ties in random weights may part the decodes).
+    Timed in turns beside a third, the meshless engine with its ViT q/k/v
+    unfused: what the mesh engine's layout alone costs."""
+    from streammind_torch.config import StreamMindConfig
+    from streammind_torch.models.meta import init_streammind_params
+
+    cfg = StreamMindConfig()
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = init_streammind_params(g, cfg, device=dev, dtype=torch.bfloat16)
+    Engine = make_engine_class()
+    engines = {"meshless": Engine(params, cfg, attn_impl="exact", quantize_gate="int4",
+                                  device=dev),
+               "mesh": Engine(params, cfg, attn_impl="exact", quantize_gate="int4", device=dev,
+                              mesh=mesh),
+               # what the mesh engine's unfused ViT q/k/v alone costs
+               "meshless, ViT unfused": Engine(params, cfg, attn_impl="exact",
+                                               quantize_gate="int4", device=dev)}
+    engines["meshless, ViT unfused"].params["vision"] = params["vision"]
+    layouts = {k: ("qkv" in e.params["vision"]["layers"], "qkv" in e.params["text"]["layers"])
+               for k, e in engines.items()}
+    if layouts != {"meshless": (True, False), "mesh": (False, False),
+                   "meshless, ViT unfused": (False, False)}:
+        raise RuntimeError(f"(ViT qkv fused, decoder qkv fused) by engine: {layouts}")
+    fg = torch.Generator(device=dev).manual_seed(7)
+    size = cfg.vision.image_size
+    frames = [torch.empty((1, 3, size, size), device=dev, dtype=torch.bfloat16).normal_(
+        generator=fg) for _ in range(10)]
+    runs = {}
+    # in turns (each engine once forward, once back): host times drift within a call
+    for name in (*engines, *reversed(engines)):
+        eng = engines[name]
+        eng.probs, eng.prefill_logits, eng.decoded, eng.decode_ms = [], [], [], []
+        torch.cuda.synchronize()
+        reset_launches()
+        session, ticks, e2ft = run_session(eng, frames, (3, 7), max_new=16)
+        n_tok = sum(len(t) for t in eng.decoded)
+        run = dict(memory=session.state.memory.float(), logits=torch.cat(eng.prefill_logits),
+                   tokens=eng.decoded, launches=read_launches(),
+                   tick_ms=[statistics.median(ticks[1:])], e2ft_ms=e2ft,
+                   decode_ms_per_token=[sum(eng.decode_ms) / max(n_tok, 1)])
+        if name in runs:  # the second turn: its times beside the first's
+            for k in ("tick_ms", "decode_ms_per_token"):
+                runs[name][k] += run[k]
+        else:
+            runs[name] = run
+        del session
+    a, b = runs["meshless"], runs["mesh"]
+    errs = {k: excess(b[k], a[k], *BF16_TOL) for k in ("memory", "logits")}
+    agree = sum(x == y for ta, tb in zip(a["tokens"], b["tokens"]) for x, y in zip(ta, tb))
+    total = sum(len(t) for t in a["tokens"])
+    kern = ("flash_attention", "exact_attention", "int4_matvec", "selective_scan")
+    for name, r in runs.items():
+        log("parallel", f"[{CARD}] session {name} (two turns): median tick "
+                        f"{[round(t, 3) for t in r['tick_ms']]} ms, event-to-first-token "
+                        f"{[round(t, 3) for t in r['e2ft_ms']]} ms, decode "
+                        f"{[round(t, 3) for t in r['decode_ms_per_token']]} ms/token; launches "
+                        f"{ {k: r['launches'][k] for k in kern} }")
+    log("parallel", f"(1,1,1) mesh against meshless: memory max|err| {errs['memory'][0]:.3e}, "
+                    f"prefill logits max|err| {errs['logits'][0]:.3e} (limit {BF16_TOL_TEXT}); "
+                    f"greedy tokens agreeing {agree} of {total}")
+    if any(over > 0 for _, over in errs.values()):
+        raise RuntimeError(f"the (1,1,1)-mesh session parts from the meshless one: {errs}")
+    if any(a["launches"][k] != b["launches"][k] for k in kern):
+        raise RuntimeError(f"launch counts differ: {a['launches']} vs {b['launches']}")
+    del engines, params, frames
+    torch.cuda.empty_cache()
+    return dict(runs={k: {m: v for m, v in r.items() if m not in ("memory", "logits")}
+                      for k, r in runs.items()}, agree=agree, tokens=total,
+                errs={k: e for k, (e, _) in errs.items()})
+
+
+def mesh_parity(dev, mesh):
+    """The (1,1,1)-mesh session of ``parity`` (fp32, parity depths, TF32
+    off) on the CPU (a process-local (1,1,1) mesh) and on the card (the
+    NCCL mesh): fires and greedy tokens identical, probs, memory and
+    prefill logits within ``parity``'s limits; a TF32-on control that must
+    cross one of them."""
+    from streammind_torch.models.meta import init_streammind_params
+    from streammind_torch.parallel.mesh import LocalMesh
+
+    cfg = parity_config()
+    params = init_streammind_params(torch.Generator().manual_seed(1), cfg, device="cpu")
+    rng = torch.Generator().manual_seed(2)
+    frames = [torch.randn((1, 3, 336, 336), generator=rng) for _ in range(4)]
+    Engine = make_engine_class()
+    out = {}
+    for run, where, tf32 in (("cpu", "cpu", False), ("card", dev, False),
+                             ("card_tf32", dev, True)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        eng = Engine(params, cfg, attn_impl="exact", quantize_gate="int4", kv_capacity=1024,
+                     device=where, mesh=LocalMesh("cpu") if where == "cpu" else mesh)
+        reset_launches()
+        session, _, _ = run_session(eng, [f.to(where) for f in frames], (1, 3), max_new=8)
+        counts = read_launches()
+        out[run] = dict(probs=torch.stack(eng.probs), memory=session.state.memory[0, :4].cpu(),
+                        logits=torch.cat(eng.prefill_logits), tokens=eng.decoded)
+        if where != "cpu":
+            fp32_only(counts, "parallel parity")
+        del eng, session
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tol = {"probs": 2e-5, "memory": 2e-5, "logits": 2e-4}  # parity()'s
+    c = out["cpu"]
+    errs, control = ({k: float((c[k] - out[run][k]).abs().max()) for k in tol}
+                     for run in ("card", "card_tf32"))
+    log("parallel", f"(1,1,1)-mesh parity, fp32, TF32 off: max |cpu - card| = {errs}, "
+                    f"tolerance {tol}; tokens equal {c['tokens'] == out['card']['tokens']}; "
+                    f"TF32-on control {control}")
+    if any(errs[k] > tol[k] for k in tol) or c["tokens"] != out["card"]["tokens"]:
+        raise RuntimeError("the (1,1,1)-mesh session disagrees between CPU and card")
+    if not any(control[k] > tol[k] for k in tol):
+        raise RuntimeError("the parity limits do not see TF32 matmuls on the card")
+    return errs
+
+
+def expert_parallel_layer(dev, mesh):
+    """One Mixtral-8x7B MoE layer (8 experts, 4096 / 14336, top 2; bf16
+    from a seed, 2.8 GB) on 64 tokens: the expert-parallel grouped dispatch
+    on the (1,1,1) mesh bitwise the one-device grouped dispatch, and the
+    rank-local bodies of tp 2 and 4 summed within BF16_TOL of it."""
+    from streammind_torch.config import StreamMindConfig
+    from streammind_torch.models import mistral as lm
+
+    cfg = dataclasses.replace(StreamMindConfig().text, num_experts=8, num_experts_per_tok=2)
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape, std=0.02):
+        return torch.empty(shape, device=dev, dtype=torch.bfloat16).normal_(0.0, std, generator=g)
+
+    E, F_, D = cfg.num_experts, cfg.intermediate_size, cfg.hidden_size
+    ex = {"gate": randn(E, F_, D), "up": randn(E, F_, D), "down": randn(E, D, F_)}
+    xt, router = randn(64, D, std=1.0), randn(E, D)
+    probs = torch.softmax((xt @ router.T).float(), dim=-1)
+    topw, topi = lm.router_top_k(probs, cfg.num_experts_per_tok)
+    topw = topw / topw.sum(-1, keepdim=True)
+    grouped = lm._moe_apply_grouped(xt, ex, cfg, topi, topw)
+    sharded = lm._moe_apply_grouped_sharded(xt, ex, cfg, topi, topw, mesh)
+    same = torch.equal(grouped, sharded)
+    fns = {"grouped": lambda: lm._moe_apply_grouped(xt, ex, cfg, topi, topw),
+           "sharded (1,1,1)": lambda: lm._moe_apply_grouped_sharded(xt, ex, cfg, topi, topw, mesh)}
+    ms = {k: [] for k in fns}
+    for k in ("grouped", "sharded (1,1,1)", "sharded (1,1,1)", "grouped"):  # in turns
+        ms[k].append(cuda_ms([fns[k]], iters=10))
+    errs = {}
+    for tp in (2, 4):
+        parts = [lm._moe_grouped_local(xt, {n: e.chunk(tp)[r] for n, e in ex.items()}, cfg,
+                                       topi, topw, r, tp) for r in range(tp)]
+        errs[tp] = excess(sum(p.float() for p in parts), grouped.float(), *BF16_TOL)
+    log("parallel", f"[{CARD}] expert-parallel MoE layer, 64 tokens: sharded (1,1,1) bitwise the "
+                    f"grouped: {same}; ms {ms}; the tp 2 and 4 rank bodies summed, max|err| "
+                    f"{ {tp: e for tp, (e, _) in errs.items()} } ({BF16_TOL_TEXT})")
+    if not same or any(over > 0 for _, over in errs.values()):
+        raise RuntimeError("the expert-parallel dispatch parts from the grouped one")
+    del ex, xt
+    torch.cuda.empty_cache()
+    return dict(bitwise=same, ms=ms, errs={tp: e for tp, (e, _) in errs.items()})
+
+
+def mesh_train(dev, ds, out_dir: Path):
+    """train() on StreamMind-7B (bf16, seed 0), the adapter stage at the
+    training phase's shape, PAR_TRAIN_STEPS steps: losses, launches,
+    flash_mha_sharded's calls, peak memory."""
+    from streammind_torch.config import StreamMindConfig
+    from streammind_torch.ops import attention as A
+    from streammind_torch.train.run import train
+
+    ma, da, ta = train_args("adapter", dev, PAR_TRAIN_STEPS, resume=False)
+    ta = dataclasses.replace(ta, output_dir=str(out_dir))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    A.flash_mha_sharded.calls = 0
+    t0 = time.perf_counter()
+    state = train(ma, da, ta, dataset=ds, cfg=StreamMindConfig())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with open(out_dir / "logs" / "metrics.jsonl") as f:
+        losses = [json.loads(line)["train/loss"] for line in f]
+    run = dict(losses=losses, launches=read_launches(), sharded_calls=A.flash_mha_sharded.calls,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, seconds=seconds)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def parallel_phase(dev):
+    """NCCL at world size 1 through ``utils/dist``, then on the (1,1,1) mesh
+    the kernels at a rank's shapes, the session, its fp32 parity, the
+    expert-parallel layer and 2 adapter steps through train(); then the
+    group is destroyed and the same 2 steps run with no process group."""
+    import torch.distributed as tdist
+
+    from streammind_torch.parallel.mesh import LocalMesh, make_mesh
+    from streammind_torch.utils import dist as D
+
+    require_freed("parallel")
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    PARALLEL_DIR.mkdir()
+    t0 = time.perf_counter()
+    D.init_process_group(init_method=f"file://{PARALLEL_DIR / 'rendezvous'}", world_size=1,
+                         rank=0, device=dev)
+    backend = tdist.get_backend()
+    D.barrier()
+    gathered, mean = D.allgather_object({"rank": D.rank()}), D.allreduce_mean(3.5)
+    t = torch.arange(1, 9, device=dev, dtype=torch.bfloat16)
+    reduced = t.clone()
+    tdist.all_reduce(reduced)
+    gathered_t, scattered = torch.empty_like(t), torch.empty_like(t)
+    tdist.all_gather_into_tensor(gathered_t, t)
+    tdist.reduce_scatter_tensor(scattered, t)
+    torch.cuda.synchronize()
+    mesh = make_mesh(1, 1, 1)
+    log("parallel", f"process group: backend {backend}, world {D.size()}, rank {D.rank()}, "
+                    f"{time.perf_counter() - t0:.2f} s; allgather_object {gathered}, "
+                    f"allreduce_mean {mean}; bf16 all_reduce / all_gather_into_tensor / "
+                    f"reduce_scatter_tensor equal to the input: "
+                    f"{[torch.equal(x, t) for x in (reduced, gathered_t, scattered)]}; mesh "
+                    f"{type(mesh).__name__} {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    if (backend != "nccl" or gathered != [{"rank": 0}] or mean != 3.5 or isinstance(mesh, LocalMesh)
+            or not all(torch.equal(x, t) for x in (reduced, gathered_t, scattered))):
+        raise RuntimeError("NCCL at world size 1 did not initialize as expected")
+
+    kernels = report_cases({n: (c, "per-rank shapes") for n, c in
+                            rank_kernel_cases(dev).items()})
+    sessions = mesh_sessions(dev, mesh)
+    parity_errs = mesh_parity(dev, mesh)
+    moe = expert_parallel_layer(dev, mesh)
+    ds = train_data()
+    meshed = mesh_train(dev, ds, PARALLEL_DIR / "train_mesh")
+    D.shutdown()
+    plain = mesh_train(dev, ds, PARALLEL_DIR / "train_plain")
+    del ds
+    micro = 2 * PAR_TRAIN_STEPS
+    for name, r in (("(1,1,1) NCCL mesh", meshed), ("no process group", plain)):
+        log("parallel", f"[{CARD}] train {name}: losses {r['losses']}, "
+                        f"{r['seconds']:.1f} s, peak {r['peak_gb']:.2f} GB; launches a "
+                        f"microbatch { {n: r['launches'][n] / micro for n in TRAIN_KERNELS} }, "
+                        f"through flash_mha_sharded {r['sharded_calls'] / micro:g} a microbatch")
+    diff = max(abs(a - b) for a, b in zip(meshed["losses"], plain["losses"]))
+    log("parallel", f"losses |mesh - no group| max {diff:.3e} (limit {PAR_LOSS_TOL})")
+    layers = 32
+    expect = {"flash_attention_lse": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+    if (len(meshed["losses"]) != PAR_TRAIN_STEPS or diff > PAR_LOSS_TOL
+            or any(meshed["launches"][n] != micro * c for n, c in expect.items())
+            or meshed["sharded_calls"] != micro * 2 * layers):
+        raise RuntimeError(f"the mesh training run: {meshed}")
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    # the main path's launches: the (1,1,1)-mesh session's and training's
+    launches = add_counts(sessions["runs"]["mesh"]["launches"], meshed["launches"])
+    return dict(kernels=kernels, sessions=sessions, parity=parity_errs, moe=moe,
+                train={"mesh": meshed, "no_group": plain}, launches=launches)
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "streammind_torch" / "__init__.py").exists():
@@ -4319,6 +4734,9 @@ def main() -> int:
     del ds
     run("qlora_parity", qlora_parity, dev, fp32_tree)
     del fp32_tree
+    parallel = run("parallel", parallel_phase, dev)
+    for name, (cases, _) in parallel["kernels"].items():
+        kernels[name][0].extend(cases)
     log("time", f"phase seconds: {seconds}; total {time.perf_counter() - t_start:.1f} s")
 
     entries = []
@@ -4340,7 +4758,8 @@ def main() -> int:
                               "qlora": qlora["launches"][name],
                               "qwen2": qwen2["launches"][name],
                               "mixtral": mixtral["launches"][name],
-                              "projectors": projectors["launches"][name]},
+                              "projectors": projectors["launches"][name],
+                              "parallel": parallel["launches"][name]},
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"],
@@ -4356,7 +4775,7 @@ def main() -> int:
                     ("session", session), ("serving", serving), ("fast", fast),
                     ("train", training), ("api", api_run), ("worker", worker),
                     ("eval", evaluation), ("qlora", qlora), ("qwen2", qwen2),
-                    ("mixtral", mixtral), ("projectors", projectors))},
+                    ("mixtral", mixtral), ("projectors", projectors), ("parallel", parallel))},
                 hgmma=hgmma[src.split("/")[-1][:-3]], ms_over_bound=head["ms_over_bound"],
                 timing="CUDA graph replay (device time); eager_ms in cases")
     print(json.dumps({"kernels": entries}), flush=True)

@@ -5,6 +5,12 @@ Two execution modes share one parameter tree:
   * ``video_mamba_step``    — O(1) carried-state update (streaming perception);
 and ``step∘step∘… == forward`` is held by the tests.  The residual stream
 is fp32 (mamba_ssm's ``residual_in_fp32``), and ``A = -exp(A_log)`` in fp32.
+
+Under a mesh d_inner splits over tp: in_proj is column-parallel (the rank
+holds its chunk of the x rows and of the z rows), conv1d, dt_proj, A_log
+and D hold the rank's channels, x_proj is row-parallel over d_inner (its
+dt_rank + 2·d_state outputs summed over tp before dt_proj, B and C),
+out_proj row-parallel; the conv and ssm carries hold the rank's channels.
 """
 from __future__ import annotations
 
@@ -21,6 +27,9 @@ from ..ops.scan import (
     selective_scan,
     selective_state_update,
 )
+from ..parallel import collectives as C
+from ..parallel.mesh import ambient_mesh, is_trivial
+from ..parallel.partitioning import row_linear, use_leaf, use_linear
 from ..utils.params import linear, normal_init, ones, torch_linear_init, zeros
 
 
@@ -91,18 +100,61 @@ def _split_dbl(x_dbl, cfg: MambaConfig):
     return x_dbl[..., :r], x_dbl[..., r:r + n], x_dbl[..., r + n:]
 
 
+def _local_block(bp, path: str) -> dict:
+    """A block's leaves as this rank's products read them (None off a
+    mesh): in_proj by its rows, conv1d / dt_proj / A_log / D by channel,
+    x_proj by its d_inner columns, the fsdp dims gathered."""
+    mesh = ambient_mesh()
+    if is_trivial(mesh):
+        return None
+    def by_channel(t, name):
+        return use_leaf(t, f"{path}.{name}", mesh=mesh, tp_dim=0)
+    return {
+        "mesh": mesh,
+        "in_proj": use_linear(bp["in_proj"], f"{path}.in_proj", "col", mesh=mesh),
+        "conv_w": by_channel(bp["conv1d"]["weight"], "conv1d.weight"),
+        "conv_b": (by_channel(bp["conv1d"]["bias"], "conv1d.bias")
+                   if "bias" in bp["conv1d"] else None),
+        "x_proj": use_leaf(bp["x_proj"]["weight"], f"{path}.x_proj.weight", mesh=mesh, tp_dim=1),
+        "dt_w": by_channel(bp["dt_proj"]["weight"], "dt_proj.weight"),
+        "dt_b": by_channel(bp["dt_proj"]["bias"], "dt_proj.bias"),
+        "A_log": by_channel(bp["A_log"], "A_log"),
+        "D": by_channel(bp["D"], "D"),
+    }
+
+
+def _projections(bp, loc, x):
+    """(in_proj, conv w, conv b, x_proj product, dt_proj weight, dt bias,
+    A_log, D) of a block, one device's or this rank's."""
+    if loc is None:
+        return (linear(x, bp["in_proj"]), bp["conv1d"]["weight"], bp["conv1d"].get("bias"),
+                lambda xc: xc @ bp["x_proj"]["weight"].T.to(x.dtype), bp["dt_proj"]["weight"],
+                bp["dt_proj"]["bias"], bp["A_log"], bp["D"])
+    mesh = loc["mesh"]
+
+    def x_proj(xc):  # row-parallel; the sum's uses are per rank again
+        return C.copy_to_tp(C.reduce_from_tp(xc @ loc["x_proj"].T.to(x.dtype), mesh), mesh)
+
+    return (linear(C.copy_to_tp(x, mesh), loc["in_proj"]), loc["conv_w"], loc["conv_b"],
+            x_proj, loc["dt_w"], loc["dt_b"], loc["A_log"], loc["D"])
+
+
+def _out_proj(bp, y, path: str):
+    return row_linear(y, bp["out_proj"], f"{path}.out_proj")
+
+
 def _mixer_forward(bp, cfg: MambaConfig, x: torch.Tensor, impl: str = "auto",
                    conv_state0: Optional[torch.Tensor] = None,
-                   ssm_state0: Optional[torch.Tensor] = None):
+                   ssm_state0: Optional[torch.Tensor] = None, path: str = ""):
     """Mamba mixer over (B, L, D) → (B, L, D) + final (conv, ssm) state;
     with carried states it continues a stream mid-flight.  ``impl`` picks
     the scan (``ops.scan.selective_scan``); its inputs are the projections'
     (B, L, D) products seen as (B, D, L), channels contiguous."""
     l = x.shape[1]
-    xz = linear(x, bp["in_proj"])
+    xz, conv_w, conv_b, x_proj, dt_w, dt_b, A_log, D = _projections(
+        bp, _local_block(bp, path), x)
     xs, z = xz.chunk(2, dim=-1)
     xs_t = xs.transpose(1, 2)  # (B, Din, L)
-    conv_w, conv_b = bp["conv1d"]["weight"], bp["conv1d"].get("bias")
     if conv_state0 is not None:
         ext = torch.cat([conv_state0[:, :, 1:].to(xs_t.dtype), xs_t], dim=2)
         xconv = causal_conv1d(ext, conv_w, conv_b, activation="silu")[:, :, -l:]
@@ -114,34 +166,33 @@ def _mixer_forward(bp, cfg: MambaConfig, x: torch.Tensor, impl: str = "auto",
     pad = torch.nn.functional.pad(pad_src, (max(cfg.d_conv - pad_src.shape[-1], 0), 0))
     conv_state = pad[:, :, -cfg.d_conv:]
 
-    x_dbl = xconv.transpose(1, 2) @ bp["x_proj"]["weight"].T.to(x.dtype)
+    x_dbl = x_proj(xconv.transpose(1, 2))
     dt, Bc, Cc = _split_dbl(x_dbl, cfg)
-    dt = dt @ bp["dt_proj"]["weight"].T.to(x.dtype)
-    A = -torch.exp(bp["A_log"].float())
+    dt = dt @ dt_w.T.to(x.dtype)
+    A = -torch.exp(A_log.float())
     y, last_state = selective_scan(
         xconv, dt.transpose(1, 2), A, Bc.transpose(1, 2), Cc.transpose(1, 2),
-        D=bp["D"], z=z.transpose(1, 2), delta_bias=bp["dt_proj"]["bias"],
+        D=D, z=z.transpose(1, 2), delta_bias=dt_b,
         delta_softplus=True, return_last_state=True, h0=ssm_state0, impl=impl,
     )
-    return linear(y.transpose(1, 2), bp["out_proj"]), (conv_state, last_state)
+    return _out_proj(bp, y.transpose(1, 2), path), (conv_state, last_state)
 
 
-def _mixer_step(bp, cfg: MambaConfig, x: torch.Tensor, conv_state, ssm_state):
+def _mixer_step(bp, cfg: MambaConfig, x: torch.Tensor, conv_state, ssm_state, path: str = ""):
     """Single-token mixer step (B, D) → (B, D); the per-frame hot path."""
-    xz = linear(x, bp["in_proj"])
+    xz, conv_w, conv_b, x_proj, dt_w, dt_b, A_log, D = _projections(
+        bp, _local_block(bp, path), x)
     xs, z = xz.chunk(2, dim=-1)
-    xc, conv_state = causal_conv1d_update(
-        xs, conv_state, bp["conv1d"]["weight"], bp["conv1d"].get("bias")
-    )
-    x_dbl = xc @ bp["x_proj"]["weight"].T.to(x.dtype)
+    xc, conv_state = causal_conv1d_update(xs, conv_state, conv_w, conv_b)
+    x_dbl = x_proj(xc)
     dt, Bc, Cc = _split_dbl(x_dbl, cfg)
-    dt = dt @ bp["dt_proj"]["weight"].T.to(x.dtype)
-    A = -torch.exp(bp["A_log"].float())
+    dt = dt @ dt_w.T.to(x.dtype)
+    A = -torch.exp(A_log.float())
     y, ssm_state = selective_state_update(
         ssm_state, xc, dt, A, Bc, Cc,
-        D=bp["D"], z=z, dt_bias=bp["dt_proj"]["bias"], dt_softplus=True,
+        D=D, z=z, dt_bias=dt_b, dt_softplus=True,
     )
-    return linear(y, bp["out_proj"]), conv_state, ssm_state
+    return _out_proj(bp, y, path), conv_state, ssm_state
 
 
 def video_mamba_forward(params, cfg: MambaConfig, x: torch.Tensor,
@@ -160,6 +211,7 @@ def video_mamba_forward(params, cfg: MambaConfig, x: torch.Tensor,
             bp, cfg, normed, impl,
             conv_state0=state.conv[i] if state is not None else None,
             ssm_state0=state.ssm[i] if state is not None else None,
+            path=f"projector.mamba.blocks.{i}",
         )
         conv_states.append(cs)
         ssm_states.append(ss)
@@ -179,7 +231,8 @@ def video_mamba_step(params, cfg: MambaConfig, x: torch.Tensor,
         residual = hidden.float() if residual is None else hidden.float() + residual
         normed = layer_norm(residual, bp["norm"]["weight"], bp["norm"]["bias"],
                             cfg.layer_norm_eps).to(x.dtype)
-        hidden, cs, ss = _mixer_step(bp, cfg, normed, state.conv[i], state.ssm[i])
+        hidden, cs, ss = _mixer_step(bp, cfg, normed, state.conv[i], state.ssm[i],
+                                     path=f"projector.mamba.blocks.{i}")
         conv_out.append(cs)
         ssm_out.append(ss)
     residual = hidden.float() + residual if residual is not None else hidden.float()

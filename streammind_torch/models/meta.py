@@ -122,7 +122,7 @@ def splice_embeds(text_params, plan_token_ids: torch.Tensor, plan_mem_index: tor
                   plan_use_mem: torch.Tensor, memory_tokens: torch.Tensor) -> torch.Tensor:
     """Token embeds where use_mem is False, gathered memory tokens where True.
     plan tensors (B, P); memory_tokens (B, M, D)."""
-    tok_emb = text_params["embed_tokens"][plan_token_ids.long()]
+    tok_emb = lm.embed_tokens(text_params, plan_token_ids.long())
     idx = plan_mem_index.long()[..., None].expand(-1, -1, memory_tokens.shape[-1])
     mem_emb = torch.gather(memory_tokens, 1, idx)
     return torch.where(plan_use_mem[..., None], mem_emb.to(tok_emb.dtype), tok_emb)

@@ -11,6 +11,14 @@ the hand-written flash kernel (``ops/attention.py::flash_attention``);
 training (no cache, ``attn_impl="flash"``) through the differentiable
 ``flash_mha``, each layer rematerialized in the backward under
 ``remat=True``.
+
+Under a mesh (``parallel/mesh.py::set_mesh``) the layers run on the rank's
+shards (``parallel/partitioning.py``): q, k, v, gate and up are
+column-parallel (this rank's heads and channels), o and down row-parallel
+(summed over tp), the embedding and the lm head vocab-parallel, the fsdp
+dims gathered at use; ``sequence_axis`` keeps the activations between
+blocks sharded along S; Mixtral's experts split over tp.  A mesh whose
+every axis has size 1 runs the one-device code.
 """
 from __future__ import annotations
 
@@ -24,6 +32,9 @@ from ..config import TextConfig
 from ..ops.attention import _repeat_kv, attention, decode_attention, flash_attention
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rope, rope_cos_sin
+from ..parallel import collectives as C
+from ..parallel.mesh import ambient_mesh, axis_index, axis_size, is_trivial
+from ..parallel.partitioning import row_linear, spec_for, use_leaf, use_linear
 from ..utils.params import fill_layers, linear, normal_init, ones, unstack_layers, zeros
 
 
@@ -104,8 +115,21 @@ def _init_layers(g: torch.Generator, cfg: TextConfig, L: int, kw: dict) -> dict:
     return layers
 
 
-def embed_tokens(params, input_ids: torch.Tensor) -> torch.Tensor:
-    return params["embed_tokens"][input_ids]
+def embed_tokens(params, input_ids: torch.Tensor, path: str = "text") -> torch.Tensor:
+    """Token embeddings.  Under a mesh whose rule puts the vocab on tp (the
+    decoder's), each rank looks up the ids in its rows, zeros the others,
+    and the ranks' lookups are summed (vocab-parallel embedding)."""
+    mesh = ambient_mesh()
+    if is_trivial(mesh):
+        return params["embed_tokens"][input_ids]
+    w = use_leaf(params["embed_tokens"], f"{path}.embed_tokens", mesh=mesh)
+    if spec_for(f"{path}.embed_tokens", 2)[:1] != ("tp",):
+        return w[input_ids]
+    rows = w.shape[0]
+    local = input_ids - axis_index(mesh, "tp") * rows
+    inside = (local >= 0) & (local < rows)
+    emb = w[torch.where(inside, local, 0)] * inside[..., None].to(w.dtype)
+    return C.reduce_from_tp(emb, mesh)
 
 
 # Concat axes for fusing linear leaves along the OUTPUT dim of stacked
@@ -205,7 +229,7 @@ def router_top_k(probs: torch.Tensor, k: int):
     return vals[:, :k], idx[:, :k]
 
 
-def _moe_mlp(x, p, cfg: TextConfig, dispatch=None):
+def _moe_mlp(x, p, cfg: TextConfig, dispatch=None, path: str = "text"):
     """Mixtral's sparse MoE: the router in the working dtype, an fp32
     softmax, the top k experts renormalized (HF MixtralSparseMoeBlock).
 
@@ -219,14 +243,22 @@ def _moe_mlp(x, p, cfg: TextConfig, dispatch=None):
       - plain banks: rows sorted stably by expert, one matmul per expert's
         contiguous row block (what ``lax.ragged_dot`` computes in the JAX
         package), k/E of the dense products; differentiable.
-    ``dispatch``: None (one device: grouped), "dense" or "grouped"; a mesh
-    raises (``_resolve_moe_dispatch``)."""
+    ``dispatch``: None (the ambient mesh decides), "dense", "grouped" or a
+    mesh (``_resolve_moe_dispatch``).  Under a mesh each rank holds E/tp
+    experts (expert parallel), runs the chosen form over them alone, and
+    the ranks' outputs are summed over tp."""
     b, s, d = x.shape
+    mesh = _dispatch_mesh(dispatch)
     xt = x.reshape(b * s, d)
-    router_logits = xt @ p["router"]["weight"].T.to(xt.dtype)  # (T, E)
+    router = p["router"]["weight"]
+    if not is_trivial(mesh):
+        router = use_leaf(router, f"{path}.layers.router.weight", 1, mesh)
+    router_logits = xt @ router.T.to(xt.dtype)  # (T, E)
     probs = torch.softmax(router_logits.float(), dim=-1)
     topw, topi = router_top_k(probs, cfg.num_experts_per_tok)
     topw = topw / topw.sum(dim=-1, keepdim=True)
+    if not is_trivial(mesh):
+        return _moe_mlp_sharded(xt, p, cfg, topi, topw, mesh, dispatch, path).reshape(b, s, d)
     banks = tuple(_wrap_expert_leaf(p["experts"][n]) for n in ("gate", "up", "down"))
     if b * s <= _MOE_GATHER_MAX_TOKENS:
         return _moe_apply_gathered(xt, banks, cfg, topi, topw).reshape(b, s, d)
@@ -239,30 +271,74 @@ def _moe_mlp(x, p, cfg: TextConfig, dispatch=None):
     return out.reshape(b, s, d)
 
 
-def _resolve_moe_dispatch(dispatch, cfg: TextConfig) -> str:
-    """None (one device) → "grouped"; "dense" and "grouped" as asked.  The
-    JAX package's expert-parallel form over a mesh ("sharded_grouped") is
-    not ported."""
-    if dispatch is None:
-        return "grouped"
+def _dispatch_mesh(dispatch):
+    """The mesh a dispatch names, else the ambient one."""
+    if dispatch is None or isinstance(dispatch, str):
+        return ambient_mesh()
+    return dispatch
+
+
+def _resolve_moe_dispatch(dispatch, cfg: TextConfig):
+    """Normalize a requested or ambient MoE dispatch to "dense" | "grouped" |
+    ("sharded_grouped", mesh), with the JAX package's guards: tp 1 takes
+    the grouped form; E % tp == 0 and E/tp > k the expert-parallel grouped
+    form; anything else the dense one."""
     if dispatch in ("dense", "grouped"):
         return dispatch
-    raise NotImplementedError(
-        f"MoE dispatch {dispatch!r}: the expert-parallel dispatch over a mesh is not ported "
-        "(ROADMAP Queue 1 item 17, parallelism); pass None, 'dense' or 'grouped'")
+    if isinstance(dispatch, str):
+        raise ValueError(f"MoE dispatch {dispatch!r}: pass None, 'dense', 'grouped' or a mesh")
+    mesh = _dispatch_mesh(dispatch)
+    tp = axis_size(mesh, "tp")
+    if tp == 1:
+        return "grouped"
+    e_loc, rem = divmod(cfg.num_experts, tp)
+    if rem == 0 and e_loc > cfg.num_experts_per_tok:
+        return ("sharded_grouped", mesh)
+    return "dense"
 
 
-def _moe_apply_dense(xt, banks, cfg: TextConfig, topi, topw):
-    """Every expert over every token, weighted by its routing weight (zero
-    where unrouted), summed in expert order.  E/k times the products of the
-    grouped form, but each through ``linear``, so quantized banks work."""
+def _moe_mlp_sharded(xt, p, cfg: TextConfig, topi, topw, mesh, dispatch, path: str):
+    """The MoE over this rank's E/tp experts (its shards, the fsdp dims
+    gathered at use), summed over tp."""
+    tp = axis_size(mesh, "tp")
+    if cfg.num_experts % tp:
+        raise ValueError(f"tp={tp} does not split {cfg.num_experts} experts")
+    plain = all(not isinstance(p["experts"][n], dict) for n in ("gate", "up", "down"))
+    # the per-token gather skips other ranks' experts, so under autograd (where
+    # every rank's backward must run the same collectives) a few tokens too
+    # take a form that uses every bank
+    big = xt.shape[0] > _MOE_GATHER_MAX_TOKENS or torch.is_grad_enabled()
+    if big and plain and _resolve_moe_dispatch(dispatch if dispatch is not None else mesh,
+                                               cfg) != "dense":
+        return _moe_apply_grouped_sharded(xt, p["experts"], cfg, topi, topw, mesh,
+                                          path=f"{path}.layers.experts")
+    banks = []
+    for n in ("gate", "up", "down"):
+        leaf = _wrap_expert_leaf(p["experts"][n])
+        base = f"{path}.layers.experts.{n}"
+        banks.append({k: use_leaf(t, base if k == "weight" else f"{base}.{k}", 1, mesh,
+                                  tp_dim=0) for k, t in leaf.items()})
+    lo = axis_index(mesh, "tp") * (cfg.num_experts // tp)
+    xin, w = C.copy_to_tp(xt, mesh), C.copy_to_tp(topw, mesh)
+    if big:
+        out = _moe_apply_dense(xin, banks, cfg, topi, w, lo=lo)
+    else:
+        out = _moe_apply_gathered(xin, banks, cfg, topi, w, lo=lo)
+    return C.reduce_from_tp(out, mesh)
+
+
+def _moe_apply_dense(xt, banks, cfg: TextConfig, topi, topw, lo: int = 0):
+    """Every expert of the banks over every token, weighted by its routing
+    weight (zero where unrouted), summed in expert order.  E/k times the
+    products of the grouped form, but each through ``linear``, so quantized
+    banks work.  The banks hold experts lo, lo+1, ... (a rank's share)."""
     combine = torch.zeros((xt.shape[0], cfg.num_experts), dtype=topw.dtype,
-                          device=xt.device).scatter_add_(1, topi, topw)  # (T, E)
+                          device=xt.device).scatter_add(1, topi, topw)  # (T, E)
     out = torch.zeros_like(xt)
-    for e in range(cfg.num_experts):
+    for e in range(next(iter(banks[0].values())).shape[0]):
         gw, uw, dw = (_expert(bank, e) for bank in banks)
         y = linear(F.silu(linear(xt, gw)) * linear(xt, uw), dw)
-        out = out + y * combine[:, e, None].to(xt.dtype)
+        out = out + y * combine[:, lo + e, None].to(xt.dtype)
     return out
 
 
@@ -273,33 +349,70 @@ def _moe_apply_grouped(xt, experts, cfg: TextConfig, topi, topw):
     torch.matmul each).  Exact (no token is dropped).  Each token's k
     weighted outputs are put back in (token, slot) order and summed over
     the slots, so the sum's order does not depend on the device."""
+    return _moe_grouped_local(xt, experts, cfg, topi, topw, 0, 1)
+
+
+def _moe_grouped_local(xt, experts, cfg: TextConfig, topi, topw, index: int, tp: int):
+    """Rank ``index`` of ``tp``'s share of the grouped dispatch: ``experts``
+    holds its E/tp banks (experts index·E/tp, ...), the rows routed to them
+    go through them, every other row is zero; summing the ``tp`` ranks'
+    outputs gives the grouped dispatch (``tp`` 1: the whole of it)."""
     T, d = xt.shape
     k = cfg.num_experts_per_tok
+    e_loc = cfg.num_experts // tp
+    lo = index * e_loc
     flat_e = topi.reshape(-1)                              # (T*k,)
     order = torch.argsort(flat_e, stable=True)
-    xs = xt[order // k]                                    # (T*k, D) by expert
     sizes = torch.bincount(flat_e, minlength=cfg.num_experts).tolist()
-    ys, start = [], 0
-    for e, n in enumerate(sizes):
-        if n:
-            rows = xs[start:start + n]
-            g = rows @ experts["gate"][e].T.to(xt.dtype)
-            u = rows @ experts["up"][e].T.to(xt.dtype)
-            ys.append((F.silu(g) * u) @ experts["down"][e].T.to(xt.dtype))
-            start += n
-    y = torch.cat(ys) * topw.reshape(-1)[order].to(xt.dtype)[:, None]
+    start = sum(sizes[:lo])
+    stop = start + sum(sizes[lo:lo + e_loc])
+    mine = order[start:stop]
+    xs = xt[mine // k]                                     # this rank's rows, by expert
+    ys, off = [], 0
+    for j, n in enumerate(sizes[lo:lo + e_loc]):
+        if n or tp > 1:  # under a mesh every bank joins the graph, so every
+            rows = xs[off:off + n]  # rank's backward runs the same collectives
+            g = rows @ experts["gate"][j].T.to(xt.dtype)
+            u = rows @ experts["up"][j].T.to(xt.dtype)
+            ys.append((F.silu(g) * u) @ experts["down"][j].T.to(xt.dtype))
+            off += n
+    y = torch.cat([xt.new_zeros((start, d)), *ys, xt.new_zeros((T * k - stop, d))])
+    w = topw.reshape(-1)[order].to(xt.dtype)
+    y = y * w[:, None]
     return y[torch.argsort(order)].reshape(T, k, d).sum(dim=1)
 
 
-def _moe_apply_gathered(xt, banks, cfg: TextConfig, topi, topw):
+def _moe_apply_grouped_sharded(xt, experts, cfg: TextConfig, topi, topw, mesh,
+                               path: str = "text.layers.experts"):
+    """Expert-parallel grouped dispatch: ``experts`` are this rank's shards
+    of one layer's banks (E/tp experts; the fsdp in-dim gathered here, the
+    gather at use of ZeRO-3), the rank runs ``_moe_grouped_local`` over its
+    experts, and one all-reduce over tp sums each row's k expert outputs
+    from their owners.  Rows enter replicated over tp, so no token
+    all-to-all is needed.  Differentiable: the backward all-reduces the
+    rows' and routing weights' gradients over tp."""
+    if is_trivial(mesh):
+        return _moe_apply_grouped(xt, experts, cfg, topi, topw)
+    tp = axis_size(mesh, "tp")
+    ex = {n: use_leaf(experts[n], f"{path}.{n}", 1, mesh) for n in ("gate", "up", "down")}
+    out = _moe_grouped_local(C.copy_to_tp(xt, mesh), ex, cfg, topi, C.copy_to_tp(topw, mesh),
+                             axis_index(mesh, "tp"), tp)
+    return C.reduce_from_tp(out, mesh)
+
+
+def _moe_apply_gathered(xt, banks, cfg: TextConfig, topi, topw, lo: int = 0):
     """Top-k gather for a few tokens: each token runs its k experts' slices
     (``_expert``) through ``linear``, one token at a time.  The expert ids
-    are read on the host, once a layer."""
+    are read on the host, once a layer; the banks hold experts lo, lo+1,
+    ... and a token's other experts are skipped (another rank's)."""
+    n_local = next(iter(banks[0].values())).shape[0]
     out = []
     for x_row, ids, wts in zip(xt, topi.tolist(), topw):
         y = torch.zeros_like(x_row)
         for j, e in enumerate(ids):
-            gw, uw, dw = (_expert(bank, e) for bank in banks)
+            if not lo <= e < lo + n_local:
+                continue
+            gw, uw, dw = (_expert(bank, e - lo) for bank in banks)
             g = F.silu(linear(x_row[None], gw))[0]
             u = linear(x_row[None], uw)[0]
             y = y + linear((g * u)[None], dw)[0] * wts[j].to(x_row.dtype)
@@ -359,6 +472,117 @@ def _layer(x, lp, cfg: TextConfig, positions, attn_mask, attn_impl, moe_dispatch
     return x + _mlp(y, lp, cfg, moe_dispatch)
 
 
+# --- tensor parallel ---------------------------------------------------------
+# the output dim of each key of a linear's leaf dict
+_OUT_DIM = {"weight": -2, "w_int8": -2, "w_int4": -2, "w_int4pc": -2, "scale": -1,
+            "scale4": -2, "bias": -1, "lora_b": -2}
+
+
+def _tp_heads(cfg: TextConfig, mesh):
+    """(this rank's q heads, its kv heads, the kv head it reads where tp
+    exceeds the kv heads, else None).  Past the kv heads each rank holds the
+    one kv head its q heads read, so k and v repeat over tp/Hkv ranks."""
+    tp = axis_size(mesh, "tp")
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    if H % tp or (Hkv % tp and tp % Hkv):
+        raise ValueError(f"tp={tp} does not split {H} heads over {Hkv} kv heads")
+    h = H // tp
+    if Hkv % tp == 0:
+        return h, Hkv // tp, None
+    return h, 1, axis_index(mesh, "tp") * h // (H // Hkv)
+
+
+def _kv_proj(yin, lp, name: str, L: str, cfg: TextConfig, mesh, kv_head):
+    """This rank's k or v heads: a column shard, or past the kv heads the
+    gathered weight's rows of the one head it reads (the backward sums the
+    ranks' shares into the stored shards)."""
+    if kv_head is None:
+        return linear(yin, use_linear(lp[name], f"{L}.{name}", "col", 1, mesh))
+    full = use_linear(lp[name], f"{L}.{name}", "full", 1, mesh)
+    lo = kv_head * cfg.head_dim
+    rows = {k: t.narrow(_OUT_DIM[k] % t.dim(), lo, cfg.head_dim) if k in _OUT_DIM else t
+            for k, t in full.items()}
+    return linear(yin, rows)
+
+
+def _tp_enter(y, mesh, seq: bool):
+    """The input of a column-parallel product: under sequence parallelism
+    the S shards gathered (the backward reduce-scattered), else y as it is
+    (the backward all-reduced)."""
+    return C.gather(y, mesh, "tp", 1, bwd="sum") if seq else C.copy_to_tp(y, mesh)
+
+
+def _tp_attn_block(y, lp, cfg: TextConfig, positions, kv_mask, cache_k, cache_v, cache_len,
+                   attn_impl, L: str, mesh, seq: bool = False):
+    """``_attn_block`` over this rank's heads: q/k/v column-parallel, the
+    attention local (the kernels on the rank's heads), o row-parallel."""
+    if "qkv" in lp:
+        raise ValueError("a fused q/k/v leaf under a mesh: shard the unfused tree")
+    h, hkv, kv_head = _tp_heads(cfg, mesh)
+    hd = cfg.head_dim
+    yin = _tp_enter(y, mesh, seq)
+    b, s, _ = yin.shape
+    sp = 1 if seq else None
+    if cache_k is None and s == 1 and kv_mask is None and "v" in lp:
+        v = _kv_proj(yin, lp, "v", L, cfg, mesh, kv_head).reshape(b, s, hkv, hd)
+        o = _repeat_kv(v, h // hkv)
+        return row_linear(o.reshape(b, s, h * hd), lp["o"], f"{L}.o", 1)
+    q = linear(yin, use_linear(lp["q"], f"{L}.q", "col", 1, mesh)).reshape(b, s, h, hd)
+    k = _kv_proj(yin, lp, "k", L, cfg, mesh, kv_head).reshape(b, s, hkv, hd)
+    v = _kv_proj(yin, lp, "v", L, cfg, mesh, kv_head).reshape(b, s, hkv, hd)
+    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    if cache_k is not None:
+        _write_cache(cache_k, k, cache_len)
+        _write_cache(cache_v, v, cache_len)
+        total_len = cache_len + s
+        if s == 1:
+            o = decode_attention(q, cache_k, cache_v, total_len)
+        else:
+            o = flash_attention(q, cache_k.to(q.dtype), cache_v.to(q.dtype), causal=True,
+                                kv_len=total_len, q_offset=cache_len)
+    else:
+        shape = (b * axis_size(mesh, "dp"), cfg.num_heads, cfg.num_kv_heads)
+        o = attention(q, k, v, causal=True, kv_mask=kv_mask, impl=attn_impl, shape=shape)
+    return row_linear(o.reshape(b, s, h * hd), lp["o"], f"{L}.o", 1, sequence_dim=sp)
+
+
+def _tp_mlp(y, lp, cfg: TextConfig, L: str, mesh, seq: bool, moe_dispatch, path: str):
+    """``_mlp`` over this rank's channels (gate/up column-, down
+    row-parallel) or experts."""
+    if cfg.num_experts > 1:
+        yin = C.gather(y, mesh, "tp", 1, bwd="slice") if seq else y
+        out = _moe_mlp(yin, lp, cfg, moe_dispatch, path)
+        return C.scatter(out, mesh, "tp", 1) if seq else out
+    mlp = lp["mlp"]
+    if "gateup" in mlp:
+        raise ValueError("a fused gate/up leaf under a mesh: shard the unfused tree")
+    yin = _tp_enter(y, mesh, seq)
+    g = linear(yin, use_linear(mlp["gate"], f"{L}.mlp.gate", "col", 1, mesh))
+    u = linear(yin, use_linear(mlp["up"], f"{L}.mlp.up", "col", 1, mesh))
+    return row_linear(F.silu(g) * u, mlp["down"], f"{L}.mlp.down", 1,
+                      sequence_dim=1 if seq else None)
+
+
+def _tp_layer(x, lp, cfg: TextConfig, positions, attn_mask, attn_impl, moe_dispatch, path: str,
+              seq: bool):
+    """``_layer`` under the ambient mesh; under sequence parallelism x is
+    this rank's S shard."""
+    mesh = ambient_mesh()
+    L = f"{path}.layers"
+
+    def norm(t, name):  # on S shards, each rank's weight gradient is a part
+        w = lp[name]["weight"]
+        return rms_norm(t, C.copy_to_tp(w, mesh) if seq else w, cfg.rms_norm_eps)
+
+    y = norm(x, "input_norm")
+    x = x + _tp_attn_block(y, lp, cfg, positions, attn_mask, None, None, None, attn_impl, L,
+                           mesh, seq)
+    y = norm(x, "post_norm")
+    return x + _tp_mlp(y, lp, cfg, L, mesh, seq, moe_dispatch, path)
+
+
 def text_forward(
     params,
     cfg: TextConfig,
@@ -372,11 +596,23 @@ def text_forward(
     return_hidden: bool = False,
     remat: bool = False,
     moe_dispatch=None,
+    sequence_axis: Optional[str] = None,
+    path: str = "text",
 ):
     """Forward over a token block.
 
-    ``moe_dispatch`` (Mixtral): None (one device, the grouped form), "dense"
-    or "grouped" (``_moe_mlp``).
+    ``moe_dispatch`` (Mixtral): None (the ambient mesh decides), "dense",
+    "grouped" or a mesh (``_moe_mlp``).
+
+    ``path``: the tree path of ``params`` ("text", or "projector.cls_net"
+    for the gate LM), which the partitioning rules read under a mesh.
+
+    ``sequence_axis`` (no cache, under a mesh): Megatron-style sequence
+    parallelism — the activations between blocks live sharded along S over
+    that axis ("tp"), the column-parallel inputs are gathered along S and
+    the row-parallel sums reduce-scattered along S (the reference's
+    ParallelLinearFunc all-gather / reduce-scatter pair); the numerics are
+    those of the unsharded forward.
 
     ``remat`` (no cache): per-layer rematerialization — each layer runs
     under ``torch.utils.checkpoint`` (non-reentrant), so its activations are
@@ -391,25 +627,39 @@ def text_forward(
     size); right-padded prefill blocks pass their real length, so the pad
     rows are overwritten by the next block.
     """
-    x = inputs_embeds if inputs_embeds is not None else embed_tokens(params, input_ids)
+    mesh = ambient_mesh()
+    sharded = not is_trivial(mesh)
+    x = inputs_embeds if inputs_embeds is not None else embed_tokens(params, input_ids, path)
     b, s, _ = x.shape
     if positions is None:
         base = cache.length[:, None] if cache is not None else torch.zeros(
             (b, 1), dtype=torch.int32, device=x.device)
         positions = base + torch.arange(s, device=x.device)[None, :]
+    seq = sharded and sequence_axis is not None and cache is None
+    if seq:
+        if sequence_axis != "tp":
+            raise ValueError(f"sequence_axis {sequence_axis!r}: the S shards ride tp")
+        x = C.scatter(x, mesh, "tp", 1)
+    L = f"{path}.layers"
     for i, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
         if cache is None:
-            if remat:
-                x = checkpoint(_layer, x, lp, cfg, positions, attn_mask, attn_impl,
-                               moe_dispatch, use_reentrant=False)
-            else:
-                x = _layer(x, lp, cfg, positions, attn_mask, attn_impl, moe_dispatch)
+            fn, extra = ((_tp_layer, (path, seq)) if sharded else (_layer, ()))
+            args = (x, lp, cfg, positions, attn_mask, attn_impl, moe_dispatch, *extra)
+            x = checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
             continue
         y = rms_norm(x, lp["input_norm"]["weight"], cfg.rms_norm_eps)
+        if sharded:
+            x = x + _tp_attn_block(y, lp, cfg, positions, attn_mask, cache.k[i], cache.v[i],
+                                   cache.length, attn_impl, L, mesh)
+            y = rms_norm(x, lp["post_norm"]["weight"], cfg.rms_norm_eps)
+            x = x + _tp_mlp(y, lp, cfg, L, mesh, False, moe_dispatch, path)
+            continue
         x = x + _attn_block(y, lp, cfg, positions, attn_mask, cache.k[i], cache.v[i],
                             cache.length, attn_impl)
         y = rms_norm(x, lp["post_norm"]["weight"], cfg.rms_norm_eps)
         x = x + _mlp(y, lp, cfg, moe_dispatch)
+    if seq:
+        x = C.gather(x, mesh, "tp", 1, bwd="slice")
     new_cache = None
     if cache is not None:
         advance = cache_advance if cache_advance is not None else s
@@ -417,9 +667,20 @@ def text_forward(
     x = rms_norm(x, params["final_norm"]["weight"], cfg.rms_norm_eps)
     if return_hidden:
         return x, new_cache
-    return lm_head(params, cfg, x), new_cache
+    return lm_head(params, cfg, x, path), new_cache
 
 
-def lm_head(params, cfg: TextConfig, hidden: torch.Tensor) -> torch.Tensor:
+def lm_head(params, cfg: TextConfig, hidden: torch.Tensor, path: str = "text") -> torch.Tensor:
+    """fp32 logits.  Under a mesh whose rule puts the vocab on tp (the
+    decoder's), each rank computes its vocab rows' logits and the ranks'
+    are gathered over tp, so every rank samples from the same row."""
+    key = "embed_tokens" if cfg.tie_word_embeddings else "lm_head.weight"
     w = params["embed_tokens"] if cfg.tie_word_embeddings else params["lm_head"]["weight"]
-    return (hidden @ w.T.to(hidden.dtype)).float()
+    mesh = ambient_mesh()
+    if is_trivial(mesh):
+        return (hidden @ w.T.to(hidden.dtype)).float()
+    w = use_leaf(w, f"{path}.{key}", mesh=mesh)
+    if spec_for(f"{path}.{key}", 2)[:1] != ("tp",):
+        return (hidden @ w.T.to(hidden.dtype)).float()
+    logits = C.copy_to_tp(hidden, mesh) @ w.T.to(hidden.dtype)
+    return C.gather(logits, mesh, "tp", -1, bwd="slice").float()

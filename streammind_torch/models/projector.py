@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import StreamMindConfig
+from ..parallel.partitioning import use_linear
 from ..utils.params import linear, torch_linear_init
 from . import connectors
 from . import mistral as lm
@@ -106,11 +107,16 @@ def mamba_project_chunk(params, cfg: StreamMindConfig, frames_features: torch.Te
     N, H) in one scan: the catch-up path, equal to T single steps (None
     starts a fresh stream).  Returns (B, T, hidden) memory tokens and the
     new state."""
-    x = F.leaky_relu(linear(spatial_pool(frames_features), params["pre_net"]),
+    x = F.leaky_relu(_net(spatial_pool(frames_features), params, "pre_net"),
                      negative_slope=0.01)
     x, state = video_mamba_forward(params["mamba"], cfg.mamba, x, state=state, impl=impl)
-    x = linear(F.leaky_relu(x, negative_slope=0.01), params["post_net"])
+    x = _net(F.leaky_relu(x, negative_slope=0.01), params, "post_net")
     return x, state
+
+
+def _net(x, params, name: str):
+    """pre_net / post_net: whole on every rank (fsdp gathered at use)."""
+    return linear(x, use_linear(params[name], f"projector.{name}", "full"))
 
 
 _PROJ_COUNT_MEMO: dict = {}
@@ -173,9 +179,9 @@ def mamba_project_step(params, cfg: StreamMindConfig, frame_features: torch.Tens
     """O(1) streaming projection of one frame (B, N, H) → one memory token
     (B, hidden)."""
     x = frame_features.mean(dim=1)
-    x = F.leaky_relu(linear(x, params["pre_net"]), negative_slope=0.01)
+    x = F.leaky_relu(_net(x, params, "pre_net"), negative_slope=0.01)
     x, state = video_mamba_step(params["mamba"], cfg.mamba, x, state)
-    x = linear(F.leaky_relu(x, negative_slope=0.01), params["post_net"])
+    x = _net(F.leaky_relu(x, negative_slope=0.01), params, "post_net")
     return x, state
 
 
@@ -183,7 +189,7 @@ def gate_logits(params, cfg: StreamMindConfig, memory_tokens: torch.Tensor,
                 attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The gate LM over an embedded sequence (B, S, hidden) → (B, S, 2)."""
     logits, _ = lm.text_forward(params["cls_net"], cfg.gate, inputs_embeds=memory_tokens,
-                                attn_mask=attn_mask)
+                                attn_mask=attn_mask, path="projector.cls_net")
     return logits
 
 

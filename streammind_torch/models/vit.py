@@ -6,14 +6,23 @@ num_layers-1 blocks run) and drops the CLS token under
 embedding is a reshape + matmul; attention goes through the shared
 dispatcher, whose ``"exact"`` path is the hand-written CUDA kernel.  An
 int8 tree (``fast_vision="int8"``) runs its linears int8 by int8.
+
+Under a mesh the heads split over tp: q/k/v and fc1 column-parallel, o and
+fc2 row-parallel (their biases added once, after the sum over tp), the
+attention kernel on the rank's heads.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..config import VisionConfig
 from ..ops.attention import attention
 from ..ops.norms import layer_norm
+from ..parallel import collectives as C
+from ..parallel.mesh import ambient_mesh, axis_size, is_trivial
+from ..parallel.partitioning import row_linear, use_leaf, use_linear
 from ..utils.params import layer_slice, linear, normal_init, ones, torch_linear_init, zeros
 
 
@@ -55,23 +64,25 @@ def _embed(params, cfg: VisionConfig, pixel_values: torch.Tensor) -> torch.Tenso
     g = cfg.image_size // p
     x = pixel_values.reshape(b, 3, g, p, g, p).permute(0, 2, 4, 1, 3, 5)
     x = x.reshape(b, g * g, 3 * p * p)
-    x = x @ params["patch_embedding"].T.to(x.dtype)
+    x = x @ use_leaf(params["patch_embedding"], "vision.patch_embedding").T.to(x.dtype)
     cls = params["class_embedding"].to(x.dtype)[None, None].expand(b, 1, x.shape[-1])
     x = torch.cat([cls, x], dim=1)
     return x + params["position_embedding"].to(x.dtype)[None]
 
 
-def _linear_q(x: torch.Tensor, p: dict) -> torch.Tensor:
+def _linear_q(x: torch.Tensor, p: dict, row_mesh=None) -> torch.Tensor:
     """Encoder linear.  Full-precision leaves go to ``utils.params.linear``;
     int8 leaves (``utils.quantize.quantize_vit_params``) run the int8 tier:
     the activations are quantized per token (symmetric absmax over the
     feature axis), multiplied int8 by int8 into int32 (an exact integer
     product: ``torch._int_mm``, a library product as the JAX package leaves
-    its einsum to XLA), then rescaled by act_scale ⊗ weight_scale in fp32."""
+    its einsum to XLA), then rescaled by act_scale ⊗ weight_scale in fp32.
+    ``row_mesh``: x is this rank's share of a row-parallel product's inputs,
+    so the absmax is the max over tp."""
     if "w_int8" not in p:
         return linear(x, p)
     x32 = x.float()
-    ax = x32.abs().amax(dim=-1, keepdim=True)
+    ax = C.all_reduce_max(x32.abs().amax(dim=-1, keepdim=True), row_mesh)
     ax = torch.clamp(ax / ax.new_tensor(127.0), min=1e-8)
     xq = torch.clamp(torch.round(x32 / ax), -127, 127).to(torch.int8)
     y = torch._int_mm(xq.reshape(-1, x.shape[-1]), p["w_int8"].T)
@@ -102,7 +113,32 @@ def fuse_vit_qkv(vit_params: dict) -> dict:
     return out
 
 
+def _tp_encoder_layer(x, lp, cfg: VisionConfig, attn_impl: str, mesh):
+    """``_encoder_layer`` over this rank's heads (unfused q/k/v)."""
+    b, s, d = x.shape
+    tp = axis_size(mesh, "tp")
+    if cfg.num_heads % tp:
+        raise ValueError(f"tp={tp} does not split the ViT's {cfg.num_heads} heads")
+    h, hd = cfg.num_heads // tp, cfg.head_dim
+    row = functools.partial(_linear_q, row_mesh=mesh)
+
+    def col(y, name):
+        return _linear_q(C.copy_to_tp(y, mesh), use_linear(lp[name], f"vision.layers.{name}",
+                                                           "col", 1, mesh))
+
+    y = layer_norm(x, lp["ln1"]["weight"], lp["ln1"]["bias"], cfg.layer_norm_eps)
+    q, k, v = (col(y, n).reshape(b, s, h, hd) for n in ("q", "k", "v"))
+    o = attention(q, k, v, causal=False, impl=attn_impl).reshape(b, s, h * hd)
+    x = x + row_linear(o, lp["o"], "vision.layers.o", 1, linear_fn=row)
+    y = layer_norm(x, lp["ln2"]["weight"], lp["ln2"]["bias"], cfg.layer_norm_eps)
+    return x + row_linear(quick_gelu(col(y, "fc1")), lp["fc2"], "vision.layers.fc2", 1,
+                          linear_fn=row)
+
+
 def _encoder_layer(x, lp, cfg: VisionConfig, attn_impl: str):
+    mesh = ambient_mesh()
+    if not is_trivial(mesh):
+        return _tp_encoder_layer(x, lp, cfg, attn_impl, mesh)
     b, s, d = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
     res = x

@@ -21,9 +21,21 @@ One-shot callers (``api``, the HTTP worker) stream a turn's tokens with
 This package runs eagerly: the decode loops are Python loops with one host
 sync per token (or lockstep step), where the JAX package compiles a
 while-loop.  Ring and KV cache writes happen in place.
+
+Tensor-parallel serving (``mesh=``): every rank of the mesh builds the same
+engine and calls the same methods with the same inputs.  The params are
+the rank's shards (``parallel/partitioning.py``), the caches and stream
+states it creates hold the rank's kv heads and Mamba channels
+(``parallel/serving.py``), and each method runs under the mesh, whose
+collectives the layers issue.  Batched state sharded over dp holds the
+rank's rows; their outputs are gathered over dp, so every rank returns the
+same probs, logits and tokens (the logits are gathered over tp before any
+token is sampled on the host).
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -37,6 +49,8 @@ from ..models import projector as proj
 from ..models.mamba import MambaState
 from ..models.meta import SplicePlan, bucket_length, build_splice_plan, splice_embeds
 from ..models.vit import fuse_vit_qkv, vit_forward
+from ..parallel import collectives as C
+from ..parallel.mesh import axis_size, set_mesh
 from ..utils.from_jax import array_to_tensor
 from ..utils.params import param_bytes, tree_leaves, tree_map
 from .logit_filters import (
@@ -89,6 +103,19 @@ def top_stable(values: np.ndarray, n: int) -> np.ndarray:
     return np.argsort(-values, kind="stable")[:n]
 
 
+def _on_mesh(method):
+    """Run an engine method under the engine's mesh (none: as it is)."""
+
+    @functools.wraps(method)
+    def wrapper(self, *args, **kwargs):
+        if self.mesh is None:
+            return method(self, *args, **kwargs)
+        with set_mesh(self.mesh):
+            return method(self, *args, **kwargs)
+
+    return wrapper
+
+
 class StreamMindEngine:
     """Holds the params; many StreamSessions can share one engine."""
 
@@ -104,6 +131,7 @@ class StreamMindEngine:
         fast_vision=False,
         split_perceive: bool = False,
         device="cuda",
+        mesh=None,
     ):
         """params: the JAX package's tree layout, as tensors (moved to
         ``device`` if they lie elsewhere).  The serving tiers, as the JAX
@@ -116,7 +144,22 @@ class StreamMindEngine:
         split_perceive is taken for the JAX package's signature: there it
         dispatches the one-frame tick as two compiled programs instead of
         one; run eagerly, the tick is the same sequence of operations either
-        way, so it changes nothing here."""
+        way, so it changes nothing here.
+
+        mesh: a (dp, fsdp, tp) mesh (``parallel.make_mesh``) — tensor-parallel
+        serving.  tp must divide the kv heads and the Mamba d_inner
+        (``mesh_fits_inference``, checked first); the tree stays unfused
+        (separate q/k/v and gate/up, as the rules name them) and is sharded
+        after the tiers' transforms; Mixtral's experts split over tp."""
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel.serving import mesh_fits_inference
+
+            if not mesh_fits_inference(mesh, cfg):
+                raise ValueError(
+                    f"mesh tp={axis_size(mesh, 'tp')} does not divide "
+                    f"num_kv_heads={cfg.text.num_kv_heads} / Mamba "
+                    f"d_inner={cfg.mamba.d_model * cfg.mamba.expand}")
         if quantize_gate not in (False, None, True, "int8", "int4"):
             raise ValueError(f"quantize_gate must be True/'int8' or 'int4', got {quantize_gate!r}")
         if fast_vision not in (False, None, True, "int8"):
@@ -135,9 +178,9 @@ class StreamMindEngine:
             params["projector"] = dict(params["projector"])
             params["projector"]["cls_net"] = quantize_gate_params(
                 params["projector"]["cls_net"], bits=4 if quantize_gate == "int4" else 8)
-        if "vision" in params:
+        if "vision" in params and mesh is None:
             params["vision"] = fuse_vit_qkv(params["vision"])
-        if "text" in params:
+        if "text" in params and mesh is None:
             # q/k/v → qkv (biases too) and gate/up → gateup (Mixtral's
             # expert banks stay as they are); quantized trees (any scheme)
             # always, plain trees only under 2 GiB (a bf16 Mistral-7B stays
@@ -148,6 +191,10 @@ class StreamMindEngine:
                 {"w_int8", "w_int4", "w_int4pc"} & set(q_leaf))
             if quantized or param_bytes(params["text"]) < 2 << 30:
                 params["text"] = lm.fuse_text_linears(params["text"])
+        if mesh is not None:
+            from ..parallel.partitioning import shard_params
+
+            params = shard_params(params, mesh)
         self.params = params
         self.cfg = cfg
         self.eos_token_id = eos_token_id
@@ -157,6 +204,7 @@ class StreamMindEngine:
 
     # -- perception -------------------------------------------------------
     @torch.no_grad()
+    @_on_mesh
     def perceive_step(self, pixels: torch.Tensor, state: StreamState):
         """pixels (1, 3, H, W) → (gate_probs (2,) fp32, new_state).  The
         memory ring of ``state`` is written in place."""
@@ -173,6 +221,7 @@ class StreamMindEngine:
         return gate_probs, new_state
 
     @torch.no_grad()
+    @_on_mesh
     def perceive_burst(self, pixels: torch.Tensor, state: StreamState):
         """Catch-up after a stall: a burst of T frames (T, 3, H, W) of one
         stream at once, equal to T perceive_steps — one ViT batch, one
@@ -201,6 +250,7 @@ class StreamMindEngine:
 
     # -- cognition --------------------------------------------------------
     @torch.no_grad()
+    @_on_mesh
     def prefill(self, plan: SplicePlan, memory: torch.Tensor, cache: lm.KVCache):
         """Bucketed prefill of one right-padded suffix into ``cache`` (in
         place).  Returns (next-token logits (1, V) fp32, cache advanced by
@@ -219,6 +269,7 @@ class StreamMindEngine:
         return logits[:, max(plan.length - 1, 0), :], cache
 
     @torch.no_grad()
+    @_on_mesh
     def generate_from_prefill(
         self,
         last_logits: torch.Tensor,
@@ -262,6 +313,7 @@ class StreamMindEngine:
         n = min(i + int(done and tok != eos), max_new_tokens)
         return buf[:n], cache
 
+    @_on_mesh
     def _decode_step(self, tok: int, cache: lm.KVCache, temperature, top_k, top_p, generator):
         """Feed one token; returns (the next token, the cache advanced by 1)."""
         ids = torch.tensor([[tok]], dtype=torch.long, device=self.device)
@@ -288,6 +340,7 @@ class StreamMindEngine:
                 tok, cache = self._decode_step(tok, cache, temperature, top_k, top_p, generator)
 
     @torch.no_grad()
+    @_on_mesh
     def beam_generate(self, plan: SplicePlan, memory: torch.Tensor, num_beams: int = 5,
                       max_new_tokens: int = 128, num_return_sequences: Optional[int] = None,
                       length_penalty: float = 1.0, kv_dtype: Optional[torch.dtype] = None):
@@ -384,20 +437,43 @@ class StreamMindEngine:
         return self.kv_capacity
 
     def new_kv_cache(self, dtype=None, capacity: Optional[int] = None) -> lm.KVCache:
-        """dtype None → the decoder weights' working dtype."""
+        """dtype None → the decoder weights' working dtype.  Under a mesh the
+        cache holds this rank's kv heads (``kv_cache_specs``)."""
         if dtype is None:
             dtype = _float_dtype(self.params["text"])
-        return lm.init_kv_cache(self.cfg.text, batch=1, capacity=capacity or self.kv_capacity,
+        text = self.cfg.text
+        if self.mesh is not None:
+            text = dataclasses.replace(
+                text, num_kv_heads=text.num_kv_heads // axis_size(self.mesh, "tp"))
+        return lm.init_kv_cache(text, batch=1, capacity=capacity or self.kv_capacity,
                                 dtype=dtype, device=self.device)
 
     def new_stream_state(self, n_streams: Optional[int] = None) -> StreamState:
-        """Fresh perception state: one stream, or S batched streams."""
+        """Fresh perception state: one stream, or S batched streams.  Under a
+        mesh it holds this rank's Mamba channels and, where dp divides S,
+        its streams (``stream_state_specs``)."""
         if n_streams is None:
-            return init_stream_state(self.cfg, device=self.device)
-        return init_multistream_state(self.cfg, n_streams, device=self.device)
+            state = init_stream_state(self.cfg, device=self.device)
+        else:
+            state = init_multistream_state(self.cfg, n_streams, device=self.device)
+        if self.mesh is None:
+            return state
+        from ..parallel.serving import shard_stream_state
+
+        dp = axis_size(self.mesh, "dp")
+        axis = "dp" if (n_streams and dp > 1 and n_streams % dp == 0) else None
+        return shard_stream_state(state, self.mesh, stream_axis=axis)
+
+    def _dp_rows(self, n_global: int, n_local: int):
+        """The rows of n_global this rank holds where its state holds
+        n_local of them (dp-sharded), else None."""
+        if self.mesh is None or n_local == n_global:
+            return None
+        return C.axis_rows(n_global, self.mesh, "dp")
 
     # -- batched perception and cognition (multi-stream serving) ----------
     @torch.no_grad()
+    @_on_mesh
     def perceive_step_batch(self, pixels: torch.Tensor, state: StreamState,
                             feed_mask: Optional[torch.Tensor] = None):
         """One frame for each of S streams (state from new_stream_state(S)).
@@ -406,10 +482,14 @@ class StreamMindEngine:
         ring is written in place, one row per fed stream."""
         p, cfg = self.params, self.cfg
         pixels = pixels.to(self.device)
-        s = pixels.shape[0]
         if feed_mask is None:
-            feed_mask = torch.ones((s,), dtype=torch.bool, device=self.device)
+            feed_mask = torch.ones((pixels.shape[0],), dtype=torch.bool, device=self.device)
         feed_mask = torch.as_tensor(feed_mask, device=self.device)
+        rows = self._dp_rows(pixels.shape[0], state.memory.shape[0])
+        if rows is not None:  # this rank's streams; the probs gathered over dp
+            probs, state = self.perceive_step_batch(pixels[rows], state, feed_mask[rows])
+            return C.all_gather_rows(probs, self.mesh, "dp"), state
+        s = pixels.shape[0]
         feats = vit_forward(p["vision"], cfg.vision, pixels, attn_impl=self.attn_impl)
         mem_tok, mamba_state = proj.mamba_project_step(p["projector"], cfg, feats, state.mamba)
         logits = proj.gate_decision_step(p["projector"], cfg, mem_tok)
@@ -428,11 +508,16 @@ class StreamMindEngine:
         return gate_probs, new_state
 
     @torch.no_grad()
+    @_on_mesh
     def prefill_batch(self, plans, memory: torch.Tensor, cache: lm.KVCache):
         """Batched prefill of K turns padded to one shared bucket into a
         batch-K cache (in place).  memory (K, M, D).  Returns ((K, V)
         last logits, cache with each row advanced by its plan's length)."""
         dev = self.device
+        rows = self._dp_rows(len(plans), cache.k.shape[1])
+        if rows is not None:  # this rank's turns; the logits gathered over dp
+            last, cache = self.prefill_batch(plans[rows], memory[rows], cache)
+            return C.all_gather_rows(last, self.mesh, "dp"), cache
 
         def t(key):
             return torch.as_tensor(np.stack([getattr(pl, key) for pl in plans]), device=dev)
@@ -447,6 +532,7 @@ class StreamMindEngine:
         return logits[torch.arange(len(plans), device=dev), last], cache
 
     @torch.no_grad()
+    @_on_mesh
     def generate_from_prefill_batch(self, last_logits: torch.Tensor, cache: lm.KVCache,
                                     max_new_tokens, active=None, temperature=0.0, top_k=0,
                                     top_p=0.0, generator: Optional[torch.Generator] = None,
@@ -461,14 +547,15 @@ class StreamMindEngine:
                   else list(max_new_tokens))
         knobs = (_knob_rows(temperature, K), _knob_rows(top_k, K), _knob_rows(top_p, K))
         first = sample_first_token_rows(generator, last_logits, *knobs)
+        rows = self._dp_rows(K, cache.k.shape[1]) or slice(0, K)
 
         def step(toks, advance):
             nonlocal cache
-            ids = torch.tensor(toks, dtype=torch.long, device=self.device)[:, None]
-            adv = torch.tensor(advance, dtype=torch.int32, device=self.device)
+            ids = torch.tensor(toks[rows], dtype=torch.long, device=self.device)[:, None]
+            adv = torch.tensor(advance[rows], dtype=torch.int32, device=self.device)
             logits, cache = lm.text_forward(self.params["text"], self.cfg.text, input_ids=ids,
                                             cache=cache, cache_advance=adv)
-            return logits[:, -1]
+            return C.all_gather_rows(logits[:, -1], self.mesh, "dp")
 
         buf, steps = lockstep_decode(step, first, limits, self.eos_token_id, knobs, generator,
                                      stop_ids, active)

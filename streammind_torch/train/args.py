@@ -27,8 +27,8 @@ class ModelArguments:
                                                 # layers into the gate LM
     num_frames: int = 32
     # reference --bits (train_new_stream.py:694-712, bnb 4/8-bit): rest the
-    # FROZEN decoder at int8/int4 during the adapter/cls stages.  Not ported
-    # yet: train() raises for 4 and 8 (ROADMAP Queue 1 item 17).
+    # FROZEN decoder at int8 (per channel) or int4 (groups of 64) during the
+    # adapter/cls stages, or under LoRA on the llm stage (QLoRA).
     bits: int = 16
 
 
@@ -77,7 +77,8 @@ class TrainingArguments:
     lora_r: int = 128
     lora_alpha: int = 256
     lora_dropout: float = 0.05
-    # mesh: only 1 x 1 x 1 is ported (train() raises otherwise)
+    # mesh: dp x fsdp x tp must equal the process group's world size (one
+    # process a rank; 1 x 1 x 1 on one process)
     dp: int = 1
     fsdp: int = 1
     tp: int = 1

@@ -71,9 +71,9 @@ def stage2_gate_loss(params, cfg: StreamMindConfig, frames_features, gate_labels
     label_mask (1, T) bool — frames that carry a label."""
     memory, _ = proj.mamba_project(params["projector"], cfg, frames_features)
     b, t, d = memory.shape
-    gate_embed = params["projector"]["cls_net"]["embed_tokens"]       # (2, D)
     labels = gate_labels.long()
-    label_emb = gate_embed[torch.clamp(labels, 0, 1)]                   # (B, T, D)
+    label_emb = lm.embed_tokens(params["projector"]["cls_net"], torch.clamp(labels, 0, 1),
+                                path="projector.cls_net")               # (B, T, D)
     pairs = torch.stack([memory, label_emb.to(memory.dtype)], dim=2).reshape(b * t, 2, d)
     pair_labels = torch.stack([torch.full_like(labels, IGNORE_INDEX), labels],
                               dim=2).reshape(b * t, 2)

@@ -33,8 +33,15 @@ Without ``dataset=``, ``--dataset`` builds the MatchTime, Ego4D or SFT
 dataset from ``--data-path`` / ``--data-folder`` / ``--anno-path``, with
 the ``transformers`` tokenizer of ``--model-path``, as the JAX package does.
 
-The dp/fsdp/tp mesh is not ported yet (NotImplementedError, ROADMAP Queue 1
-item 17, parallelism).
+On a dp × fsdp × tp mesh (``--dp/--fsdp/--tp``, one process a rank,
+``utils/dist.init_process_group`` started by the caller) every rank takes
+the same samples, builds the same microbatch of per-device × dp rows and
+keeps its dp rows; the params are the rank's shards (fsdp gathered at use,
+tp split by the partitioning rules), the token-weighted loss and gradients
+are summed over dp, so the logged loss is the global token mean; attention
+is the flash kernels per shard (``flash_mha_sharded``).  Checkpoints hold
+the whole tree, gathered, written by rank 0; a resume on another mesh
+takes its own shards of the params and the optimizer state.
 
     python -m streammind_torch.train.run --score-dataset-train-llm true \
         --bits 4 --lora-enable true --model-path ckpt/ --dataset matchtime ...
@@ -57,6 +64,11 @@ from ..config import StreamMindConfig
 from ..constants import IGNORE_INDEX, MMODAL_TOKEN_INDEX, VIDEO_TOKEN_INDEX
 from ..models.meta import build_splice_plan, bucket_length, init_streammind_params
 from ..models.vit import vit_forward
+from ..parallel import collectives as C
+from ..parallel.mesh import make_mesh, mesh_shape, set_mesh
+from ..parallel.partitioning import (gather_leaf, gather_params, local_shard, mesh_coords,
+                                     shard_params, spec_for)
+from ..utils import dist as dist_utils
 from ..utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint, save_opt_state
 from ..utils.logging import MetricLogger
 from ..utils.metrics_writer import MetricsWriter
@@ -325,11 +337,14 @@ def make_microbatch(samples, cfg, vision_params, stage: str, pad_to: int = 0, de
 
 
 def _check_supported(model_args, training_args, stage: str):
-    """Refuse, before any weight is made, what the JAX package refuses and
-    what the port does not run yet."""
-    if training_args.dp * training_args.fsdp * training_args.tp > 1:
-        raise NotImplementedError("the dp/fsdp/tp mesh is not ported yet (ROADMAP Queue 1 "
-                                  "item 17, parallelism); train on one device")
+    """Refuse, before any weight is made, what the JAX package refuses and a
+    mesh that is not the process group's world."""
+    dp, fsdp, tp = training_args.dp, training_args.fsdp, training_args.tp
+    world, need = dist_utils.size(), dp * fsdp * tp
+    if need > world:
+        raise ValueError(f"mesh {dp}x{fsdp}x{tp} needs {need} devices, have {world}")
+    if need < world:
+        raise ValueError(f"mesh {dp}x{fsdp}x{tp} covers {need} of the {world} ranks")
     if model_args.bits not in (4, 8, 16):
         raise ValueError(f"--bits must be 4, 8 or 16, got {model_args.bits}")
     if model_args.bits != 16 and stage == "llm" and not training_args.lora_enable:
@@ -405,18 +420,28 @@ def build_dataset(model_args, data_args, training_args):
                                 seed=training_args.seed)
 
 
-def _resume(state: TrainState, path: str, device) -> TrainState:
+def _resume(state: TrainState, path: str, device, mesh) -> TrainState:
     """Restore params (from an adapter-only checkpoint the projector, from a
     ``lora_only`` one the LoRA factors and the projector), the step and,
     from a checkpoint of this package that holds it, the optimizer state;
-    copies into the live leaves in place."""
+    copies into the live leaves in place.  Under a mesh each leaf of the
+    (whole) checkpoint is cut to this rank's shard first, so a run resumes
+    on another mesh than the one that saved it."""
     loaded, opt_state, meta = load_checkpoint(path, device)
     if meta.get("lora_only"):
         loaded = {k: loaded[k] for k in ("lora", "projector") if k in loaded}
+    shape, coords = mesh_shape(mesh), mesh_coords(mesh)
+
+    def mine(p, t):
+        return local_shard(t, spec_for(p, t.dim()), shape, coords, p)
+
     live = named_leaves(state.params)
     with torch.no_grad():
         for p, t in named_leaves(loaded).items():
-            live[p].copy_(t)
+            live[p].copy_(mine(p, t))
+    if opt_state is not None:
+        opt_state = {**opt_state, **{m: {p: mine(p, t) for p, t in opt_state[m].items()}
+                                     for m in ("mu", "nu")}}
     fresh = meta.get("adapter_only") or opt_state is None
     what = "LoRA adapters" if meta.get("lora_only") else "params"
     logger.info(f"resumed {what} from {path}" + (" (fresh optimizer state)" if fresh else ""))
@@ -461,9 +486,11 @@ def train(model_args=None, data_args=None, training_args=None, dataset=None,
     if dataset is None:
         dataset = build_dataset(model_args, data_args, training_args)
 
-    # global batch = per-device batch × grad accumulation (one device)
+    # global batch = dp × per-device batch × grad accumulation
     accum = max(training_args.gradient_accumulation_steps, 1)
-    micro_bs = max(training_args.per_device_train_batch_size, 1)
+    per_device = max(training_args.per_device_train_batch_size, 1)
+    dp = max(training_args.dp, 1)
+    micro_bs = per_device * dp
     global_bs = micro_bs * accum
     if training_args.max_steps > 0 or max_steps_override:
         total_steps = max_steps_override or training_args.max_steps
@@ -493,17 +520,30 @@ def train(model_args=None, data_args=None, training_args=None, dataset=None,
         cosine_schedule(training_args.learning_rate, total_steps, training_args.warmup_ratio),
         projector_lr=training_args.mm_projector_lr, weight_decay=training_args.weight_decay,
         grad_clip=training_args.grad_clip)
+    mesh = make_mesh(training_args.dp, training_args.fsdp, training_args.tp,
+                     device_type=device.type)
+    params = shard_params(params, mesh)
+    optimizer.mesh = mesh
     state = init_train_state(params, optimizer, mask)  # frozen leaves: requires_grad False
 
     if training_args.resume:
         latest = latest_checkpoint(training_args.output_dir)
         if latest:
-            state = _resume(state, latest, device)
+            state = _resume(state, latest, device, mesh)
     start_step = state.step
+    with set_mesh(mesh):
+        return _train_loop(state, mesh, cfg, stage, dataset, model_args, data_args,
+                           training_args, optimizer, mask, lora_scaling, device, total_steps,
+                           start_step, per_device, micro_bs, global_bs, accum)
+
+
+def _train_loop(state, mesh, cfg, stage, dataset, model_args, data_args, training_args,
+                optimizer, mask, lora_scaling, device, total_steps, start_step, per_device,
+                micro_bs, global_bs, accum):
 
     # "auto": the flash kernels on a CUDA device, the plain reference on the
-    # CPU; "flash" becomes "flash!" (the strict form the JAX package's
-    # training uses; one device here, so the same call)
+    # CPU; "flash" becomes "flash!" (the strict form: a mesh that does not
+    # divide the batch and heads raises instead of taking the plain path)
     attn_impl = training_args.attn_impl
     if attn_impl == "auto":
         attn_impl = "flash" if device.type == "cuda" else "auto"
@@ -543,9 +583,10 @@ def train(model_args=None, data_args=None, training_args=None, dataset=None,
                                   has_aux=True)
     apply_fn = make_accum_apply(optimizer, mask)
 
-    # -- data order: shuffled, length/modality-grouped batches ------------------
+    # -- data order: shuffled, length/modality-grouped dp × accum batches -------
     lengths = getattr(dataset, "modality_lengths", None)
-    sampler = LengthGroupedSampler(len(dataset), batch_size=micro_bs, world_size=accum,
+    sampler = LengthGroupedSampler(len(dataset), batch_size=per_device,
+                                   world_size=max(training_args.dp, 1) * accum,
                                    lengths=lengths, seed=training_args.seed,
                                    group_by_modality=lengths is not None)
 
@@ -564,7 +605,15 @@ def train(model_args=None, data_args=None, training_args=None, dataset=None,
 
     vision = state.params["vision"]
     metrics_log = MetricLogger()
-    writer = MetricsWriter(os.path.join(training_args.output_dir, "logs"))
+    writer = MetricsWriter(os.path.join(training_args.output_dir, "logs")) \
+        if dist_utils.is_master() else None
+    dp_group = C.axis_group(mesh, "dp")
+    rows = C.axis_rows(micro_bs, mesh, "dp")
+
+    def microbatch(chunk):  # the whole microbatch, then this rank's dp rows
+        kind, batch = make_microbatch(chunk, cfg, vision, stage, pad_to=micro_bs)
+        return kind, {k: v[rows] for k, v in batch.items()}
+
     t0 = time.time()
     for step in range(start_step, total_steps):
         batch_samples = [next(sample_stream) for _ in range(global_bs)]
@@ -573,13 +622,15 @@ def train(model_args=None, data_args=None, training_args=None, dataset=None,
         media_s = [s for s in batch_samples if s.get("modal", "?") is not None]
         chunks = [group[c:c + micro_bs] for group in (media_s, text_s) if group
                   for c in range(0, len(group), micro_bs)]
-        if len(chunks) == 1:
-            kind, batch = make_microbatch(chunks[0], cfg, vision, stage, pad_to=micro_bs)
+        if len(chunks) == 1 and dp_group is None:
+            kind, batch = microbatch(chunks[0])
             state, metrics = (step_fn_text if kind == "text" else step_fn)(state, batch)
         else:
+            # token-weighted: each chunk loss is a token mean, so the weighted
+            # sum over chunks (and over the dp ranks' rows) is the global mean
             grad_sum, loss_sum, w_total = None, None, None
             for chunk in chunks:
-                kind, batch = make_microbatch(chunk, cfg, vision, stage, pad_to=micro_bs)
+                kind, batch = microbatch(chunk)
                 (loss, w), grads = (grad_fn_text if kind == "text" else grad_fn)(
                     state.params, batch)
                 if grad_sum is None:
@@ -588,6 +639,9 @@ def train(model_args=None, data_args=None, training_args=None, dataset=None,
                     grad_sum = tree_axpy(grad_sum, grads, w)
                     loss_sum, w_total = loss_sum + loss * w, w_total + w
                 del grads, batch
+            if dp_group is not None:
+                for t in (*grad_sum.values(), loss_sum, w_total):
+                    torch.distributed.all_reduce(t, group=dp_group)
             state, metrics = apply_fn(state, grad_sum, loss_sum, w_total)
             del grad_sum
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
@@ -595,21 +649,36 @@ def train(model_args=None, data_args=None, training_args=None, dataset=None,
         if (step + 1) % training_args.logging_steps == 0:
             logger.info(f"step {step + 1}/{total_steps} {metrics_log} "
                         f"({(time.time() - t0) / (step - start_step + 1):.2f}s/it)")
-            writer.write(step + 1, {"train/loss": loss, "train/grad_norm": gnorm})
+            if writer is not None:
+                writer.write(step + 1, {"train/loss": loss, "train/grad_norm": gnorm})
         if (step + 1) % training_args.save_steps == 0 or step + 1 == total_steps:
-            adapter_only = stage in ("cls", "adapter")
-            saved = state.params
-            if lora_scaling is not None:
-                # LoRA runs keep only the trainables (the reference's lora +
-                # non_lora_trainables split)
-                saved = {"lora": saved["lora"], "projector": saved["projector"]}
-            path = save_checkpoint(training_args.output_dir, step + 1, saved,
-                                   adapter_only=adapter_only,
-                                   keep=training_args.save_total_limit,
-                                   extra={"lora_only": lora_scaling is not None})
-            if not adapter_only:
-                save_opt_state(path, state.opt_state)
+            _save(state, mesh, training_args, step + 1, stage, lora_scaling is not None)
     return state
+
+
+def _save(state: TrainState, mesh, training_args, step: int, stage: str, lora: bool):
+    """checkpoint-{step}: the whole tree (gathered from the ranks' shards
+    under a mesh, written by rank 0); the adapter and cls stages save the
+    projector, LoRA runs the trainables (the reference's lora +
+    non_lora_trainables split)."""
+    adapter_only = stage in ("cls", "adapter")
+    saved = state.params
+    if lora:
+        saved = {"lora": saved["lora"], "projector": saved["projector"]}
+    elif adapter_only:
+        saved = {"projector": saved["projector"]}
+    saved = gather_params(saved, mesh)
+    opt_state = None
+    if not adapter_only:
+        opt_state = {**state.opt_state, **{m: {p: gather_leaf(t, p, t.dim(), mesh)
+                                               for p, t in state.opt_state[m].items()}
+                                           for m in ("mu", "nu")}}
+    if dist_utils.is_master():
+        path = save_checkpoint(training_args.output_dir, step, saved, adapter_only=adapter_only,
+                               keep=training_args.save_total_limit, extra={"lora_only": lora})
+        if opt_state is not None:
+            save_opt_state(path, opt_state)
+    dist_utils.barrier()
 
 
 if __name__ == "__main__":

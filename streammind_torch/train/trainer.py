@@ -22,6 +22,12 @@ group is evaluated at that group's pre-increment count, so the first update
 of a warm-up schedule has lr 0.  Moments are stored in each param's dtype,
 as optax stores them; the update arithmetic is fp32.  Params are updated in
 place.
+
+Under a mesh (``AdamW.mesh``) the params, gradients and moments are the
+rank's shards: AdamW updates them elementwise, and the clip's global norm
+sums each leaf's squared norm over the axes its spec splits it on, counting
+a replicated leaf once (a per-rank norm would clip differently).  The dp
+mean of the gradients is ``train/run.py``'s.
 """
 from __future__ import annotations
 
@@ -130,6 +136,30 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
 
 
+def sharded_global_norm(grads: Dict[str, torch.Tensor], mesh) -> torch.Tensor:
+    """``global_norm`` of the whole gradients from this rank's shards: the
+    squared norms of the leaves split on the same axes are summed over those
+    axes' groups; a leaf every rank of an axis holds whole counts once."""
+    from ..parallel.mesh import axis_group, axis_size, is_trivial
+    from ..parallel.partitioning import spec_for
+
+    if is_trivial(mesh):
+        return global_norm(grads.values())
+    import torch.distributed as dist
+
+    buckets: Dict[tuple, torch.Tensor] = {}
+    for path, g in grads.items():
+        axes = tuple(a for a in spec_for(path, g.dim()) if a and axis_size(mesh, a) > 1)
+        sq = g.float().pow(2).sum()
+        buckets[axes] = buckets[axes] + sq if axes in buckets else sq
+    total = None
+    for axes, sq in buckets.items():
+        for a in axes:
+            dist.all_reduce(sq, group=axis_group(mesh, a))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
 class AdamW:
     """clip_by_global_norm → AdamW per group ("proj" for ``projector.*``
     when ``projector_lr`` is given, else one "base" group).  ``learning_rate``
@@ -143,6 +173,11 @@ class AdamW:
             self.lrs["proj"] = projector_lr
         self.weight_decay, self.b1, self.b2, self.eps = weight_decay, b1, b2, eps
         self.grad_clip = grad_clip
+        self.mesh = None  # set by train() under a mesh: the gradients are shards
+
+    def norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The clip's global norm of the (whole) gradients."""
+        return sharded_global_norm(grads, self.mesh)
 
     def group(self, path: str) -> str:
         return "proj" if "proj" in self.lrs and path.startswith("projector.") else "base"
@@ -161,7 +196,7 @@ class AdamW:
                trainable: Dict[str, torch.Tensor]) -> dict:
         """One step: updates ``trainable`` in place from ``grads`` (same
         keys), returns the new state."""
-        norm = global_norm(grads.values()).to(next(iter(grads.values())).device)
+        norm = self.norm(grads).to(next(iter(grads.values())).device)
         clip = bool(norm >= self.grad_clip)
         counts = dict(state["count"])
         lrs = {g: self._lr(g, c) for g, c in counts.items()}
@@ -231,7 +266,7 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW, mask) -> Callable:
         opt_state = optimizer.update(grads, state.opt_state,
                                      named_leaves(state.params, mask))
         return (TrainState(state.step + 1, state.params, opt_state),
-                {"loss": loss, "grad_norm": global_norm(grads.values())})
+                {"loss": loss, "grad_norm": optimizer.norm(grads)})
 
     return step
 
@@ -259,6 +294,6 @@ def make_accum_apply(optimizer: AdamW, mask) -> Callable:
         opt_state = optimizer.update(grads, state.opt_state,
                                      named_leaves(state.params, mask))
         return (TrainState(state.step + 1, state.params, opt_state),
-                {"loss": loss_sum / total_weight, "grad_norm": global_norm(grads.values())})
+                {"loss": loss_sum / total_weight, "grad_norm": optimizer.norm(grads)})
 
     return apply

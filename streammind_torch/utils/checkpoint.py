@@ -16,6 +16,12 @@
 Rotation keeps the newest ``keep`` checkpoints.  ``save_mm_projector_bin``
 writes a projector in the released ``mm_projector.bin`` layout, which
 ``utils.convert`` reads back.
+
+``save_tree_sharded`` / ``load_tree_sharded`` are the counterparts of the
+JAX package's ``save_tree_orbax`` / ``load_tree_orbax``: distributed saves
+through ``torch.distributed.checkpoint``, where every rank writes and reads
+only its own shards (of the mesh's partitioning rules), so no rank ever
+holds the whole tree.
 """
 from __future__ import annotations
 
@@ -162,6 +168,61 @@ def load_opt_state(path: str, device="cpu"):
     if not os.path.exists(f):
         return None
     return torch.load(f, map_location=device, weights_only=True)
+
+
+# ---------------------------------------------------------------------------
+# distributed trees: torch.distributed.checkpoint (JAX: orbax)
+# ---------------------------------------------------------------------------
+def _sharded_state(tree, mesh) -> Dict[str, torch.Tensor]:
+    """{dotted path: leaf}, each leaf of a mesh (this rank's shard) as a
+    DTensor placed by its spec: Shard(dim) on the mesh axes the spec names,
+    Replicate() on the others.  Off a mesh (or on a (1,1,1) one), plain
+    tensors.  A repacked shard (``partitioning.py``: per-channel int4 cut
+    by tp, the Mamba in_proj) is stored as it is held, so it reads back
+    on a mesh of the same tp."""
+    from ..parallel.mesh import AXES, is_trivial
+    from ..parallel.partitioning import spec_for
+
+    flat = {k.replace("/", "."): v for k, v in _flatten(tree).items()}
+    if is_trivial(mesh):
+        return flat
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    out = {}
+    for path, t in flat.items():
+        spec = spec_for(path, t.dim())
+        placements = [Shard(spec.index(a)) if a in spec else Replicate() for a in AXES]
+        out[path] = DTensor.from_local(t, mesh, placements, run_check=False)
+    return out
+
+
+def save_tree_sharded(path: str, tree, mesh=None, name: str = "params") -> None:
+    """Write a tree of this rank's shards under ``path/{name}_dcp`` (every
+    rank of the mesh calls it with its own shards)."""
+    import torch.distributed.checkpoint as dcp
+
+    dcp.save(_sharded_state(tree, mesh),
+             checkpoint_id=os.path.join(os.path.abspath(path), name + "_dcp"))
+
+
+def load_tree_sharded(path: str, like, mesh=None, name: str = "params"):
+    """Read this rank's shards of a tree saved by ``save_tree_sharded`` into
+    a tree shaped like ``like`` (its own shards, whose values are replaced);
+    returns the tree of plain local tensors."""
+    import torch.distributed.checkpoint as dcp
+
+    state = _sharded_state(like, mesh)
+    dcp.load(state, checkpoint_id=os.path.join(os.path.abspath(path), name + "_dcp"))
+
+    def rebuild(node, prefix=""):
+        if isinstance(node, dict):
+            return {k: rebuild(v, f"{prefix}{k}.") for k, v in node.items()}
+        if isinstance(node, list):
+            return [rebuild(v, f"{prefix}{i}.") for i, v in enumerate(node)]
+        t = state[prefix.rstrip(".")]
+        return t.to_local() if hasattr(t, "to_local") else t
+
+    return rebuild(like)
 
 
 # ---------------------------------------------------------------------------

@@ -529,3 +529,92 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         A.flash_bwd_dq(q, q, q, q, lse.double(), lse)
     with pytest.raises(ValueError, match="dO"):
         A.flash_bwd_dkv(q, q, q, q[:, :4], lse, lse)
+
+
+# --- the shapes one rank of a tensor-parallel mesh holds (tp 2, 4, 8) --------
+TP = (2, 4, 8)
+
+
+@pytest.mark.parametrize("tp", TP)
+def test_flash_kernels_at_a_ranks_heads(dev, tp):
+    """Mistral-7B's 32 / 8 heads over tp: the forward at bucket 64 over the
+    ring and the training kernels over 128 tokens, on one rank's heads."""
+    rng = np.random.default_rng(20 + tp)
+    h, hkv, dt = 32 // tp, 8 // tp, torch.bfloat16
+    q = _r(rng, (1, 64, h, 128), dt)
+    k, v = _r(rng, (1, 300, hkv, 128), dt), _r(rng, (1, 300, hkv, 128), dt)
+    lens = torch.tensor([164], dtype=torch.int32, device=dev)
+    offs = torch.tensor([100], dtype=torch.int32, device=dev)
+    out = A.flash_attention(q, k, v, causal=True, kv_len=lens, q_offset=offs)
+    _close(out, A.flash_attention_ref(q, k, v, causal=True, kv_len=lens, q_offset=offs), dt)
+    q, do = _r(rng, (1, 128, h, 128), dt), _r(rng, (1, 128, h, 128), dt)
+    k, v = _r(rng, (1, 128, hkv, 128), dt), _r(rng, (1, 128, hkv, 128), dt)
+    lens = torch.tensor([128], dtype=torch.int32, device=dev)
+    out, lse = A.flash_attention_lse(q, k, v, True, lens)
+    ref, ref_lse = A.flash_attention_ref(q, k, v, True, lens, return_lse=True)
+    _close(out, ref, dt)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    delta = (do.float() * ref.float()).sum(-1)
+    _close(A.flash_bwd_dq(q, k, v, do, ref_lse, delta, True, lens),
+           A.flash_bwd_dq_ref(q, k, v, do, ref_lse, delta, True, lens), dt, BWD_TOL)
+    for got, want in zip(A.flash_bwd_dkv(q, k, v, do, ref_lse, delta, True, lens),
+                         A.flash_bwd_dkv_ref(q, k, v, do, ref_lse, delta, True, lens)):
+        _close(got, want, dt, BWD_TOL)
+
+
+@pytest.mark.parametrize("tp", TP)
+def test_exact_kernel_at_a_ranks_heads(dev, tp):
+    rng = np.random.default_rng(30 + tp)
+    qkv = _r(rng, (1, 577, 3, 16 // tp, 64), torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    _close(A.exact_attention(q, k, v), A.exact_attention_ref(q, k, v), torch.bfloat16)
+
+
+@pytest.mark.parametrize("tp", TP)
+@pytest.mark.parametrize("role", ["column", "row"])
+def test_matvec_kernels_at_a_ranks_shards(dev, tp, role):
+    """The int8 and int4 matvecs on one rank's q/o and gate/up/down shards;
+    a per-channel int4 row shard is the rank's repacked columns
+    (``partitioning.local_shard``), and the ranks' products sum to the whole
+    product."""
+    from streammind_torch.parallel.partitioning import local_shard, spec_for
+
+    rng = np.random.default_rng(40 + tp)
+    dt = torch.bfloat16
+    for dout, din in ((4096, 4096), (14336, 4096)) if role == "column" else (
+            (4096, 4096), (4096, 14336)):
+        w = _r(rng, (dout // tp if role == "column" else dout, din), torch.float32, 0.02)
+        k = din if role == "column" else din // tp
+        x = _r(rng, (1, k), dt)
+        q8 = quantize_linear_weight(w[:, :k].contiguous())
+        _close(int8_matvec(x, q8["w_int8"], q8["scale"]),
+               int8_matvec_ref(x, q8["w_int8"], q8["scale"]), dt)
+        if role == "column":
+            pk = quantize_linear_weight_int4_pc(w)
+            _close(int4_matvec(x, pk["w_int4pc"], pk["scale"]),
+                   int4_matvec_ref(x, pk["w_int4pc"], pk["scale"]), dt)
+            continue
+        full = quantize_linear_weight_int4_pc(w)
+        path = "text.layers.o.w_int4pc"
+        xs = _r(rng, (1, din), dt)
+        total = 0
+        for r in range(tp):
+            shard = local_shard(full["w_int4pc"][None], spec_for(path, 3), {"tp": tp},
+                                {"tp": r}, path)[0]
+            xr = xs[:, r * k:(r + 1) * k].contiguous()
+            _close(int4_matvec(xr, shard, full["scale"]),
+                   int4_matvec_ref(xr, shard, full["scale"]), dt)
+            # fp32 x: the ranks' sum rounds once less a rank than bf16 would
+            total = total + int4_matvec(xr.float(), shard, full["scale"])
+        _close(total, int4_matvec_ref(xs.float(), full["w_int4pc"], full["scale"]),
+               torch.float32)
+
+
+@pytest.mark.parametrize("tp", TP)
+def test_selective_scan_kernel_at_a_ranks_channels(dev, tp):
+    rng = np.random.default_rng(50 + tp)
+    args, kw = _scan_case(rng, torch.bfloat16, 1, 8192 // tp, 32, 16, True)
+    y, h = S.selective_scan(*args, **kw, impl="pallas")
+    ref_y, ref_h = S.selective_scan_ref(*args, **kw)
+    _close(y, ref_y, torch.bfloat16)
+    torch.testing.assert_close(h, ref_h, atol=1e-4, rtol=1e-4)

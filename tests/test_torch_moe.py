@@ -9,11 +9,14 @@ expert banks (int8, int4 in groups, int4 per channel) whose bytes equal
 JAX's and carry over from its tree, ``free_source``, a quantized decode, a StreamSession and a paged
 MultiStreamServer over a tiny Mixtral, ``train()`` on the llm and adapter
 stages with a resume, the config from a checkpoint directory, and the
-router's tie rule.  The three sharded cases of ``test_moe.py`` wait for the
-port's parallelism (ROADMAP Queue 1 item 17).
+router's tie rule.  The three sharded cases of ``test_moe.py`` run in one
+spawned gloo world of 4 (``test_torch_parallel.run_world``) on (1,2,2),
+(2,1,2) and (1,1,4) meshes against JAX's ``_moe_apply_grouped_sharded`` on
+its 2×2×2 and tp-only meshes; the rank-local grouped body is summed over
+its ranks in one process.
 
 fp32 throughout.  Tolerances: outputs 2e-5 (the same sums in another
-order), gradients 5e-5 (JAX's own test's), quantized bytes exact.
+order), gradients 5e-5 (JAX's own test's; the sharded cases' 2e-5), quantized bytes exact.
 """
 import dataclasses
 import json
@@ -26,6 +29,7 @@ import pytest
 import torch
 
 from sp_like_tokenizer import SPLikeTokenizer
+from test_torch_parallel import moe_world as _moe_world, run_world, save_tree
 from test_train_run import FakeScoreDataset
 from streammind_tpu.api import _load_config as j_load_config
 from streammind_tpu.config import tiny_streammind_config, tiny_text_config
@@ -39,6 +43,9 @@ from streammind_tpu.utils.quantize import quantize_text_params as j_quantize
 from streammind_torch import config as tconfig
 from streammind_torch.api import _load_config as t_load_config
 from streammind_torch.models import mistral as tlm
+from streammind_torch.parallel import collectives as C
+from streammind_torch.parallel import mesh as tmesh
+from streammind_torch.parallel import partitioning as tpart
 from streammind_torch.streaming import StreamMindEngine as TEngine
 from streammind_torch.streaming import StreamSession as TSession
 from streammind_torch.streaming.multistream import MultiStreamServer as TServer
@@ -405,9 +412,130 @@ def test_router_ties_through_the_moe_layer(moe):
 
 
 def test_mesh_dispatch_is_refused(moe):
-    """The expert-parallel dispatch over a mesh waits for the parallelism item."""
+    """A dispatch that is neither None, "dense", "grouped" nor a mesh is
+    refused (a mesh is taken: the sharded cases below); the resolver's
+    guards are JAX's."""
     _, tcfg, _, tp = moe
     x = torch.from_numpy(_x((1, 8, tcfg.hidden_size), 7))
-    for dispatch in ("sharded_grouped", object()):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            tlm._mlp(x, layer_slice(tp["layers"], 0), tcfg, moe_dispatch=dispatch)
+    with pytest.raises(ValueError, match="sharded_grouped"):
+        tlm._mlp(x, layer_slice(tp["layers"], 0), tcfg, moe_dispatch="sharded_grouped")
+    assert tlm._resolve_moe_dispatch(None, tcfg) == "grouped"
+    assert tlm._resolve_moe_dispatch(tmesh.make_mesh(1, 1, 1), tcfg) == "grouped"
+
+
+# --- expert parallel: the sharded cases of tests/test_moe.py -----------------
+def _moe8(top_k=2):
+    return _moe(tconfig.tiny_text_config(), 8, top_k), _moe(tiny_text_config(), 8, top_k)
+
+
+@pytest.fixture(scope="module")
+def moe_world(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("moe_world")
+    _, jcfg = _moe8()
+    _, jcfg1 = _moe8(top_k=1)
+    jp8 = jlm.init_text_params(jax.random.PRNGKey(5), jcfg, jnp.float32)
+    jp1 = jlm.init_text_params(jax.random.PRNGKey(8), jcfg1, jnp.float32)
+    lj8 = jax.tree.map(lambda a: a[0], jp8["layers"])
+    lj1 = jax.tree.map(lambda a: a[0], jp1["layers"])
+    xt = _x((32, jcfg.hidden_size), 6)
+    xt10 = _x((10, jcfg.hidden_size), 9)
+    topw, topi = _routing(lj8, xt, jcfg)
+    topw10, topi10 = _routing(lj1, xt10, jcfg1)
+    topi_skew = np.full((32, 2), 5, np.int32)
+    topi_skew[:, 1] = 6
+    data = dict(xt=xt, topi=np.asarray(topi).astype(np.int64), topw=np.asarray(topw),
+                topi_skew=topi_skew.astype(np.int64), topw_skew=np.full((32, 2), 0.5, np.float32),
+                xt10=xt10, topi10=np.asarray(topi10).astype(np.int64), topw10=np.asarray(topw10),
+                ids=(np.tile(np.arange(16)[None], (2, 1)) % jcfg.vocab_size).astype(np.int64))
+    res = run_world(_moe_world, 4, tmp, save_tree(_tree(jp8), tmp / "moe8.pt"),
+                    save_tree(_tree(jp1), tmp / "moe8k1.pt"), data)
+    return jcfg, jcfg1, jp8, lj8, lj1, data, res
+
+
+def test_sharded_grouped_dispatch_matches_dense(moe_world):
+    """Expert banks split over tp (and fsdp), the rank-local grouped body,
+    one all-reduce: forward and gradients (x and every bank) against JAX's
+    shard_mapped form on its 2×2×2 mesh and its dense scan; skewed routing
+    (every token on one rank's experts); the resolver's guards."""
+    from streammind_tpu.parallel import make_mesh as j_make_mesh
+
+    jcfg, _, _, lj, _, d, res = moe_world
+    jmesh = j_make_mesh(dp=2, fsdp=2, tp=2)
+    banks = tuple({"weight": lj["experts"][n]} for n in BANKS)
+    xt, topi, topw = jnp.asarray(d["xt"]), jnp.asarray(d["topi"]), jnp.asarray(d["topw"])
+    dense = np.asarray(jlm._moe_apply_dense(xt, banks, jcfg, topi, topw))
+    jshard = np.asarray(jlm._moe_apply_grouped_sharded(xt, lj["experts"], jcfg, topi, topw,
+                                                       jmesh))
+
+    def jloss(x, experts):
+        return jnp.sum(jlm._moe_apply_grouped_sharded(x, experts, jcfg, topi, topw, jmesh) ** 2)
+
+    gx, gex = jax.jit(jax.grad(jloss, argnums=(0, 1)))(xt, lj["experts"])
+    skew = np.asarray(jlm._moe_apply_dense(xt, banks, jcfg, jnp.asarray(d["topi_skew"]),
+                                           jnp.asarray(d["topw_skew"])))
+    for shape in ((1, 2, 2), (2, 1, 2)):
+        out, dx, dex = res[("fwd", shape)]
+        np.testing.assert_allclose(out, jshard, **FP32)
+        np.testing.assert_allclose(out, dense, **FP32)
+        np.testing.assert_allclose(dx, np.asarray(gx), **FP32)
+        for n in BANKS:
+            np.testing.assert_allclose(dex[n], np.asarray(gex[n]), **FP32, err_msg=n)
+        np.testing.assert_allclose(res[("skew", shape)], skew, **FP32)
+        assert res[("resolve", shape)] == "sharded_grouped"
+        assert res[("tight", shape)] == "dense"
+
+
+def test_sharded_grouped_under_remat_trains(moe_world):
+    """text_forward with remat under the mesh, the sharded grouped form
+    chosen from the ambient mesh: the loss equals JAX's under its mesh and
+    the gradient norm is finite and nonzero."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from streammind_tpu.parallel import make_mesh as j_make_mesh
+    from streammind_tpu.parallel import shard_params as j_shard
+
+    jcfg, _, jp8, _, _, d, res = moe_world
+    jmesh = j_make_mesh(dp=2, fsdp=2, tp=2)
+    with jax.set_mesh(jmesh):
+        sharded = j_shard({"text": jp8}, jmesh)["text"]
+        ids = jax.device_put(jnp.asarray(d["ids"]), NamedSharding(jmesh, P("dp")))
+        want = float(jax.jit(lambda p, i: jnp.mean(
+            jlm.text_forward(p, jcfg, input_ids=i, remat=True)[0].astype(jnp.float32) ** 2)
+        )(sharded, ids))
+    for shape in ((1, 2, 2), (2, 1, 2)):
+        loss, gnorm = res[("remat", shape)]
+        np.testing.assert_allclose(loss, want, rtol=2e-5)
+        assert np.isfinite(gnorm) and gnorm > 0
+
+
+def test_sharded_grouped_tp_only_mesh(moe_world):
+    """A (1,1,4) mesh (JAX: a mesh with only a tp axis), top 1, T 10."""
+    from jax.sharding import Mesh
+
+    _, jcfg1, _, _, lj1, d, res = moe_world
+    jmesh = Mesh(np.array(jax.devices()[:4]), ("tp",))
+    banks = tuple({"weight": lj1["experts"][n]} for n in BANKS)
+    args = (jnp.asarray(d["xt10"]), jnp.asarray(d["topi10"]), jnp.asarray(d["topw10"]))
+    dense = np.asarray(jlm._moe_apply_dense(args[0], banks, jcfg1, *args[1:]))
+    jout = np.asarray(jlm._moe_apply_grouped_sharded(args[0], lj1["experts"], jcfg1, *args[1:],
+                                                     jmesh))
+    np.testing.assert_allclose(res["tp_only"], jout, **FP32)
+    np.testing.assert_allclose(res["tp_only"], dense, **FP32)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_rank_local_grouped_bodies_sum_to_grouped(tp):
+    """In one process: the tp ranks' ``_moe_grouped_local`` over their E/tp
+    banks sum to the one-device grouped dispatch."""
+    cfg, _ = _moe8()
+    g = torch.Generator().manual_seed(tp)
+    tree = tlm.init_text_params(g, cfg, device="cpu")
+    ex = {n: tree["layers"]["experts"][n][0] for n in BANKS}
+    xt = torch.randn(24, cfg.hidden_size, generator=g)
+    probs = torch.softmax(xt @ tree["layers"]["router"]["weight"][0].T, dim=-1)
+    topw, topi = tlm.router_top_k(probs, 2)
+    topw = topw / topw.sum(-1, keepdim=True)
+    whole = tlm._moe_apply_grouped(xt, ex, cfg, topi, topw)
+    total = sum(tlm._moe_grouped_local(xt, {n: e.chunk(tp)[r] for n, e in ex.items()}, cfg,
+                                       topi, topw, r, tp) for r in range(tp))
+    np.testing.assert_allclose(total.numpy(), whole.numpy(), **FP32)

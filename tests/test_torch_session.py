@@ -207,5 +207,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "eval.mcqa", "eval.nlg", "eval.gpt_judge", "eval.run_gate_stream",
               "eval.run_ego4d_stream", "eval.run_ego4d_lta", "eval.run_mcqa", "eval.run_oqa",
               "models.mistral", "models.projector", "models.meta", "utils.from_jax",
-              "utils.params", "streaming.paged", "streaming.multistream"):
+              "utils.params", "streaming.paged", "streaming.multistream", "utils.dist",
+              "parallel.mesh", "parallel.partitioning", "parallel.collectives",
+              "parallel.serving"):
         assert "streammind_torch." + m in mods

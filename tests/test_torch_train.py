@@ -430,13 +430,20 @@ def test_copy_decoder_layers_into_gate_matches_jax(trees):
 
 
 @pytest.mark.parametrize("change", [dict(training=dict(dp=2))])
-def test_unported_options_raise(trees, tmp_path, change):
+def test_unported_options_raise(trees, tmp_path, monkeypatch, change):
+    """A mesh larger than the process group's world (here one process) is
+    refused with ValueError before any weight is made."""
     _, tcfg, _ = trees
     ma, da, ta = _args(tmp_path, "adapter")
     for k, v in change["training"].items():
         setattr(ta, k, v)
     ds = FakeScoreDataset(SPLikeTokenizer(), tcfg, n=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+
+    def no_weights(*a, **k):
+        raise AssertionError("weights were made before the mesh was checked")
+
+    monkeypatch.setattr(trun, "load_start_params", no_weights)
+    with pytest.raises(ValueError, match="mesh 2x1x1 needs 2 devices, have 1"):
         trun.train(ma, da, ta, dataset=ds, cfg=tcfg)
 
 
