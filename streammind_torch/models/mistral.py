@@ -177,32 +177,95 @@ def fuse_text_linears(text_params: dict) -> dict:
     return out
 
 
-def qkv_proj(x, lp, cfg: TextConfig):
-    """(q, k, v) heads from either the separate or the fused layout."""
+def qkv_proj(x, lp, cfg: TextConfig, path: str = "text"):
+    """This rank's (q, k, v) heads from either the separate or the fused
+    layout: every head with no mesh; under one, q/k/v column-parallel (the
+    rank's heads, ``_tp_heads``).  A fused leaf is the one-device layout."""
+    mesh = ambient_mesh()
     b, s, _ = x.shape
+    h, hkv, kv_head = _tp_heads(cfg, mesh)
+    L = f"{path}.layers"
     if "qkv" in lp:
+        _unfused_under(mesh, "q/k/v")
         qkv = linear(x, lp["qkv"])
         q = qkv[..., : cfg.q_dim]
         k = qkv[..., cfg.q_dim: cfg.q_dim + cfg.kv_dim]
         v = qkv[..., cfg.q_dim + cfg.kv_dim:]
     else:
-        q, k, v = linear(x, lp["q"]), linear(x, lp["k"]), linear(x, lp["v"])
+        q = linear(x, use_linear(lp["q"], f"{L}.q", "col", 1, mesh))
+        k = _kv_proj(x, lp, "k", L, cfg, mesh, kv_head)
+        v = _kv_proj(x, lp, "v", L, cfg, mesh, kv_head)
     return (
-        q.reshape(b, s, cfg.num_heads, cfg.head_dim),
-        k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim),
-        v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim),
+        q.reshape(b, s, h, cfg.head_dim),
+        k.reshape(b, s, hkv, cfg.head_dim),
+        v.reshape(b, s, hkv, cfg.head_dim),
     )
 
 
-def _mlp(x, lp, cfg: TextConfig, moe_dispatch=None):
+def _mlp(x, lp, cfg: TextConfig, moe_dispatch=None, path: str = "text", seq: bool = False):
+    """The MLP, or Mixtral's MoE.  Under a mesh gate/up are column- and down
+    row-parallel (the rank's channels), the MoE over the rank's experts;
+    ``seq``: x is this rank's S shard (``text_forward(sequence_axis=)``)."""
+    mesh = ambient_mesh()
     if cfg.num_experts > 1:
-        return _moe_mlp(x, lp, cfg, moe_dispatch)
-    mlp = lp["mlp"]
+        xin = C.gather(x, mesh, "tp", 1, bwd="slice") if seq else x
+        out = _moe_mlp(xin, lp, cfg, moe_dispatch, path)
+        return C.scatter(out, mesh, "tp", 1) if seq else out
+    mlp, L = lp["mlp"], f"{path}.layers.mlp"
+    x = _tp_enter(x, mesh, seq)
     if "gateup" in mlp:
+        _unfused_under(mesh, "gate/up")
         gu = linear(x, mlp["gateup"])
         g, u = gu[..., : cfg.intermediate_size], gu[..., cfg.intermediate_size:]
-        return linear(F.silu(g) * u, mlp["down"])
-    return linear(F.silu(linear(x, mlp["gate"])) * linear(x, mlp["up"]), mlp["down"])
+    else:
+        g = linear(x, use_linear(mlp["gate"], f"{L}.gate", "col", 1, mesh))
+        u = linear(x, use_linear(mlp["up"], f"{L}.up", "col", 1, mesh))
+    return row_linear(F.silu(g) * u, mlp["down"], f"{L}.down", 1,
+                      sequence_dim=1 if seq else None)
+
+
+def _unfused_under(mesh, what: str) -> None:
+    if not is_trivial(mesh):
+        raise ValueError(f"a fused {what} leaf under a mesh: shard the unfused tree")
+
+
+# the output dim of each key of a linear's leaf dict
+_OUT_DIM = {"weight": -2, "w_int8": -2, "w_int4": -2, "w_int4pc": -2, "scale": -1,
+            "scale4": -2, "bias": -1, "lora_b": -2}
+
+
+def _tp_heads(cfg: TextConfig, mesh):
+    """(this rank's q heads, its kv heads, the kv head it reads where tp
+    exceeds the kv heads, else None).  Past the kv heads each rank holds the
+    one kv head its q heads read, so k and v repeat over tp/Hkv ranks."""
+    tp = axis_size(mesh, "tp")
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    if H % tp or (Hkv % tp and tp % Hkv):
+        raise ValueError(f"tp={tp} does not split {H} heads over {Hkv} kv heads")
+    h = H // tp
+    if Hkv % tp == 0:
+        return h, Hkv // tp, None
+    return h, 1, axis_index(mesh, "tp") * h // (H // Hkv)
+
+
+def _kv_proj(x, lp, name: str, L: str, cfg: TextConfig, mesh, kv_head):
+    """This rank's k or v heads: a column shard (all of them with no mesh),
+    or past the kv heads the gathered weight's rows of the one head it
+    reads (the backward sums the ranks' shares into the stored shards)."""
+    if kv_head is None:
+        return linear(x, use_linear(lp[name], f"{L}.{name}", "col", 1, mesh))
+    full = use_linear(lp[name], f"{L}.{name}", "full", 1, mesh)
+    lo = kv_head * cfg.head_dim
+    rows = {k: t.narrow(_OUT_DIM[k] % t.dim(), lo, cfg.head_dim) if k in _OUT_DIM else t
+            for k, t in full.items()}
+    return linear(x, rows)
+
+
+def _tp_enter(y, mesh, seq: bool):
+    """The input of a column-parallel product: under sequence parallelism
+    the S shards gathered (the backward reduce-scattered), else y as it is
+    (the backward all-reduced over tp; nothing with no mesh)."""
+    return C.gather(y, mesh, "tp", 1, bwd="sum") if seq else C.copy_to_tp(y, mesh)
 
 
 _MOE_GATHER_MAX_TOKENS = 4
@@ -432,20 +495,25 @@ def _write_cache(cache_l: torch.Tensor, new: torch.Tensor, start: torch.Tensor) 
 
 
 def _attn_block(x, lp, cfg: TextConfig, positions, kv_mask, cache_k, cache_v, cache_len,
-                attn_impl):
-    """One attention sub-block.  With a cache (one layer's (B, C, Hkv, D) k and
-    v), the new K/V are written at cache_len and attention runs over the
-    cache; else causal self-attention over the block."""
+                attn_impl, path: str = "text", seq: bool = False):
+    """One attention sub-block over this rank's heads (every head with no
+    mesh; o row-parallel under one).  With a cache (one layer's (B, C, Hkv,
+    D) k and v), the new K/V are written at cache_len and attention runs
+    over the cache; else causal self-attention over the block."""
+    mesh = ambient_mesh()
+    h, hkv, kv_head = _tp_heads(cfg, mesh)
+    hd, L = cfg.head_dim, f"{path}.layers"
+    x = _tp_enter(x, mesh, seq)
     b, s, _ = x.shape
     if cache_k is None and s == 1 and kv_mask is None and "v" in lp:
         # Single-token self-attention (the streaming gate LM's shape): the
         # softmax over one logit is exactly 1, so the output is v itself —
         # the q/k projections and rope drop out and are never read.
-        v = linear(x, lp["v"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        o = _repeat_kv(v, cfg.num_heads // cfg.num_kv_heads)
-        return linear(o.reshape(b, s, cfg.q_dim), lp["o"])
-    q, k, v = qkv_proj(x, lp, cfg)
-    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        v = _kv_proj(x, lp, "v", L, cfg, mesh, kv_head).reshape(b, s, hkv, hd)
+        o = _repeat_kv(v, h // hkv)
+        return row_linear(o.reshape(b, s, h * hd), lp["o"], f"{L}.o", 1)
+    q, k, v = qkv_proj(x, lp, cfg, path)
+    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if cache_k is not None:
@@ -461,126 +529,23 @@ def _attn_block(x, lp, cfg: TextConfig, positions, kv_mask, cache_k, cache_v, ca
                                 kv_len=total_len, q_offset=cache_len)
     else:
         o = attention(q, k, v, causal=True, kv_mask=kv_mask, impl=attn_impl)
-    return linear(o.reshape(b, s, cfg.q_dim), lp["o"])
-
-
-def _layer(x, lp, cfg: TextConfig, positions, attn_mask, attn_impl, moe_dispatch=None):
-    """One decoder layer without a cache (the training and gate shape)."""
-    y = rms_norm(x, lp["input_norm"]["weight"], cfg.rms_norm_eps)
-    x = x + _attn_block(y, lp, cfg, positions, attn_mask, None, None, None, attn_impl)
-    y = rms_norm(x, lp["post_norm"]["weight"], cfg.rms_norm_eps)
-    return x + _mlp(y, lp, cfg, moe_dispatch)
-
-
-# --- tensor parallel ---------------------------------------------------------
-# the output dim of each key of a linear's leaf dict
-_OUT_DIM = {"weight": -2, "w_int8": -2, "w_int4": -2, "w_int4pc": -2, "scale": -1,
-            "scale4": -2, "bias": -1, "lora_b": -2}
-
-
-def _tp_heads(cfg: TextConfig, mesh):
-    """(this rank's q heads, its kv heads, the kv head it reads where tp
-    exceeds the kv heads, else None).  Past the kv heads each rank holds the
-    one kv head its q heads read, so k and v repeat over tp/Hkv ranks."""
-    tp = axis_size(mesh, "tp")
-    H, Hkv = cfg.num_heads, cfg.num_kv_heads
-    if H % tp or (Hkv % tp and tp % Hkv):
-        raise ValueError(f"tp={tp} does not split {H} heads over {Hkv} kv heads")
-    h = H // tp
-    if Hkv % tp == 0:
-        return h, Hkv // tp, None
-    return h, 1, axis_index(mesh, "tp") * h // (H // Hkv)
-
-
-def _kv_proj(yin, lp, name: str, L: str, cfg: TextConfig, mesh, kv_head):
-    """This rank's k or v heads: a column shard, or past the kv heads the
-    gathered weight's rows of the one head it reads (the backward sums the
-    ranks' shares into the stored shards)."""
-    if kv_head is None:
-        return linear(yin, use_linear(lp[name], f"{L}.{name}", "col", 1, mesh))
-    full = use_linear(lp[name], f"{L}.{name}", "full", 1, mesh)
-    lo = kv_head * cfg.head_dim
-    rows = {k: t.narrow(_OUT_DIM[k] % t.dim(), lo, cfg.head_dim) if k in _OUT_DIM else t
-            for k, t in full.items()}
-    return linear(yin, rows)
-
-
-def _tp_enter(y, mesh, seq: bool):
-    """The input of a column-parallel product: under sequence parallelism
-    the S shards gathered (the backward reduce-scattered), else y as it is
-    (the backward all-reduced)."""
-    return C.gather(y, mesh, "tp", 1, bwd="sum") if seq else C.copy_to_tp(y, mesh)
-
-
-def _tp_attn_block(y, lp, cfg: TextConfig, positions, kv_mask, cache_k, cache_v, cache_len,
-                   attn_impl, L: str, mesh, seq: bool = False):
-    """``_attn_block`` over this rank's heads: q/k/v column-parallel, the
-    attention local (the kernels on the rank's heads), o row-parallel."""
-    if "qkv" in lp:
-        raise ValueError("a fused q/k/v leaf under a mesh: shard the unfused tree")
-    h, hkv, kv_head = _tp_heads(cfg, mesh)
-    hd = cfg.head_dim
-    yin = _tp_enter(y, mesh, seq)
-    b, s, _ = yin.shape
-    sp = 1 if seq else None
-    if cache_k is None and s == 1 and kv_mask is None and "v" in lp:
-        v = _kv_proj(yin, lp, "v", L, cfg, mesh, kv_head).reshape(b, s, hkv, hd)
-        o = _repeat_kv(v, h // hkv)
-        return row_linear(o.reshape(b, s, h * hd), lp["o"], f"{L}.o", 1)
-    q = linear(yin, use_linear(lp["q"], f"{L}.q", "col", 1, mesh)).reshape(b, s, h, hd)
-    k = _kv_proj(yin, lp, "k", L, cfg, mesh, kv_head).reshape(b, s, hkv, hd)
-    v = _kv_proj(yin, lp, "v", L, cfg, mesh, kv_head).reshape(b, s, hkv, hd)
-    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    if cache_k is not None:
-        _write_cache(cache_k, k, cache_len)
-        _write_cache(cache_v, v, cache_len)
-        total_len = cache_len + s
-        if s == 1:
-            o = decode_attention(q, cache_k, cache_v, total_len)
-        else:
-            o = flash_attention(q, cache_k.to(q.dtype), cache_v.to(q.dtype), causal=True,
-                                kv_len=total_len, q_offset=cache_len)
-    else:
-        shape = (b * axis_size(mesh, "dp"), cfg.num_heads, cfg.num_kv_heads)
-        o = attention(q, k, v, causal=True, kv_mask=kv_mask, impl=attn_impl, shape=shape)
-    return row_linear(o.reshape(b, s, h * hd), lp["o"], f"{L}.o", 1, sequence_dim=sp)
-
-
-def _tp_mlp(y, lp, cfg: TextConfig, L: str, mesh, seq: bool, moe_dispatch, path: str):
-    """``_mlp`` over this rank's channels (gate/up column-, down
-    row-parallel) or experts."""
-    if cfg.num_experts > 1:
-        yin = C.gather(y, mesh, "tp", 1, bwd="slice") if seq else y
-        out = _moe_mlp(yin, lp, cfg, moe_dispatch, path)
-        return C.scatter(out, mesh, "tp", 1) if seq else out
-    mlp = lp["mlp"]
-    if "gateup" in mlp:
-        raise ValueError("a fused gate/up leaf under a mesh: shard the unfused tree")
-    yin = _tp_enter(y, mesh, seq)
-    g = linear(yin, use_linear(mlp["gate"], f"{L}.mlp.gate", "col", 1, mesh))
-    u = linear(yin, use_linear(mlp["up"], f"{L}.mlp.up", "col", 1, mesh))
-    return row_linear(F.silu(g) * u, mlp["down"], f"{L}.mlp.down", 1,
+    return row_linear(o.reshape(b, s, h * hd), lp["o"], f"{L}.o", 1,
                       sequence_dim=1 if seq else None)
 
 
-def _tp_layer(x, lp, cfg: TextConfig, positions, attn_mask, attn_impl, moe_dispatch, path: str,
-              seq: bool):
-    """``_layer`` under the ambient mesh; under sequence parallelism x is
-    this rank's S shard."""
-    mesh = ambient_mesh()
-    L = f"{path}.layers"
-
+def _layer(x, lp, cfg: TextConfig, positions, attn_mask, attn_impl, moe_dispatch=None,
+           path: str = "text", seq: bool = False, cache_k=None, cache_v=None, cache_len=None):
+    """One decoder layer; under sequence parallelism (``seq``) x is this
+    rank's S shard."""
     def norm(t, name):  # on S shards, each rank's weight gradient is a part
         w = lp[name]["weight"]
-        return rms_norm(t, C.copy_to_tp(w, mesh) if seq else w, cfg.rms_norm_eps)
+        return rms_norm(t, C.copy_to_tp(w, ambient_mesh()) if seq else w, cfg.rms_norm_eps)
 
     y = norm(x, "input_norm")
-    x = x + _tp_attn_block(y, lp, cfg, positions, attn_mask, None, None, None, attn_impl, L,
-                           mesh, seq)
+    x = x + _attn_block(y, lp, cfg, positions, attn_mask, cache_k, cache_v, cache_len,
+                        attn_impl, path, seq)
     y = norm(x, "post_norm")
-    return x + _tp_mlp(y, lp, cfg, L, mesh, seq, moe_dispatch, path)
+    return x + _mlp(y, lp, cfg, moe_dispatch, path, seq)
 
 
 def text_forward(
@@ -628,36 +593,23 @@ def text_forward(
     rows are overwritten by the next block.
     """
     mesh = ambient_mesh()
-    sharded = not is_trivial(mesh)
     x = inputs_embeds if inputs_embeds is not None else embed_tokens(params, input_ids, path)
     b, s, _ = x.shape
     if positions is None:
         base = cache.length[:, None] if cache is not None else torch.zeros(
             (b, 1), dtype=torch.int32, device=x.device)
         positions = base + torch.arange(s, device=x.device)[None, :]
-    seq = sharded and sequence_axis is not None and cache is None
+    seq = sequence_axis is not None and cache is None and not is_trivial(mesh)
     if seq:
         if sequence_axis != "tp":
             raise ValueError(f"sequence_axis {sequence_axis!r}: the S shards ride tp")
         x = C.scatter(x, mesh, "tp", 1)
-    L = f"{path}.layers"
     for i, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
-        if cache is None:
-            fn, extra = ((_tp_layer, (path, seq)) if sharded else (_layer, ()))
-            args = (x, lp, cfg, positions, attn_mask, attn_impl, moe_dispatch, *extra)
-            x = checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
-            continue
-        y = rms_norm(x, lp["input_norm"]["weight"], cfg.rms_norm_eps)
-        if sharded:
-            x = x + _tp_attn_block(y, lp, cfg, positions, attn_mask, cache.k[i], cache.v[i],
-                                   cache.length, attn_impl, L, mesh)
-            y = rms_norm(x, lp["post_norm"]["weight"], cfg.rms_norm_eps)
-            x = x + _tp_mlp(y, lp, cfg, L, mesh, False, moe_dispatch, path)
-            continue
-        x = x + _attn_block(y, lp, cfg, positions, attn_mask, cache.k[i], cache.v[i],
-                            cache.length, attn_impl)
-        y = rms_norm(x, lp["post_norm"]["weight"], cfg.rms_norm_eps)
-        x = x + _mlp(y, lp, cfg, moe_dispatch)
+        args = (x, lp, cfg, positions, attn_mask, attn_impl, moe_dispatch, path, seq)
+        if cache is not None:
+            x = _layer(*args, cache.k[i], cache.v[i], cache.length)
+        else:
+            x = checkpoint(_layer, *args, use_reentrant=False) if remat else _layer(*args)
     if seq:
         x = C.gather(x, mesh, "tp", 1, bwd="slice")
     new_cache = None

@@ -113,8 +113,11 @@ def fuse_vit_qkv(vit_params: dict) -> dict:
     return out
 
 
-def _tp_encoder_layer(x, lp, cfg: VisionConfig, attn_impl: str, mesh):
-    """``_encoder_layer`` over this rank's heads (unfused q/k/v)."""
+def _encoder_layer(x, lp, cfg: VisionConfig, attn_impl: str):
+    """One encoder block over this rank's heads (every head with no mesh):
+    q/k/v and fc1 column-, o and fc2 row-parallel under a mesh.  A fused
+    q/k/v leaf is the one-device layout."""
+    mesh = ambient_mesh()
     b, s, d = x.shape
     tp = axis_size(mesh, "tp")
     if cfg.num_heads % tp:
@@ -127,35 +130,19 @@ def _tp_encoder_layer(x, lp, cfg: VisionConfig, attn_impl: str, mesh):
                                                            "col", 1, mesh))
 
     y = layer_norm(x, lp["ln1"]["weight"], lp["ln1"]["bias"], cfg.layer_norm_eps)
-    q, k, v = (col(y, n).reshape(b, s, h, hd) for n in ("q", "k", "v"))
+    if "qkv" in lp:
+        if not is_trivial(mesh):
+            raise ValueError("a fused q/k/v leaf under a mesh: shard the unfused tree")
+        # strided views of the fused product; the exact kernel reads them as is
+        qkv = _linear_q(y, lp["qkv"]).reshape(b, s, 3, h, hd)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q, k, v = (col(y, n).reshape(b, s, h, hd) for n in ("q", "k", "v"))
     o = attention(q, k, v, causal=False, impl=attn_impl).reshape(b, s, h * hd)
     x = x + row_linear(o, lp["o"], "vision.layers.o", 1, linear_fn=row)
     y = layer_norm(x, lp["ln2"]["weight"], lp["ln2"]["bias"], cfg.layer_norm_eps)
     return x + row_linear(quick_gelu(col(y, "fc1")), lp["fc2"], "vision.layers.fc2", 1,
                           linear_fn=row)
-
-
-def _encoder_layer(x, lp, cfg: VisionConfig, attn_impl: str):
-    mesh = ambient_mesh()
-    if not is_trivial(mesh):
-        return _tp_encoder_layer(x, lp, cfg, attn_impl, mesh)
-    b, s, d = x.shape
-    h, hd = cfg.num_heads, cfg.head_dim
-    res = x
-    y = layer_norm(x, lp["ln1"]["weight"], lp["ln1"]["bias"], cfg.layer_norm_eps)
-    if "qkv" in lp:
-        # strided views of the fused product; the exact kernel reads them as is
-        qkv = _linear_q(y, lp["qkv"]).reshape(b, s, 3, h, hd)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    else:
-        q = _linear_q(y, lp["q"]).reshape(b, s, h, hd)
-        k = _linear_q(y, lp["k"]).reshape(b, s, h, hd)
-        v = _linear_q(y, lp["v"]).reshape(b, s, h, hd)
-    o = attention(q, k, v, causal=False, impl=attn_impl).reshape(b, s, d)
-    x = res + _linear_q(o, lp["o"])
-    res = x
-    y = layer_norm(x, lp["ln2"]["weight"], lp["ln2"]["bias"], cfg.layer_norm_eps)
-    return res + _linear_q(quick_gelu(_linear_q(y, lp["fc1"])), lp["fc2"])
 
 
 def vit_forward(params, cfg: VisionConfig, pixel_values: torch.Tensor,

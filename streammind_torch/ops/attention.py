@@ -562,63 +562,23 @@ exact_attention.launches = 0
 exact_attention.tc_launches = 0
 
 
-_FLASH_FALLBACK_MODE = "warn"
-
-
-def set_flash_fallback_mode(mode: str) -> None:
-    """Policy when impl='flash' meets an ambient mesh that does not divide
-    the attention shape (B, H, Hkv):
-
-      "warn"  — a UserWarning, then the plain reference (the serving
-                default: correct but slow);
-      "error" — raise.  Training passes impl='flash!' instead, which raises
-                for its own calls without changing this process-wide mode.
-    """
-    global _FLASH_FALLBACK_MODE
-    if mode not in ("warn", "error"):
-        raise ValueError(f"mode must be 'warn' or 'error', got {mode!r}")
-    _FLASH_FALLBACK_MODE = mode
-
-
 def flash_mha_sharded(mesh, q, k, v, kv_len=None, causal: bool = True):
     """``flash_mha`` on this rank's slice of a dp × tp mesh: q, k, v are the
     rank's batch rows (dp) and heads (tp), as the column-parallel q/k/v
-    projections leave them, and attention is independent per (row, head),
-    so the flash forward and its dQ and dK/dV kernels run on the local
-    tensors with no collective inside (the JAX package shard_maps the same
-    kernels).  ``flash_mha_sharded.calls`` counts the calls."""
+    projections leave them (past the kv heads, the one kv head its q heads
+    read), and attention is independent per (row, head), so the flash
+    forward and its dQ and dK/dV kernels run on the local tensors with no
+    collective inside (the JAX package shard_maps the same kernels over the
+    global arrays).  Local heads that no GQA group pairs raise.
+    ``flash_mha_sharded.calls`` counts the calls."""
+    if q.shape[2] % k.shape[2]:
+        raise ValueError(f"flash_mha_sharded: this rank's {q.shape[2]} q heads do not "
+                         f"group over its {k.shape[2]} kv heads")
     flash_mha_sharded.calls += 1
     return flash_mha(q, k, v, kv_len, causal)
 
 
 flash_mha_sharded.calls = 0
-
-
-def _flash_under_mesh(q, k, v, kv_len, causal, strict: bool, shape):
-    """The mesh policy of the flash path: the ambient mesh divides the
-    global (B, H, Hkv) → ``flash_mha_sharded``; else 'flash!' (or the
-    "error" mode) raises and 'flash' warns and returns None (the caller
-    takes the plain path)."""
-    from ..parallel.mesh import ambient_mesh, axis_size
-
-    mesh = ambient_mesh()
-    if mesh is None:
-        return flash_mha(q, k, v, kv_len, causal)
-    dp, tp = axis_size(mesh, "dp"), axis_size(mesh, "tp")
-    b, h, hkv = shape if shape is not None else (q.shape[0] * dp, q.shape[2] * tp,
-                                                 k.shape[2] * tp)
-    if b % dp == 0 and h % tp == 0 and hkv % tp == 0:
-        return flash_mha_sharded(mesh, q, k, v, kv_len, causal)
-    msg = (f"impl='flash' cannot shard: mesh (dp={dp}, tp={tp}) does not divide attention "
-           f"shape (B={b}, H={h}, Hkv={hkv}) — the O(S²) plain path is much slower and "
-           "heavier at long context")
-    if strict or _FLASH_FALLBACK_MODE == "error":
-        raise ValueError(msg + ". Fix the batch/head split or the mesh (training uses "
-                         "impl='flash!' so this cannot silently tank step time).")
-    import warnings
-
-    warnings.warn(msg, stacklevel=3)
-    return None
 
 
 def attention(
@@ -628,31 +588,31 @@ def attention(
     kv_len=None,
     q_offset=0,
     impl: str = "auto",
-    shape=None,
 ):
     """Dispatcher: 'auto' → mha_reference; 'bf16' → softmax in the input
     dtype; 'exact' → exact_attention where it applies (non-causal, no mask,
     within its bounds), else the 'auto' path with the same numerics;
     'flash' → flash_mha (differentiable; kv_mask becomes kv_len, padding is
-    always on the right), or the flash forward under a nonzero q_offset.
+    always on the right), or the flash forward under a nonzero q_offset;
+    'flash!' (training's) is the same call.
 
     Under an ambient mesh (``parallel/mesh.py::set_mesh``) q, k and v are
-    the rank's rows and heads and ``shape`` the global (B, H, Hkv) (default:
-    the local shape scaled by dp and tp).  Where the mesh divides it, 'flash'
-    runs ``flash_mha_sharded``; where not, 'flash' warns and takes the
-    plain path, and 'flash!' (training's) raises."""
-    strict = impl == "flash!"
-    if strict:
+    this rank's rows and heads, and 'flash' runs ``flash_mha_sharded`` on
+    them: under a mesh as without one, 'flash' never gives way to the plain
+    path."""
+    if impl == "flash!":
         impl = "flash"
     if impl == "flash":
         if kv_len is None and kv_mask is not None:
             kv_len = kv_mask.sum(dim=-1).to(torch.int32)
         if not (isinstance(q_offset, int) and q_offset == 0):
             return flash_attention(q, k, v, causal=causal, kv_len=kv_len, q_offset=q_offset)
-        out = _flash_under_mesh(q, k, v, kv_len, causal, strict, shape)
-        if out is not None:
-            return out
-        impl = "auto"
+        from ..parallel.mesh import ambient_mesh
+
+        mesh = ambient_mesh()
+        if mesh is None:
+            return flash_mha(q, k, v, kv_len, causal)
+        return flash_mha_sharded(mesh, q, k, v, kv_len, causal)
     if impl == "exact":
         if (not causal and kv_mask is None and kv_len is None
                 and isinstance(q_offset, int) and q_offset == 0

@@ -20,7 +20,8 @@ MoE dispatch and the layers' tensor-parallel code read it.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional
+from types import MappingProxyType
+from typing import Mapping, Optional
 
 import torch.distributed as dist
 
@@ -89,11 +90,21 @@ def replicated(mesh) -> tuple:
     return ()
 
 
-def mesh_shape(mesh) -> Dict[str, int]:
-    """{axis name: size}; {} for no mesh."""
+_NO_AXES = MappingProxyType({})
+
+
+def mesh_shape(mesh) -> Mapping[str, int]:
+    """{axis name: size}, read-only; empty for no mesh.  Kept on the mesh
+    after the first call: the layers ask for it a few hundred times a
+    decode step, and a ``DeviceMesh`` reads each size from a tensor."""
     if mesh is None:
-        return {}
-    return {name: int(mesh.size(i)) for i, name in enumerate(mesh.mesh_dim_names)}
+        return _NO_AXES
+    shape = getattr(mesh, "_axis_sizes", None)
+    if shape is None:
+        shape = MappingProxyType({name: int(mesh.size(i))
+                                  for i, name in enumerate(mesh.mesh_dim_names)})
+        mesh._axis_sizes = shape
+    return shape
 
 
 def axis_size(mesh, name: str) -> int:

@@ -50,7 +50,7 @@ from ..models.mamba import MambaState
 from ..models.meta import SplicePlan, bucket_length, build_splice_plan, splice_embeds
 from ..models.vit import fuse_vit_qkv, vit_forward
 from ..parallel import collectives as C
-from ..parallel.mesh import axis_size, set_mesh
+from ..parallel.mesh import axis_size, is_trivial, set_mesh
 from ..utils.from_jax import array_to_tensor
 from ..utils.params import param_bytes, tree_leaves, tree_map
 from .logit_filters import (
@@ -150,7 +150,9 @@ class StreamMindEngine:
         serving.  tp must divide the kv heads and the Mamba d_inner
         (``mesh_fits_inference``, checked first); the tree stays unfused
         (separate q/k/v and gate/up, as the rules name them) and is sharded
-        after the tiers' transforms; Mixtral's experts split over tp."""
+        after the tiers' transforms; Mixtral's experts split over tp.  A
+        mesh whose every axis has size 1 fuses as no mesh does: its layers
+        are the one-device code."""
         self.mesh = mesh
         if mesh is not None:
             from ..parallel.serving import mesh_fits_inference
@@ -178,9 +180,9 @@ class StreamMindEngine:
             params["projector"] = dict(params["projector"])
             params["projector"]["cls_net"] = quantize_gate_params(
                 params["projector"]["cls_net"], bits=4 if quantize_gate == "int4" else 8)
-        if "vision" in params and mesh is None:
+        if "vision" in params and is_trivial(mesh):
             params["vision"] = fuse_vit_qkv(params["vision"])
-        if "text" in params and mesh is None:
+        if "text" in params and is_trivial(mesh):
             # q/k/v → qkv (biases too) and gate/up → gateup (Mixtral's
             # expert banks stay as they are); quantized trees (any scheme)
             # always, plain trees only under 2 GiB (a bf16 Mistral-7B stays

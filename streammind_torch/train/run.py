@@ -33,8 +33,9 @@ Without ``dataset=``, ``--dataset`` builds the MatchTime, Ego4D or SFT
 dataset from ``--data-path`` / ``--data-folder`` / ``--anno-path``, with
 the ``transformers`` tokenizer of ``--model-path``, as the JAX package does.
 
-On a dp × fsdp × tp mesh (``--dp/--fsdp/--tp``, one process a rank,
-``utils/dist.init_process_group`` started by the caller) every rank takes
+On a dp × fsdp × tp mesh (``--dp/--fsdp/--tp``, one process a rank;
+train() starts the process group from a launcher's WORLD_SIZE, RANK,
+MASTER_ADDR and MASTER_PORT unless the caller started it) every rank takes
 the same samples, builds the same microbatch of per-device × dp rows and
 keeps its dp rows; the params are the rank's shards (fsdp gathered at use,
 tp split by the partitioning rules), the token-weighted loss and gradients
@@ -47,6 +48,8 @@ takes its own shards of the params and the optimizer state.
         --bits 4 --lora-enable true --model-path ckpt/ --dataset matchtime ...
 
     python -m streammind_torch.train.run --config run.json [--flag value ...]
+
+    torchrun --nproc_per_node 8 -m streammind_torch.train.run --fsdp 8 ...
 """
 from __future__ import annotations
 
@@ -454,6 +457,9 @@ def train(model_args=None, data_args=None, training_args=None, dataset=None,
         model_args, data_args, training_args = parse_args()
     stage = _stage_of(model_args, data_args)
     logger.info(f"training stage: {stage}")
+    # a launcher's WORLD_SIZE / RANK / MASTER_ADDR / MASTER_PORT (torchrun);
+    # nothing at world size 1 or where the caller started the group
+    dist_utils.init_process_group(device=training_args.device)
     _check_supported(model_args, training_args, stage)
 
     # -- model ---------------------------------------------------------------

@@ -17,6 +17,7 @@ meshes against JAX's one-device and (1,2,4)-sharded logits at 2e-4, with
 import dataclasses
 import os
 import pickle
+import socket
 
 import numpy as np
 import pytest
@@ -35,12 +36,18 @@ MESHES = ((1, 1, 4), (1, 2, 2), (2, 1, 2))
 # ---------------------------------------------------------------------------
 # the spawn harness
 # ---------------------------------------------------------------------------
-def _child(rank, world, rdzv, out, fn, args):
+def _child(rank, world, rdzv, out, fn, args_path):
     # a rank that raises exits at once (spawn then stops the others); a
     # collective that waits on a dead rank gives up after the timeout
     torch.set_num_threads(1)
-    tdist.init_process_group(init_method="file://" + rdzv, world_size=world, rank=rank,
-                             device="cpu", timeout_s=120)
+    with open(args_path, "rb") as f:
+        args = pickle.load(f)
+    if rdzv.startswith("env:"):  # a launcher's variables; fn starts the group
+        os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=rdzv[4:])
+    else:
+        tdist.init_process_group(init_method="file://" + rdzv, world_size=world, rank=rank,
+                                 device="cpu", timeout_s=120)
     res = fn(rank, world, *args)
     if rank == 0:
         with open(out, "wb") as f:
@@ -49,16 +56,27 @@ def _child(rank, world, rdzv, out, fn, args):
     tdist.shutdown()
 
 
-def start_world(fn, world, tmp_path, *args):
+def start_world(fn, world, tmp_path, *args, env: bool = False):
     """Start fn(rank, world, *args) on ``world`` spawned gloo ranks (one
     thread each, a file:// rendezvous under tmp_path); ``.result()`` joins
-    them and returns rank 0's return value."""
-    rdzv = str(tmp_path / f"rdzv_{fn.__name__}_{world}")
-    out = str(tmp_path / f"out_{fn.__name__}_{world}.pkl")
+    them and returns rank 0's return value.  The arguments go through a
+    file: a spawn start blocks until each child has read what is piped to
+    it, which it does only after its imports.  ``env``: no group is
+    started; each rank gets the variables a launcher sets (WORLD_SIZE,
+    RANK, LOCAL_RANK, MASTER_ADDR and a free MASTER_PORT on 127.0.0.1) and
+    fn starts the group from them."""
+    stem = str(tmp_path / f"{fn.__name__}_{world}")
+    rdzv, out, args_path = stem + ".rdzv", stem + ".out.pkl", stem + ".args.pkl"
+    if env:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            rdzv = f"env:{s.getsockname()[1]}"
     for p in (rdzv, out):
         if os.path.exists(p):
             os.remove(p)
-    ctx = mp.start_processes(_child, args=(world, rdzv, out, fn, args), nprocs=world,
+    with open(args_path, "wb") as f:
+        pickle.dump(args, f)
+    ctx = mp.start_processes(_child, args=(world, rdzv, out, fn, args_path), nprocs=world,
                              join=False, start_method="spawn")
 
     class World:
@@ -107,6 +125,7 @@ def _quantized(text):
 
 def _parallel_world(rank, world, tree_path, ids):
     from streammind_torch.models import mistral as lm
+    from streammind_torch.ops import attention as A
     from streammind_torch.parallel import collectives as C
 
     cfg = tconfig.tiny_streammind_config()
@@ -130,6 +149,11 @@ def _parallel_world(rank, world, tree_path, ids):
             seq, _ = lm.text_forward(local["text"], cfg.text, input_ids=ids[rows],
                                      sequence_axis="tp")
             res["seq"][shape] = C.all_gather_rows(seq, mesh, "dp").numpy()
+            if shape == (1, 1, 4):  # tp 4 over 2 kv heads: each rank reads one kv head
+                calls = A.flash_mha_sharded.calls
+                fl, _ = lm.text_forward(local["text"], cfg.text, input_ids=ids,
+                                        attn_impl="flash!")
+                res["flash"] = (fl.numpy(), A.flash_mha_sharded.calls - calls)
         # gradients of a sharded forward against the one-device port's
         if shape == (1, 2, 2):
             ref = {k: v for k, v in full["text"].items()}
@@ -293,6 +317,17 @@ def test_sharded_text_forward_matches_jax(world, shape):
     jsharded = _jax_logits(jp, ids, (1, 2, 4))
     np.testing.assert_allclose(res["logits"][shape], single, rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(res["logits"][shape], jsharded, rtol=2e-4, atol=2e-4)
+
+
+def test_flash_past_the_kv_heads_matches_jax(world):
+    """(1,1,4) over the tiny decoder's 2 kv heads with impl='flash!' (the
+    training dispatch): every layer's attention takes flash_mha_sharded on
+    the rank's q head and the one kv head it reads; the logits are JAX's."""
+    jp, ids, res = world
+    logits, calls = res["flash"]
+    assert calls == tconfig.tiny_streammind_config().text.num_layers
+    np.testing.assert_allclose(logits, _jax_logits(jp, ids), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(logits, _jax_logits(jp, ids, (1, 2, 4)), rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("shape", MESHES)
@@ -502,9 +537,16 @@ def port_train(tree_path, samples, out_dir, max_steps=None, **mesh):
 
 
 def train_world2(rank, world, tree_path, samples, tmp):
-    """fsdp 2, tp 2 and dp 2 runs (test_torch_dist_train.py compares)."""
-    res = {f"{k}2": port_train(tree_path, samples, f"{tmp}/{k}2", **{k: 2})
-           for k in ("fsdp", "tp")}
+    """fsdp 2, tp 2 and dp 2 runs at a global batch of 2 (a per-device
+    batch of 2, of 1 on dp 2; test_torch_dist_train.py compares), started
+    from a launcher's variables: the first train() starts the group."""
+    import torch.distributed as dist
+
+    res = {"fsdp2": port_train(tree_path, samples, f"{tmp}/fsdp2", fsdp=2,
+                               per_device_train_batch_size=2)}
+    res["group"] = (dist.get_backend(), dist.get_world_size(), dist.get_rank())
+    res["tp2"] = port_train(tree_path, samples, f"{tmp}/tp2", tp=2,
+                            per_device_train_batch_size=2)
     res["dp2"] = port_train(tree_path, samples, f"{tmp}/dp2", dp=2)
     return res
 
@@ -604,28 +646,52 @@ class ShapeOnlyMesh:
 
 
 def test_flash_mesh_policy():
-    """Under a mesh that does not divide (B, H, Hkv): 'flash' warns and takes
-    the plain path, 'flash!' raises, as does 'flash' in the "error" mode;
-    a mesh that divides them runs flash_mha_sharded."""
+    """Under any mesh 'flash' and 'flash!' run flash_mha_sharded on the
+    rank's local q, k, v (the global shape never sends them to the plain
+    path, and nothing warns); local heads that no GQA group pairs raise."""
+    import warnings
+
     from streammind_torch.ops import attention as A
 
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(2, 8, h, 16, generator=g) for h in (4, 2, 2))
     ref = A.mha_reference(q, k, v, causal=True)
-    with tmesh.set_mesh(ShapeOnlyMesh(tp=3)):
-        with pytest.warns(UserWarning, match="cannot shard"):
-            out = A.attention(q, k, v, causal=True, impl="flash", shape=(2, 4, 2))
-        np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
-        with pytest.raises(ValueError, match="cannot shard"):
-            A.attention(q, k, v, causal=True, impl="flash!", shape=(2, 4, 2))
-        A.set_flash_fallback_mode("error")
-        try:
-            with pytest.raises(ValueError, match="cannot shard"):
-                A.attention(q, k, v, causal=True, impl="flash", shape=(2, 4, 2))
-        finally:
-            A.set_flash_fallback_mode("warn")
-    calls = A.flash_mha_sharded.calls
-    with tmesh.set_mesh(ShapeOnlyMesh(dp=2, tp=2)):
-        out = A.attention(q, k, v, causal=True, impl="flash!")
-    assert A.flash_mha_sharded.calls == calls + 1
-    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
+    for mesh in (ShapeOnlyMesh(tp=3), ShapeOnlyMesh(tp=4), ShapeOnlyMesh(dp=2, tp=2)):
+        for impl in ("flash", "flash!"):
+            calls = A.flash_mha_sharded.calls
+            with tmesh.set_mesh(mesh), warnings.catch_warnings():
+                warnings.simplefilter("error")
+                out = A.attention(q, k, v, causal=True, impl=impl)
+            assert A.flash_mha_sharded.calls == calls + 1, (mesh.sizes, impl)
+            np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
+    with tmesh.set_mesh(ShapeOnlyMesh(tp=2)):
+        for impl in ("flash", "flash!"):
+            with pytest.raises(ValueError, match="do not group"):
+                A.attention(q[:, :, :3], k, v, causal=True, impl=impl)
+
+
+def test_trivial_mesh_engine_is_the_meshless_engine():
+    """A (1,1,1) mesh (no process group: the local mesh) fuses the ViT's
+    q/k/v and the decoder's q/k/v and gate/up as no mesh does, and its
+    two-turn session is the meshless engine's, bitwise."""
+    from streammind_torch.constants import VIDEO_TOKEN_INDEX
+    from streammind_torch.models.meta import init_streammind_params
+    from streammind_torch.streaming import StreamMindEngine, StreamSession
+
+    cfg = tconfig.tiny_streammind_config()
+    params = init_streammind_params(torch.Generator().manual_seed(3), cfg, device="cpu")
+    frames = torch.randn((4, 1, 3, cfg.vision.image_size, cfg.vision.image_size),
+                         generator=torch.Generator().manual_seed(4))
+    out = {}
+    for name, mesh in (("meshless", None), ("mesh", tmesh.make_mesh(1, 1, 1, "cpu"))):
+        eng = StreamMindEngine(params, cfg, eos_token_id=2, prefill_buckets=(32, 64),
+                               device="cpu", mesh=mesh)
+        layers = eng.params["text"]["layers"]
+        s = StreamSession(eng, FakeTokenizer(), prompt_ids=[1, 10, 11, VIDEO_TOKEN_INDEX, 12],
+                          max_new_tokens=8, gate_threshold=2.0)
+        texts = [s.process_frame(f, force_fire=i in (1, 3)) for i, f in enumerate(frames)]
+        out[name] = ("qkv" in eng.params["vision"]["layers"], "qkv" in layers,
+                     "gateup" in layers["mlp"], texts, s.state.memory, s.cache.k)
+    a, b = out["meshless"], out["mesh"]
+    assert a[:4] == b[:4] == (True, True, True, a[3]) and any(a[3])
+    assert torch.equal(a[4], b[4]) and torch.equal(a[5], b[5])
