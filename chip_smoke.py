@@ -86,6 +86,17 @@ Phases, each of which raises (exit code != 0) on failure:
      widths, the decoder cut to 2 layers, loaded by ``model_init(path,
      load_4bit="pc")`` (every leaf bitwise the written bf16) and answered
      the same way through the int4 kernel; exact launch counts;
+ 11b. (after phase 11, on its checkpoint directory) the released-checkpoint
+     smoke tool: the checkpoint loaded in fp32 on the card by the tool's
+     loader; with TF32 off, config 1 (one frame's ViT features, a caption of
+     32 tokens) and config 2 (prefill logits of 16 ids, an 8-frame
+     open-ended QA) through the tool's port-side functions; features and
+     logits held against the same functions on the CPU within the tool's
+     2e-4 relative rms; exact launch counts (one fp32 flash a decoder layer
+     a prefill, one scan a Mamba layer a clip); flash at each prefill's
+     fp32 bucket and the scan at the 1- and 8-frame clips against their
+     plain versions; the tool's CLI, which must exit non-zero naming
+     ``transformers`` where it is not installed and print OK where it is;
  12. the HTTP plane: a Controller and a ModelWorker (multistream_capacity
      4) on 127.0.0.1, one streamed generation through the controller equal
      to decode_stream in-process, two HTTP sessions of 6 frames through
@@ -201,7 +212,8 @@ and ``ms_over_bound`` for the five tensor-core kernels, ``ms_over_bound`` for
 paged attention, the int8 and int4 matvecs, the scan and the paged write,
 whose launches are the paged attention's launches that wrote a token;
 ``launches_by_path`` of every kernel: session, serving, fast, train, api,
-worker, eval, qlora, qwen2, mixtral, projectors, parallel) and, last,
+real_weights, worker, eval, qlora, qwen2, mixtral, projectors, parallel)
+and, last,
 the ``ok`` JSON line.  The fp32 parity phases must launch no tensor-core kernel.  It
 uses nothing of JAX; without a CUDA card it exits with an error before any
 result.
@@ -407,9 +419,11 @@ FLASH_SHAPES = ((64, [100], [150], 32, 8), (2048, [0], [2048], 32, 8),
                 (1024, [0], [1024], 32, 8))
 
 
-def flash_cases(dev, randn, shapes, tag=""):
+def flash_cases(dev, randn, shapes, tag="", cap=8192, tol=BF16_TOL):
     """flash_attention against its plain version at each (bucket, q
-    offsets, kv lengths, heads, kv heads).  Sets of inputs: the caches are
+    offsets, kv lengths, heads, kv heads) over caches of ``cap`` rows, in
+    the dtype ``randn`` draws (bf16: the tensor-core instantiation; fp32:
+    the CUDA-core one).  Sets of inputs: the caches are
     overlapping views of one buffer, each starting past the rows the
     previous one reads, so nothing is read warm.  Kernel and library are
     timed by graph replay (the bf16 kernel runs in less time than its
@@ -417,21 +431,23 @@ def flash_cases(dev, randn, shapes, tag=""):
     from streammind_torch.ops import attention as A
 
     cases = []
+    esize = randn(1).element_size()
+    peak = BF16_FLOPS if esize == 2 else FP32_FLOPS
     for sq, q_offs, kv_lens, h, hkv in shapes:
         b = len(q_offs)
         visible = sum(min(n, off + i + 1) for off, n in zip(q_offs, kv_lens) for i in range(sq))
         rows = [min(n, off + sq) for off, n in zip(q_offs, kv_lens)]
-        nbytes = 2 * (2 * b * sq * h * 128 + 2 * sum(rows) * hkv * 128)
+        nbytes = esize * (2 * b * sq * h * 128 + 2 * sum(rows) * hkv * 128)
         n, step = n_sets(nbytes), 64 * math.ceil(max(rows) / 64)
-        kbuf, vbuf = (randn(b, (n - 1) * step + 8192, hkv, 128) for _ in range(2))
-        sets = [(randn(b, sq, h, 128), kbuf[:, i * step:i * step + 8192],
-                 vbuf[:, i * step:i * step + 8192]) for i in range(n)]
+        kbuf, vbuf = (randn(b, (n - 1) * step + cap, hkv, 128) for _ in range(2))
+        sets = [(randn(b, sq, h, 128), kbuf[:, i * step:i * step + cap],
+                 vbuf[:, i * step:i * step + cap]) for i in range(n)]
         lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
         offs = torch.tensor(q_offs, dtype=torch.int32, device=dev)
         q, kc, vc = sets[0]
         out = A.flash_attention(q, kc, vc, causal=True, kv_len=lens, q_offset=offs)
         ref = A.flash_attention_ref(q, kc, vc, causal=True, kv_len=lens, q_offset=offs)
-        err, over = excess(out, ref, *BF16_TOL)
+        err, over = excess(out, ref, *tol)
         fns = [lambda s=s: A.flash_attention(*s, True, lens, offs) for s in sets]
         ms, eager = cuda_ms(fns, graph=True), cuda_ms(fns)
         plain = cuda_ms([lambda s=s: A.flash_attention_ref(*s, True, lens, offs) for s in sets],
@@ -448,8 +464,8 @@ def flash_cases(dev, randn, shapes, tag=""):
         lib = cuda_ms([lambda s=s: F.scaled_dot_product_attention(*s, attn_mask=mask)
                        for s in lib_sets], graph=True)
         del sets, lib_sets, kbuf, vbuf
-        b_ms, b_by = bound(nbytes, 4.0 * 128 * h * visible, BF16_FLOPS)
-        cases.append(dict(shape=f"q({b},{sq},{h},128) cache({b},8192,{hkv},128) q_offset={q_offs} "
+        b_ms, b_by = bound(nbytes, 4.0 * 128 * h * visible, peak)
+        cases.append(dict(shape=f"q({b},{sq},{h},128) cache({b},{cap},{hkv},128) q_offset={q_offs} "
                                 f"kv_len={kv_lens}{tag}", max_abs_err=err, ok=over <= 0, ms=ms,
                           eager_ms=eager, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                           bound_by=b_by))
@@ -2682,8 +2698,10 @@ def api_phase(engine, g, dev):
     CKPT_TEXT_LAYERS layers, loaded by ``model_init(path,
     load_4bit="pc")`` (every leaf bitwise the written bf16 through the
     load's transforms), and the answer checks on it, whose decode and beams
-    run through the int4 kernel.  Returns (the model, the tokenizer, its
-    video processor, the numbers)."""
+    run through the int4 kernel.  The checkpoint directory stays for the
+    real_weights phase, which removes it (it is removed here where this
+    phase fails).  Returns (the model, the tokenizer, its video processor,
+    the numbers)."""
     from streammind_torch import api
     from streammind_torch.config import StreamMindConfig
     from streammind_torch.models.meta import init_streammind_params
@@ -2728,8 +2746,9 @@ def api_phase(engine, g, dev):
             ckpt = answer_checks(api, m2, tok, video, API_NEW, API_BEAMS, CKPT_BEAM_NEW)
         ckpt_forwards = dc.n
         counts = read_launches()
-    finally:
+    except BaseException:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        raise
     del m2
     torch.cuda.empty_cache()
     # prefills: infer, the timed plan, the beams, one beam, infer_beams (5 a
@@ -2752,6 +2771,160 @@ def api_phase(engine, g, dev):
                    f"{r['beam_ms']:.3f} ms, {r['beam_ms_per_step']:.3f} ms a step over "
                    f"{r['beam_steps']} steps; scores {[round(s, 4) for s in r['scores']]}")
     return model, tok, processor, dict(full=full, ckpt=ckpt, launches=counts)
+
+
+RW_TOL = 2e-4          # the tool's --tol: relative rms of the fp32 features and logits
+RW_CAPTION_NEW = 32    # the tool's --max-new-tokens default
+# fp32 flash (the CUDA-core instantiation) against its plain version, the
+# fp32 limit of tests/test_torch_kernels_gpu.py
+FLASH_FP32_TOL = (1e-4, 1e-4)
+FLASH_FP32_TOL_TEXT = "|err| <= 1e-4 + 1e-4*|ref| (fp32 output)"
+
+
+def real_weights_phase(dev, g):
+    """The released-checkpoint smoke tool (``streammind_torch/tools/
+    real_weights_smoke.py``) on the api phase's checkpoint directory
+    (StreamMind-7B's widths, ViT-L/14-336 whole, the decoder cut to
+    CKPT_TEXT_LAYERS): loaded in fp32 on the card by the tool's loader, its
+    port-side functions run on the card with TF32 off and the stand-in
+    tokenizer — config 1's features and caption, config 2's logits and
+    8-frame open-ended QA (flash at each prefill's fp32 bucket, one scan a
+    Mamba layer a clip); the features and logits held against the same
+    functions on this machine's CPU within the tool's RW_TOL (a check that
+    needs no ``transformers``); flash and the scan held against their
+    plain versions at the phase's own shapes; then the tool's CLI as a
+    subprocess, which must exit non-zero naming ``transformers`` where that
+    is missing and print OK (the card against the mirrors on the CPU) where
+    it is installed.  Removes the checkpoint directory."""
+    import importlib.metadata
+    import importlib.util
+
+    from streammind_torch.api import StreamMindModel
+    from streammind_torch.tools import real_weights_smoke as rws
+    from streammind_torch.utils.params import tree_map
+
+    path = CKPT_DIR / "StreamMind-7B-text2"
+    tok = StandInTokenizer()
+    try:
+        with rws.fp32_matmuls():
+            torch.cuda.synchronize()
+            (model, _, _, version), load_ms, _ = timed(lambda: rws.load_model(
+                str(path), device=dev, tokenizer=tok))
+            cfg = model.cfg
+            size, L2, n_mamba = cfg.vision.image_size, cfg.text.num_layers, cfg.mamba.n_layers
+            rng = np.random.default_rng(0)  # the tool's inputs, drawn in its order
+            pixels = rng.standard_normal((1, 3, size, size)).astype(np.float32)
+            video = rng.standard_normal((8, 3, size, size)).astype(np.float32)
+            ids = list(range(1, 17))
+            prefills = []  # (bucket, cache rows) of each prefill, for the kernel cases
+            real_prefill = model.engine.prefill
+
+            def recording(plan, memory, cache):
+                prefills.append((len(plan.token_ids), cache.k.shape[2]))
+                return real_prefill(plan, memory, cache)
+
+            model.engine.prefill = recording
+            reset_launches()
+            feats, feat_ms, _ = timed(lambda: rws.vision_features(model, pixels))
+            text, caption_ms, caption_fw = timed(lambda: rws.caption(
+                model, pixels, tok, version, RW_CAPTION_NEW))
+            logits, logits_ms, _ = timed(lambda: rws.decoder_logits(model, ids))
+            answer, qa_ms, qa_fw = timed(lambda: rws.video_qa(model, video, tok, version))
+            counts = read_launches()
+            model.engine.prefill = real_prefill
+            cpu = StreamMindModel(params={k: tree_map(lambda t: t.cpu(), model.params[k])
+                                          for k in ("vision", "text")}, cfg=cfg, engine=None)
+            t0 = time.perf_counter()
+            cpu_feats = rws.vision_features(cpu, pixels)
+            cpu_logits = rws.decoder_logits(cpu, ids)
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+        del cpu
+        deltas = {"vit_feature_rms": rws._rms(feats, cpu_feats),
+                  "decoder_logits_rms": rws._rms(logits, cpu_logits)}
+        n_patches = (size // cfg.vision.patch_size) ** 2
+        problems = []
+        if feats.shape != (1, n_patches, cfg.vision.hidden_size) or not np.isfinite(feats).all():
+            problems.append(f"features {feats.shape}, finite {np.isfinite(feats).all()}")
+        if logits.shape != (len(ids), cfg.text.vocab_size) or not np.isfinite(logits).all():
+            problems.append(f"logits {logits.shape}, finite {np.isfinite(logits).all()}")
+        if not all(isinstance(t, str) for t in (text, answer)):
+            problems.append(f"caption {text!r} / answer {answer!r} are not strings")
+        if caption_fw > RW_CAPTION_NEW or len(prefills) != 2:
+            problems.append(f"{caption_fw} caption forwards, {len(prefills)} prefills")
+        over = {k: v for k, v in deltas.items() if not v <= RW_TOL}
+        if over:
+            problems.append(f"card vs CPU deltas over {RW_TOL}: {over}")
+        log("real_weights", f"[{CARD}] checkpoint {path.name} loaded in fp32 by the tool's "
+                            f"loader in {load_ms:.1f} ms (version {version}); ViT features "
+                            f"{feat_ms:.3f} ms, prefill logits of {len(ids)} ids "
+                            f"{logits_ms:.3f} ms on the card, both {cpu_ms:.1f} ms on the CPU")
+        log("real_weights", f"card vs this machine's CPU, the same functions (the CLI below "
+                            f"holds the card against the transformers mirrors where they "
+                            f"are installed), TF32 off: vit_feature_rms "
+                            f"{deltas['vit_feature_rms']:.3e}, decoder_logits_rms "
+                            f"{deltas['decoder_logits_rms']:.3e} (tol {RW_TOL})")
+        log("real_weights", f"[{CARD}] config 1 caption: {caption_ms:.3f} ms wall, "
+                            f"{caption_fw} decode forwards: {text[:80]!r}")
+        log("real_weights", f"[{CARD}] config 2 8-frame QA: {qa_ms:.3f} ms wall, {qa_fw} decode "
+                            f"forwards ({qa_ms / max(qa_fw, 1):.3f} ms a forward, prefill "
+                            f"included): {answer[:80]!r}")
+        expect = {n: 0 for n in counts}
+        expect.update(flash_attention=2 * L2, selective_scan=2 * n_mamba)
+        log("real_weights", f"launches={counts} expected={expect} (prefills at (bucket, cache "
+                            f"rows) {prefills})")
+        fp32_only(counts, "real_weights")
+        check_counts("real_weights", counts, expect)
+        if problems:
+            raise RuntimeError("real_weights: " + "; ".join(problems))
+
+        # the kernels at the phase's own shapes: flash at each prefill's fp32
+        # bucket over its cache, the scan at the 1- and 8-frame clips
+        def randn(*shape, std=1.0):
+            return torch.empty(shape, device=dev, dtype=torch.float32).normal_(
+                0.0, std, generator=g)
+
+        h, hkv = cfg.text.num_heads, cfg.text.num_kv_heads
+        flash = []
+        for bucket, rows in prefills:
+            flash += flash_cases(dev, randn, ((bucket, [0], [bucket], h, hkv),),
+                                 tag=" fp32 (real_weights)", cap=rows, tol=FLASH_FP32_TOL)
+        scan = scan_cases(dev, g, cases=((torch.float32, 1, 1, False, "time"),
+                                         (torch.float32, 1, 8, False, "time")),
+                          d=cfg.mamba.d_inner)
+        for c in flash:
+            c["tolerance"] = FLASH_FP32_TOL_TEXT
+        for c in scan:
+            c["tolerance"] = "y " + tol_text(SCAN_TOL[torch.float32], "fp32")
+        cases = report_cases({"flash_attention": (flash, FLASH_FP32_TOL_TEXT),
+                              "selective_scan": (scan, scan[0]["tolerance"])})
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the CLI, as a user runs it
+        has_tf = importlib.util.find_spec("transformers") is not None
+        tf_version = importlib.metadata.version("transformers") if has_tf else "missing"
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "streammind_torch.tools.real_weights_smoke",
+                            "--model-path", str(path)], capture_output=True, text=True,
+                           cwd=str(Path(__file__).resolve().parent), timeout=600)
+        cli_s = time.perf_counter() - t0
+        tail = (r.stdout + r.stderr).strip().splitlines()[-3:]
+        if has_tf and (r.returncode != 0 or "OK: all deltas within tol" not in r.stdout):
+            raise RuntimeError(f"real_weights CLI failed with transformers installed: {tail}")
+        if not has_tf and (r.returncode == 0 or "transformers" not in r.stderr
+                           or "OK" in r.stdout):
+            raise RuntimeError(f"real_weights CLI without transformers: exit {r.returncode}, "
+                               f"{tail}")
+        cli_deltas = next((json.loads(line)["deltas"] for line in r.stdout.splitlines()
+                           if line.startswith('{"deltas"')), None)
+        log("real_weights", f"[{CARD}] CLI (transformers {tf_version}): exit {r.returncode} in "
+                            f"{cli_s:.1f} s; against the mirrors: {cli_deltas}; {tail}")
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return dict(launches=counts, deltas=deltas, load_ms=load_ms, caption_ms=caption_ms,
+                qa_ms=qa_ms, qa_forwards=qa_fw, cli_exit=r.returncode, cli_deltas=cli_deltas,
+                kernels={n: cs for n, (cs, _) in cases.items()})
 
 
 def worker_phase(model, tok, g, dev):
@@ -4706,6 +4879,7 @@ def main() -> int:
     session = run("session", full_width_session, engine, g, dev)
     serving = run("serving", serving_phase, engine, g, dev)
     model, tok, processor, api_run = run("api", api_phase, engine, g, dev)
+    real_weights = run("real_weights", real_weights_phase, dev, g)
     worker = run("worker", worker_phase, model, tok, g, dev)
     evaluation = run("eval", eval_phase, model, tok, processor, dev)
     projectors = run("projectors", projectors_phase, engine, g, dev)
@@ -4732,6 +4906,8 @@ def main() -> int:
     parallel = run("parallel", parallel_phase, dev)
     for name, (cases, _) in parallel["kernels"].items():
         kernels[name][0].extend(cases)
+    for name, cases in real_weights["kernels"].items():
+        kernels[name][0].extend(cases)
     log("time", f"phase seconds: {seconds}; total {time.perf_counter() - t_start:.1f} s")
 
     entries = []
@@ -4748,6 +4924,7 @@ def main() -> int:
                               "fast": fast["launches"][name],
                               "train": training["launches"][name],
                               "api": api_run["launches"][name],
+                              "real_weights": real_weights["launches"][name],
                               "worker": worker["launches"][name],
                               "eval": evaluation["launches"][name],
                               "qlora": qlora["launches"][name],
@@ -4768,7 +4945,8 @@ def main() -> int:
                 tc_launches=main_path["launches"][f"{name}_tc"],
                 tc_launches_by_path={p: r["launches"][f"{name}_tc"] for p, r in (
                     ("session", session), ("serving", serving), ("fast", fast),
-                    ("train", training), ("api", api_run), ("worker", worker),
+                    ("train", training), ("api", api_run), ("real_weights", real_weights),
+                    ("worker", worker),
                     ("eval", evaluation), ("qlora", qlora), ("qwen2", qwen2),
                     ("mixtral", mixtral), ("projectors", projectors), ("parallel", parallel))},
                 hgmma=hgmma[src.split("/")[-1][:-3]], ms_over_bound=head["ms_over_bound"],

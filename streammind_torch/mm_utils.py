@@ -1,5 +1,6 @@
-"""Multimodal host utilities: frame sampling, CLIP preprocessing, video
-decode, the modal-token tokenizer splice and the stop trim.
+"""Multimodal host utilities: frame sampling (uniform, by fps, by scene),
+CLIP preprocessing, video decode, the modal-token tokenizer splice and the
+stop trim.
 
 Everything here runs on the host and returns numpy arrays; the engine puts
 them on the device.  Results are the JAX package's, bit for bit: the same
@@ -357,6 +358,44 @@ def load_image_from_base64(data: str):
     from io import BytesIO
 
     return _image_module().open(BytesIO(base64.b64decode(data)))
+
+
+# ---------------------------------------------------------------------------
+# Scene-based frame sampling
+# ---------------------------------------------------------------------------
+def merge_scenes(cut_list, cut_scores: Sequence[float], scene_list, num_frames: int,
+                 max_scene_num: int = 4, num_frame_per_scene: int = 8) -> List[np.ndarray]:
+    """Merge the weakest cuts until at most ``max_scene_num`` scenes remain,
+    then ``num_frame_per_scene`` evenly spaced frame ids a scene.  Cuts are
+    frame ids or objects with ``.get_frames()`` (PySceneDetect's); with no
+    scene and no cut, one linspace over the whole video."""
+    if len(scene_list) == 0 and len(cut_list) == 0:
+        return [np.linspace(0, num_frames - 1, num_frame_per_scene, dtype=int)]
+    scene_list, cut_results = merge_scenes_not_exceed_max_scene_num(
+        cut_list, cut_scores, scene_list, max_scene_num)
+    out: List[np.ndarray] = []
+    prev = cur = 0
+    for cur, _score in cut_results:
+        out.append(np.linspace(prev, cur - 1, num_frame_per_scene, dtype=int))
+        prev = cur
+    if cur < num_frames:
+        out.append(np.linspace(cur, num_frames - 1, num_frame_per_scene, dtype=int))
+    return out
+
+
+def merge_scenes_not_exceed_max_scene_num(cut_list, cut_scores: Sequence[float], scene_list,
+                                          max_scene_num: int):
+    """Drop the lowest-score cut and fuse its two neighbouring scenes until
+    at most ``max_scene_num`` scenes remain: (scenes, [(cut frame, score)])."""
+    frames = [c.get_frames() if hasattr(c, "get_frames") else c for c in cut_list]
+    scores = list(cut_scores)
+    scenes = list(scene_list)
+    while len(scenes) > max_scene_num:
+        i = int(np.argmin(scores))
+        frames.pop(i)
+        scores.pop(i)
+        scenes = scenes[:i] + [(scenes[i][0], scenes[i + 1][1])] + scenes[i + 2:]
+    return scenes, list(zip(frames, scores))
 
 
 # ---------------------------------------------------------------------------

@@ -24,3 +24,14 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor,
     if bias is not None:
         out = out + bias.float()
     return out.to(x.dtype)
+
+
+def add_norm(x: torch.Tensor, residual: Optional[torch.Tensor], weight: torch.Tensor,
+             bias: Optional[torch.Tensor] = None, eps: float = 1e-5, rms: bool = False):
+    """Fused residual add + norm (the layer_norm_fn(residual=...) pattern):
+    (normed in x's dtype, the new residual in fp32)."""
+    res = x.float()
+    if residual is not None:
+        res = res + residual.float()
+    normed = rms_norm(res, weight, eps) if rms else layer_norm(res, weight, bias, eps)
+    return normed.to(x.dtype), res

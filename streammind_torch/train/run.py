@@ -659,6 +659,8 @@ def _train_loop(state, mesh, cfg, stage, dataset, model_args, data_args, trainin
                 writer.write(step + 1, {"train/loss": loss, "train/grad_norm": gnorm})
         if (step + 1) % training_args.save_steps == 0 or step + 1 == total_steps:
             _save(state, mesh, training_args, step + 1, stage, lora_scaling is not None)
+    if writer is not None:
+        writer.close()
     return state
 
 

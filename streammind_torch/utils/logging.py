@@ -1,5 +1,6 @@
 """Loggers of the serving plane and metric smoothing for the training log
-(the JAX package's build_logger, SmoothedValue and MetricLogger).
+(the JAX package's build_logger, SmoothedValue and MetricLogger, whose
+``log_every`` prints an iteration's meters with its ETA and the total time).
 
 ``build_logger`` gives each log file name one daily-rotating handler under
 ``constants.LOGDIR`` (relative to the working directory); the first file
@@ -7,9 +8,11 @@ also receives the records of every logger that exists when it is made.
 """
 from __future__ import annotations
 
+import datetime
 import logging
 import logging.handlers
 import os
+import time
 from collections import defaultdict, deque
 from typing import Dict
 
@@ -72,7 +75,8 @@ class SmoothedValue:
 
 
 class MetricLogger:
-    """Named smoothed meters, printed as "name: median (global avg)"."""
+    """Named smoothed meters, printed as "name: median (global avg)", each
+    also an attribute of the logger."""
 
     def __init__(self, delimiter: str = "  "):
         self.meters: Dict[str, SmoothedValue] = defaultdict(SmoothedValue)
@@ -82,5 +86,31 @@ class MetricLogger:
         for k, v in kwargs.items():
             self.meters[k].update(float(v))
 
+    def __getattr__(self, attr):
+        meters = self.__dict__.get("meters", {})
+        if attr in meters:
+            return meters[attr]
+        raise AttributeError(attr)
+
     def __str__(self):
         return self.delimiter.join(f"{k}: {v}" for k, v in self.meters.items())
+
+    def log_every(self, iterable, print_freq: int, logger=None, header: str = ""):
+        """Yield from ``iterable``; every ``print_freq``-th item (of an
+        iterable with a length) say "[i/n] eta: ..." with the meters and the
+        mean time an item, and at the end the total time, through
+        ``logger.info`` or ``print``."""
+        say = logger.info if logger else print
+        start = time.time()
+        iter_time = SmoothedValue(fmt="{avg:.4f}")
+        n = len(iterable) if hasattr(iterable, "__len__") else None
+        end = time.time()
+        for i, obj in enumerate(iterable):
+            yield obj
+            iter_time.update(time.time() - end)
+            if i % print_freq == 0 and n:
+                eta = datetime.timedelta(seconds=int(iter_time.global_avg * (n - i)))
+                say(f"{header} [{i}/{n}] eta: {eta} {self} time: {iter_time}")
+            end = time.time()
+        total = time.time() - start
+        say(f"{header} Total time: {datetime.timedelta(seconds=int(total))}")

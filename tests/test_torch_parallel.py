@@ -18,6 +18,8 @@ import dataclasses
 import os
 import pickle
 import socket
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -40,6 +42,9 @@ def _child(rank, world, rdzv, out, fn, args_path):
     # a rank that raises exits at once (spawn then stops the others); a
     # collective that waits on a dead rank gives up after the timeout
     torch.set_num_threads(1)
+    # tensorboard's documented switch to its TensorFlow stub: train() writes
+    # TensorBoard scalars, and importing TensorFlow takes ~17 s a rank
+    sys.modules.setdefault("tensorboard.compat.notf", types.ModuleType("notf"))
     with open(args_path, "rb") as f:
         args = pickle.load(f)
     if rdzv.startswith("env:"):  # a launcher's variables; fn starts the group

@@ -209,5 +209,5 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "models.mistral", "models.projector", "models.meta", "utils.from_jax",
               "utils.params", "streaming.paged", "streaming.multistream", "utils.dist",
               "parallel.mesh", "parallel.partitioning", "parallel.collectives",
-              "parallel.serving"):
+              "parallel.serving", "tools.real_weights_smoke"):
         assert "streammind_torch." + m in mods
