@@ -1,0 +1,10 @@
+"""Device time of the kernels under the benchmark's range around the
+decoder's ``_moe_mlp`` inside prefills, per prefill of the traced window."""
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    prefills = len(run.trace.gpu_ranges.get("portbench.prefill", []))
+    _, seconds = run.trace.time_inside("portbench.moe")
+    return 1e3 * seconds / prefills if prefills and seconds > 0 else None
