@@ -36,6 +36,7 @@ from ..parallel import collectives as C
 from ..parallel.mesh import ambient_mesh, axis_index, axis_size, is_trivial
 from ..parallel.partitioning import row_linear, spec_for, use_leaf, use_linear
 from ..utils.params import fill_layers, linear, normal_init, ones, unstack_layers, zeros
+from ..utils.profiling import tracer
 
 
 class KVCache(NamedTuple):
@@ -469,8 +470,11 @@ def _moe_apply_gathered(xt, banks, cfg: TextConfig, topi, topw, lo: int = 0):
     are read on the host, once a layer; the banks hold experts lo, lo+1,
     ... and a token's other experts are skipped (another rank's)."""
     n_local = next(iter(banks[0].values())).shape[0]
+    with tracer.span("moe.expert_ids"):
+        expert_ids = topi.tolist()
+    tracer.count("moe.expert_id_reads")
     out = []
-    for x_row, ids, wts in zip(xt, topi.tolist(), topw):
+    for x_row, ids, wts in zip(xt, expert_ids, topw):
         y = torch.zeros_like(x_row)
         for j, e in enumerate(ids):
             if not lo <= e < lo + n_local:

@@ -20,6 +20,7 @@ import time
 from typing import Dict, Optional, Tuple
 
 from ..streaming.multistream import MultiStreamServer
+from ..utils.profiling import tracer
 
 
 class BatchedSessionBroker:
@@ -166,15 +167,21 @@ class BatchedSessionBroker:
                     self._cv.wait(timeout=0.25)
                 if self._stop:
                     return
-                # batching window: once the first frame of a tick arrives,
-                # wait briefly for the other live streams' frames
-                deadline = time.time() + self.max_wait
-                while (len(self._pending) < len(self.server.active)
-                       and time.time() < deadline and not self._stop):
-                    self._cv.wait(timeout=max(deadline - time.time(), 0.001))
-                staged = dict(self._pending)
-                self._pending.clear()
-                frames = {sid: f for sid, (_, f) in staged.items()}
+                # the step about to run takes the server's next tick number,
+                # the event id of this tick's spans
+                tick = self.server.ticks
+                with tracer.span("broker.collect", event=tick,
+                                 active=len(self.server.active)) as span:
+                    # batching window: once the first frame of a tick arrives,
+                    # wait briefly for the other live streams' frames
+                    deadline = time.time() + self.max_wait
+                    while (len(self._pending) < len(self.server.active)
+                           and time.time() < deadline and not self._stop):
+                        self._cv.wait(timeout=max(deadline - time.time(), 0.001))
+                    staged = dict(self._pending)
+                    self._pending.clear()
+                    frames = {sid: f for sid, (_, f) in staged.items()}
+                    span.set(frames=len(staged))
             # The model step runs OUTSIDE the condition lock (submits keep
             # queueing meanwhile).
             # _step_lock keeps add/remove from mutating slots mid-step.
@@ -186,7 +193,7 @@ class BatchedSessionBroker:
                     # fail its tick's callers, not kill the serving plane
                     out = {}
                     err = f"{type(e).__name__}: {e}"
-            with self._cv:
+            with self._cv, tracer.span("broker.publish", event=tick):
                 self.ticks += 1
                 self.frames_seen += len(staged)
                 now = time.time()

@@ -53,6 +53,7 @@ from ..parallel import collectives as C
 from ..parallel.mesh import axis_size, is_trivial, set_mesh
 from ..utils.from_jax import array_to_tensor
 from ..utils.params import param_bytes, tree_leaves, tree_map
+from ..utils.profiling import tracer
 from .logit_filters import (
     sample_first_token,
     sample_first_token_rows,
@@ -492,18 +493,23 @@ class StreamMindEngine:
             probs, state = self.perceive_step_batch(pixels[rows], state, feed_mask[rows])
             return C.all_gather_rows(probs, self.mesh, "dp"), state
         s = pixels.shape[0]
-        feats = vit_forward(p["vision"], cfg.vision, pixels, attn_impl=self.attn_impl)
-        mem_tok, mamba_state = proj.mamba_project_step(p["projector"], cfg, feats, state.mamba)
-        logits = proj.gate_decision_step(p["projector"], cfg, mem_tok)
-        gate_probs = torch.softmax(logits.float(), dim=-1)
-        rows = torch.arange(s, device=self.device)
-        slots = torch.clamp(state.frame_idx.long(), max=cfg.max_stream_frames - 1)
-        cur = state.memory[rows, slots]
-        state.memory[rows, slots] = torch.where(feed_mask[:, None],
-                                                mem_tok.to(state.memory.dtype), cur)
-        fed = feed_mask[None, :, None, None]
-        mamba_state = MambaState(conv=torch.where(fed, mamba_state.conv, state.mamba.conv),
-                                 ssm=torch.where(fed, mamba_state.ssm, state.mamba.ssm))
+        with tracer.span("engine.perceive", rows=s):
+            with tracer.span("engine.vit"):
+                feats = vit_forward(p["vision"], cfg.vision, pixels, attn_impl=self.attn_impl)
+            with tracer.span("engine.mamba"):
+                mem_tok, mamba_state = proj.mamba_project_step(p["projector"], cfg, feats,
+                                                               state.mamba)
+            with tracer.span("engine.gate"):
+                logits = proj.gate_decision_step(p["projector"], cfg, mem_tok)
+                gate_probs = torch.softmax(logits.float(), dim=-1)
+            rows = torch.arange(s, device=self.device)
+            slots = torch.clamp(state.frame_idx.long(), max=cfg.max_stream_frames - 1)
+            cur = state.memory[rows, slots]
+            state.memory[rows, slots] = torch.where(feed_mask[:, None],
+                                                    mem_tok.to(state.memory.dtype), cur)
+            fed = feed_mask[None, :, None, None]
+            mamba_state = MambaState(conv=torch.where(fed, mamba_state.conv, state.mamba.conv),
+                                     ssm=torch.where(fed, mamba_state.ssm, state.mamba.ssm))
         new_state = StreamState(mamba=mamba_state, memory=state.memory,
                                 frame_idx=state.frame_idx + feed_mask.to(torch.int32),
                                 last_fire=state.last_fire)
@@ -612,7 +618,8 @@ def lockstep_decode(step, first: list, limits: list, eos: int, knobs, generator,
     i, toks = 0, first
     while i < max_new and not done.all():
         logits = step(toks.tolist(), np.where(done, 0, 1).tolist())
-        nxt = np.asarray(sample_token_rows(generator, logits, *knobs), np.int64)
+        with tracer.span("decode.sample"):
+            nxt = np.asarray(sample_token_rows(generator, logits, *knobs), np.int64)
         limit_hit = i + 1 >= lim
         nxt = np.where(done | limit_hit, eos, nxt)
         tail = np.concatenate([tail[:, 1:], nxt[:, None]], axis=1)

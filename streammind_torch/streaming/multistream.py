@@ -21,6 +21,7 @@ import torch
 
 from ..mm_utils import trim_at_stop_strings
 from ..models.meta import bucket_length
+from ..utils.profiling import tracer
 from .engine import (
     StreamMindEngine,
     _float_dtype,
@@ -99,6 +100,7 @@ class MultiStreamServer:
             self._k_buckets.append(min(k, capacity))
         self.state = engine.new_stream_state(capacity)
         self.slots: List[Optional[_Slot]] = [None] * capacity
+        self.ticks = 0  # steps taken; a step's number is its spans' event id
         self.generator = torch.Generator(device=engine.device).manual_seed(0)
         size = engine.cfg.vision.image_size
         # the engine's weight dtype: an fp32 filler would promote the batch
@@ -162,23 +164,31 @@ class MultiStreamServer:
         a frame this tick get a zero frame, keep their state frozen and are
         left out of the gate decision).  Returns {stream_id: utterance or
         None} for the fed streams."""
+        tick = self.ticks
+        self.ticks += 1
         if not self.active:
             return {}
+        with tracer.span("server.step", event=tick):
+            return self._step(frames)
+
+    def _step(self, frames: Dict[str, object]) -> Dict[str, Optional[str]]:
         dev = self.engine.device
-        batch, fed = [], []
-        for i in range(self.capacity):
-            slot = self.slots[i]
-            if slot is not None and slot.stream_id in frames:
-                batch.append(torch.as_tensor(frames[slot.stream_id]).to(
-                    device=dev, dtype=self._pixel_dtype).reshape(self._zero_frame.shape))
-                fed.append(i)
-            else:
-                batch.append(self._zero_frame)
-        feed_mask = torch.zeros((self.capacity,), dtype=torch.bool)
-        feed_mask[fed] = True
-        gate_probs, self.state = self.engine.perceive_step_batch(
-            torch.cat(batch, dim=0), self.state, feed_mask.to(dev))
-        probs = gate_probs.cpu().numpy()
+        with tracer.span("server.stage"):
+            batch, fed = [], []
+            for i in range(self.capacity):
+                slot = self.slots[i]
+                if slot is not None and slot.stream_id in frames:
+                    batch.append(torch.as_tensor(frames[slot.stream_id]).to(
+                        device=dev, dtype=self._pixel_dtype).reshape(self._zero_frame.shape))
+                    fed.append(i)
+                else:
+                    batch.append(self._zero_frame)
+            feed_mask = torch.zeros((self.capacity,), dtype=torch.bool)
+            feed_mask[fed] = True
+            pixels, feed_mask = torch.cat(batch, dim=0), feed_mask.to(dev)
+        gate_probs, self.state = self.engine.perceive_step_batch(pixels, self.state, feed_mask)
+        with tracer.span("server.gate_read"):
+            probs = gate_probs.cpu().numpy()
 
         out: Dict[str, Optional[str]] = {}
         fired: List[int] = []
@@ -237,6 +247,7 @@ class MultiStreamServer:
     def _reset_paged_slot(self, i: int, span_len: int, min_bucket: int = 0) -> None:
         """Reclaim slot i's pages and re-carry its recent turns as text."""
         slot = self.slots[i]
+        tracer.count("paged.resets")
         self.paged.reset(slot.stream_id)
         slot.pending_ids = rebuild_history_pending(
             self.engine, slot.tokenizer, slot.turns, slot.pending_ids, span_len,
@@ -293,11 +304,17 @@ class MultiStreamServer:
         tick share one batched prefill and one lockstep decode."""
         if not fired:
             return {}
-        if len(fired) == 1 or not self.batch_cognition:
-            return {i: self._cognify_slot(i) for i in fired}
-        if self.paged is not None:
-            return self._cognify_slots_paged(fired)
+        with tracer.span("server.cognify") as span:
+            if len(fired) == 1 or not self.batch_cognition:
+                span.set(batched=0, alone=len(fired))
+                return {i: self._cognify_slot(i) for i in fired}
+            if self.paged is not None:
+                return self._cognify_slots_paged(fired, span)
+            return self._cognify_slots_dense(fired, span)
 
+    def _cognify_slots_dense(self, fired: List[int], span) -> Dict[int, str]:
+        """Batched dense cognition: the fired rows' rings stacked, padded to
+        a power of two, one prefill and one lockstep decode."""
         eng = self.engine
         spans = {i: self._slot_span(i) for i in fired}
         # capacity guard with a SHARED bucket, to a fixpoint (a history
@@ -322,6 +339,7 @@ class MultiStreamServer:
             budget = int(slot.cache.length[0]) + shared + slot.max_new_tokens
             ok = budget <= eng.kv_capacity and self._fits_bucket(i, spans[i], shared)
             (rows if ok else odd).append(i)
+        _count_rows(span, rows, odd)
         texts: Dict[int, str] = {i: self._cognify_slot(i, spans[i]) for i in odd}
         if len(rows) == 1:
             texts[rows[0]] = self._cognify_slot(rows[0], spans[rows[0]])
@@ -351,7 +369,7 @@ class MultiStreamServer:
             texts[i] = self._finish_turn(i, tok_lists[j])
         return texts
 
-    def _cognify_slots_paged(self, fired: List[int]) -> Dict[int, str]:
+    def _cognify_slots_paged(self, fired: List[int], span) -> Dict[int, str]:
         """Batched paged cognition: the fired dialogues share one bucket, one
         prefill and one lockstep decode over the page pool."""
         eng, pd = self.engine, self.paged
@@ -376,6 +394,7 @@ class MultiStreamServer:
                   and self._fits_bucket(i, spans[i], shared)
                   and pd.pages_needed(did, shared + slot.max_new_tokens) == 0)
             (rows if ok else odd).append(i)
+        _count_rows(span, rows, odd)
         # batched rows FIRST: an odd turn's guard may pressure-reset a batched
         # row, which would void the classification above
         texts: Dict[int, str] = {}
@@ -426,3 +445,10 @@ class MultiStreamServer:
         slot.turns.append(text)
         slot.last_fire = cur
         return text
+
+
+def _count_rows(span, rows: List[int], odd: List[int]) -> None:
+    """The cognify span's rows: those of one batched turn (two or more) and
+    those run alone."""
+    batched = len(rows) if len(rows) > 1 else 0
+    span.set(batched=batched, alone=len(rows) + len(odd) - batched)

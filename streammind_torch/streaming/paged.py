@@ -30,6 +30,7 @@ from ..ops.norms import rms_norm
 from ..ops.paged_attention import gather_seq, paged_decode_attention
 from ..ops.rotary import apply_rope, rope_cos_sin
 from ..utils.params import layer_slice, linear
+from ..utils.profiling import tracer
 
 _PAGE_MULTIPLE = 8  # the JAX package's pool takes page sizes in whole 8-row tiles
 
@@ -225,14 +226,17 @@ class PagedDialogues:
         length = list(length)
 
         def step(toks, advance):
-            lens = torch.tensor(length, dtype=torch.int32, device=self.engine.device)
-            logits = self._decode_step(table, lens, toks)
+            with tracer.span("paged.decode_step"):
+                lens = torch.tensor(length, dtype=torch.int32, device=self.engine.device)
+                logits = self._decode_step(table, lens, toks)
             for r, a in enumerate(advance):
                 length[r] += a
             return logits
 
-        buf, _ = lockstep_decode(step, first, limits, self.engine.eos_token_id, knobs,
-                                 generator, stop_ids)
+        with tracer.span("paged.decode", K=len(first)) as span:
+            buf, steps = lockstep_decode(step, first, limits, self.engine.eos_token_id, knobs,
+                                         generator, stop_ids)
+            span.set(steps=steps)
         return buf, length
 
     def run_turns(self, dids: List[str], plans: List[SplicePlan], memories,
@@ -260,7 +264,8 @@ class PagedDialogues:
         for did, lim in zip(dids, limits):
             self.ensure_capacity(did, bucket + lim)
         table = self._table(dids)
-        last = self._prefill(table, self._lengths(dids), plans, torch.cat(memories, dim=0))
+        with tracer.span("paged.prefill", K=K, bucket=bucket):
+            last = self._prefill(table, self._lengths(dids), plans, torch.cat(memories, dim=0))
         for d, p in zip(dids, plans):
             self.lengths[d] += p.length
         knobs = (_knob_rows(temperature, K), _knob_rows(top_k, K), _knob_rows(top_p, K))

@@ -2,9 +2,9 @@
 package's, on the CPU.
 
 Profiling: the same latency samples give the same summaries (percentiles
-by numpy, exact), the JSONL sink the same records, and the sliding-window
-rate the same value on one scripted clock; ``device_trace`` writes a
-Chrome trace of its block, and ``force_execute`` is a no-op on CPU tensors.
+by numpy, exact) and the JSONL sink the same records; ``device_trace``
+writes a Chrome trace of its block, and ``force_execute`` is a no-op on CPU
+tensors.  The tracer's spans and counters: ``tests/test_torch_tracing.py``.
 Manifests: every builder's key/shape surface equals JAX's, and the 7B ones
 equal the committed ``tests/data/checkpoint_manifest_*.json`` that
 chip_smoke.py checks names against (the card's machine has no
@@ -70,19 +70,6 @@ def test_stage_profiler_and_sink_match_jax(tmp_path, monkeypatch):
                                                              if k != "ts"}
     assert rec[0][0]["step"] == 3 and "step" not in rec[0][1]
     tprof.StageProfiler().flush()  # no sink: nothing written
-
-
-def test_throughput_meter_matches_jax(monkeypatch):
-    now = [0.0]  # one scripted clock: both modules read the same time module
-    monkeypatch.setattr(tprof.time, "perf_counter", lambda: now[0])
-    t, j = tprof.ThroughputMeter(window=50), jprof.ThroughputMeter(window=50)
-    assert t.rate() == j.rate() == 0.0
-    for i, step in enumerate(_samples(120, seed=3)):
-        now[0] += step
-        t.tick(1 + i % 3)
-        j.tick(1 + i % 3)
-        assert t.times == j.times and t.rate() == j.rate()
-    assert len(t.times) == 50 and t.rate() > 0
 
 
 def test_device_trace_and_force_execute_on_the_cpu(tmp_path):
