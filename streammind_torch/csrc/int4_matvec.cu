@@ -61,6 +61,11 @@
 //    (ops/int4_matvec.py::_grid) picks TW and row_tiles from the shapes, by
 //    a sweep on an H100 (PERF.md): more rows a block share x, more blocks
 //    keep more SMs streaming.
+//  * Indexed (Mixtral's experts at B 1): the same kernel over a whole bank
+//    (E, out, in/2), each block reading the expert's id from the device
+//    (one of a router's top-k ids) and offsetting its weight and scale
+//    rows, so the ids never reach the host and the launch can be captured
+//    in a CUDA graph.
 // fp32 x (the parity runs): the same staging of x (chunks of 512 packed
 // columns), CUDA-core FMAs, one warp a row, lanes over 16-byte weight
 // chunks (each lane's x read in a rotated order, free of bank conflicts),
@@ -177,14 +182,19 @@ size_t tc_smem(int half) {
          sizeof(float) * kWarps * TW * 16 * 8;
 }
 
-template <int NB, int TW>
+template <int NB, int TW, bool kIndexed>
 __global__ void __launch_bounds__(kThreads)
 int4_matvec_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
                       const float* __restrict__ scale, __nv_bfloat16* __restrict__ y, int B,
-                      int din, int dout, int row_tiles) {
+                      int din, int dout, int row_tiles, const long long* __restrict__ expert) {
   constexpr int kCols = tc_cols<NB>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int half = din / 2, width = tc_width<NB>(half), xrow = tc_row(width);
+  if constexpr (kIndexed) {  // w and scale are a bank: expert e's rows start e slices in
+    const long long e = __ldg(expert);
+    w += e * dout * half;
+    scale += e * dout;
+  }
   const int buffers = half > kCols ? 2 : 1;
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // buffers x NB x xrow
   float* red = reinterpret_cast<float*>(xs + buffers * NB * xrow);  // warp x tile x 16 x 8
@@ -456,20 +466,21 @@ cudaError_t allow_smem(Kernel kern, int bytes, bool* done) {
   return err;
 }
 
-template <int NB, int TW>
+template <int NB, int TW, bool kIndexed = false>
 int launch_tc(const void* x, const void* w, const void* scale, void* y, int B, int din, int dout,
-              int row_tiles, cudaStream_t s) {
+              int row_tiles, cudaStream_t s, const long long* expert = nullptr) {
   // a block's 8 warps hold TW tiles each, all of them or a share of the
   // columns of each
   if (row_tiles < TW || row_tiles > kWarps * TW) return (int)cudaErrorInvalidValue;
-  auto kern = int4_matvec_tc_kernel<NB, TW>;
+  auto kern = int4_matvec_tc_kernel<NB, TW, kIndexed>;
   static bool done[64] = {};
   const cudaError_t err = allow_smem(kern, (int)tc_smem<NB, TW>(tc_cols<NB>() + 1), done);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (dout + 15) / 16;
   kern<<<(tiles + row_tiles - 1) / row_tiles, kThreads, tc_smem<NB, TW>(din / 2), s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y), B, din, dout, row_tiles);
+      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y), B, din, dout, row_tiles,
+      expert);
   return (int)cudaGetLastError();
 }
 
@@ -494,14 +505,23 @@ int launch_f32(const void* x, const void* w, const void* scale, void* y, int B, 
 // checks).  The bf16 kernel's grid: tiles_a_warp (1, or 2 from B 3) tiles of
 // 16 rows a warp, row_tiles (a power of two, tiles_a_warp to 8 x that) a
 // block.
+// Indexed (expert not null; bf16 x, B 1, din/2 a multiple of 16): w is a
+// bank (E, dout, din/2) and scale (E, dout), and the kernel's blocks read
+// the expert's id at `expert` on the device: a router's ids never reach the
+// host.
 extern "C" int sm_int4_matvec(const void* x, const void* w, const void* scale, void* y, int B,
                               int din, int dout, int is_bf16, int tiles_a_warp, int row_tiles,
-                              void* stream) {
+                              const void* expert, void* stream) {
   cudaGetLastError();  // clear a stale error so the return value is this launch's
   if (B < 1 || B > kMaxB || din < 2 || (din & 1) || dout < 1 || row_tiles < 1 ||
       (row_tiles & (row_tiles - 1)) || !(tiles_a_warp == 1 || (tiles_a_warp == 2 && B > 2)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (expert) {
+    if (!is_bf16 || B != 1 || (din / 2) % 16) return (int)cudaErrorInvalidValue;
+    return launch_tc<1, 1, true>(x, w, scale, y, B, din, dout, row_tiles, s,
+                                 static_cast<const long long*>(expert));
+  }
   if ((din / 2) % 16) {
     const dim3 grid((dout + kWarps - 1) / kWarps), block(kThreads);
     if (is_bf16)

@@ -22,6 +22,8 @@ every axis has size 1 runs the one-device code.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -30,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import TextConfig
 from ..ops.attention import _repeat_kv, attention, decode_attention, flash_attention
+from ..ops.int4_matvec import int4_matvec
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rope, rope_cos_sin
 from ..parallel import collectives as C
@@ -284,6 +287,23 @@ def _expert(bank: dict, e: int) -> dict:
     return {k: v[e] for k, v in bank.items()}
 
 
+_routing = threading.local()
+
+
+@contextlib.contextmanager
+def routing_breaks(fn):
+    """Inside the block, on this thread, each MoE layer hands its router's
+    fp32 softmax (T, E) to ``fn(probs, k)`` in place of ``router_top_k``
+    and takes the (weights, ids) it returns: where a CUDA graph of a decode
+    step breaks at the routing (``streaming/paged.py``)."""
+    prev = getattr(_routing, "fn", None)
+    _routing.fn = fn
+    try:
+        yield
+    finally:
+        _routing.fn = prev
+
+
 def router_top_k(probs: torch.Tensor, k: int):
     """The k largest router probs of each row and their expert ids, ties to
     the lowest id (``jax.lax.top_k``'s rule; ``torch.topk`` promises no
@@ -319,7 +339,8 @@ def _moe_mlp(x, p, cfg: TextConfig, dispatch=None, path: str = "text"):
         router = use_leaf(router, f"{path}.layers.router.weight", 1, mesh)
     router_logits = xt @ router.T.to(xt.dtype)  # (T, E)
     probs = torch.softmax(router_logits.float(), dim=-1)
-    topw, topi = router_top_k(probs, cfg.num_experts_per_tok)
+    brk = getattr(_routing, "fn", None)
+    topw, topi = (router_top_k if brk is None else brk)(probs, cfg.num_experts_per_tok)
     topw = topw / topw.sum(dim=-1, keepdim=True)
     if not is_trivial(mesh):
         return _moe_mlp_sharded(xt, p, cfg, topi, topw, mesh, dispatch, path).reshape(b, s, d)
@@ -464,12 +485,59 @@ def _moe_apply_grouped_sharded(xt, experts, cfg: TextConfig, topi, topw, mesh,
     return C.reduce_from_tp(out, mesh)
 
 
+def _ids_on_device(banks, dtype, device, n_experts: int, lo: int = 0) -> bool:
+    """Whether a few tokens' experts run through the indexed int4 matvec,
+    their ids read on the card: per-channel int4 banks that hold every
+    expert (no other rank's share), bf16 activations on a CUDA device, the
+    kernel's 16-byte rows."""
+    return (device.type == "cuda" and dtype == torch.bfloat16 and lo == 0
+            and all(set(b) == {"w_int4pc", "scale"} and b["w_int4pc"].shape[0] == n_experts
+                    and b["w_int4pc"].shape[-1] % 16 == 0 for b in banks))
+
+
+def moe_ids_on_device(params, cfg: TextConfig, device) -> bool:
+    """Whether a MoE decoder's decode steps on ``device`` keep their expert
+    ids on the card (``_ids_on_device`` for the tree's banks and its
+    embedding's dtype, the activations' dtype)."""
+    ex = params["layers"]["experts"]
+    banks = [{k: v[0] for k, v in _wrap_expert_leaf(ex[n]).items()}
+             for n in ("gate", "up", "down")]   # layer 0's (E, ...) banks
+    return _ids_on_device(banks, params["embed_tokens"].dtype, torch.device(device),
+                          cfg.num_experts)
+
+
+def _moe_apply_indexed(xt, banks, topi, topw):
+    """The gathered dispatch with the ids left on the device: each (row,
+    slot)'s gate, up and down launch the indexed int4 matvec over the whole
+    bank, pointed at that id of ``topi``.  The launches, their order and the
+    routing weights are the slice launches' of ``_moe_apply_gathered``, so
+    on the card the outputs are theirs, bitwise."""
+    tracer.count("moe.expert_id_reads", 0)
+    ids = topi.contiguous()
+    gw, uw, dw = ((b["w_int4pc"], b["scale"]) for b in banks)
+    out = []
+    for r, (x_row, wts) in enumerate(zip(xt, topw)):
+        y = torch.zeros_like(x_row)
+        for j in range(ids.shape[1]):
+            e = ids[r, j:j + 1]
+            g = F.silu(int4_matvec(x_row[None], *gw, expert=e))[0]
+            u = int4_matvec(x_row[None], *uw, expert=e)[0]
+            y = y + int4_matvec((g * u)[None], *dw, expert=e)[0] * wts[j].to(x_row.dtype)
+        out.append(y)
+    return torch.stack(out)
+
+
 def _moe_apply_gathered(xt, banks, cfg: TextConfig, topi, topw, lo: int = 0):
     """Top-k gather for a few tokens: each token runs its k experts' slices
-    (``_expert``) through ``linear``, one token at a time.  The expert ids
-    are read on the host, once a layer; the banks hold experts lo, lo+1,
-    ... and a token's other experts are skipped (another rank's)."""
+    (``_expert``) through ``linear``, one token at a time.  Where
+    ``_ids_on_device`` (and no gradient is asked of x), the ids stay on the
+    card (``_moe_apply_indexed``).  Elsewhere they are read on the host,
+    once a layer; the banks hold experts lo, lo+1, ... and a token's other
+    experts are skipped (another rank's)."""
     n_local = next(iter(banks[0].values())).shape[0]
+    if _ids_on_device(banks, xt.dtype, xt.device, cfg.num_experts, lo) and not (
+            torch.is_grad_enabled() and xt.requires_grad):
+        return _moe_apply_indexed(xt, banks, topi, topw)
     with tracer.span("moe.expert_ids"):
         expert_ids = topi.tolist()
     tracer.count("moe.expert_id_reads")

@@ -109,7 +109,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     "flash_attention": ("sm_flash_attention", [_P] * 7 + [_I] * 8 + [_L] * 9 + [_F, _P]),
     "exact_attention": ("sm_exact_attention", [_P] * 4 + [_I] * 7 + [_L] * 9 + [_F, _P]),
-    "int4_matvec": ("sm_int4_matvec", [_P] * 4 + [_I] * 6 + [_P]),
+    "int4_matvec": ("sm_int4_matvec", [_P] * 4 + [_I] * 6 + [_P, _P]),
     "paged_attention": ("sm_paged_attention", [_P] * 11 + [_I] * 9 + [_F, _P]),
     "flash_bwd_dq": ("sm_flash_bwd_dq", [_P] * 8 + [_I] * 8 + [_L] * 12 + [_F, _P]),
     "flash_bwd_dkv": ("sm_flash_bwd_dkv", [_P] * 9 + [_I] * 8 + [_L] * 12 + [_F, _P]),

@@ -13,13 +13,20 @@ Numerics: x is taken at its own precision, every product is exact in fp32,
 the sum is fp32 (in another order than the plain version's), the row's
 fp32 scale multiplies the sum, and the result is rounded once to x's dtype.
 
+Indexed (``expert``): the weight is a whole bank of experts (E, out, in/2)
+with scales (E, out), and the kernel's blocks read the expert's id from a
+one-element tensor on the card (one of a router's top-k ids), so a MoE's
+routing never waits on the host and the launch can be captured in a CUDA
+graph: the same kernel, bitwise the launch on the expert's slice.
+
 ``int4_matvec`` takes ``int4_matvec_ref`` only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  ``int4_matvec.launches``
-counts its launches.
+counts its launches, indexed ones included.
 """
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 
@@ -57,11 +64,41 @@ def int4_matvec_ref(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) 
     return (acc * scale.float()[None, :]).to(x.dtype)
 
 
-def int4_matvec(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def int4_matvec(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                expert: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (B, in) fp32/bf16 with B ≤ 8; packed (out, in/2) int8; scale (out,)
-    fp32.  Returns (B, out) in x's dtype."""
+    fp32.  Returns (B, out) in x's dtype.  With ``expert``, a one-element
+    int64 tensor on x's device (a view of one (row, slot) of a router's
+    ids): packed is a bank (E, out, in/2), scale (E, out), and the product
+    takes expert ``expert``'s slice; on the card x must then be one bf16
+    row and in/2 a multiple of 16."""
+    if expert is not None:
+        if expert.numel() != 1 or expert.dtype != torch.int64 or expert.device != x.device:
+            raise ValueError("int4_matvec: expert must be one int64 id on x's device")
+        if packed.dim() != 3 or scale.dim() != 2 or scale.shape != packed.shape[:2]:
+            raise ValueError(f"int4_matvec: an indexed bank is packed (E, out, in/2), scale "
+                             f"(E, out), got {tuple(packed.shape)}, {tuple(scale.shape)}")
+        if x.device.type == "cpu":
+            e = expert.reshape(1)
+            return int4_matvec_ref(x, packed.index_select(0, e)[0], scale.index_select(0, e)[0])
+        if x.dtype != torch.bfloat16 or x.shape[0] != 1 or (x.shape[-1] // 2) % 16:
+            raise ValueError(f"int4_matvec: the indexed kernel takes one bf16 row with in/2 a "
+                             f"multiple of 16, got x {x.dtype} {tuple(x.shape)}")
+        if (packed.shape[1] * packed.shape[2]) % 16:
+            raise ValueError("int4_matvec: every expert's slice of the bank must be 16-byte "
+                             "aligned")
+        return _launch(x, packed, scale, expert)
     if x.device.type == "cpu":
         return int4_matvec_ref(x, packed, scale)
+    return _launch(x, packed, scale, None)
+
+
+def _launch(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+            expert: Optional[torch.Tensor]) -> torch.Tensor:
+    """Check the operands (an indexed bank as its (out, in/2) slices) and
+    launch the kernel."""
+    if expert is not None:
+        packed, scale = packed[0], scale[0]
     if not x.is_cuda:
         raise ValueError(f"int4_matvec: no kernel for device {x.device}")
     if not (packed.device == x.device and scale.device == x.device):
@@ -88,6 +125,7 @@ def int4_matvec(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> t
     err = _build.kernel("int4_matvec")(
         x.data_ptr(), packed.data_ptr(), scale.data_ptr(), y.data_ptr(),
         b, din, dout, int(x.dtype == torch.bfloat16), *_grid(b, dout, _build.sm_count(x.device)),
+        None if expert is None else expert.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "int4_matvec")

@@ -14,6 +14,10 @@ Layout, per layer:
 Page 0 is the write sink: never given to a dialogue, it takes zero-padded
 table entries and the writes of finished rows past their table.  Pool
 writes happen in place.
+
+On a CUDA device the lockstep decode step of K rows is captured once as
+CUDA graphs and replayed (``_StepGraph``), so the card, not the host's
+launches, sets its pace.
 """
 from __future__ import annotations
 
@@ -26,9 +30,11 @@ from ..config import TextConfig
 from ..models import mistral as lm
 from ..models.meta import SplicePlan, splice_embeds
 from ..ops.attention import flash_attention
+from ..ops import paged_attention as _paged_attention
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import gather_seq, paged_decode_attention
 from ..ops.rotary import apply_rope, rope_cos_sin
+from ..parallel.mesh import ambient_mesh, is_trivial
 from ..utils.params import layer_slice, linear
 from ..utils.profiling import tracer
 
@@ -110,6 +116,112 @@ def paged_text_forward(params, cfg: TextConfig, pool: PagedKV, table: torch.Tens
 
 
 # ---------------------------------------------------------------------------
+# the decode step as CUDA graphs
+# ---------------------------------------------------------------------------
+def decode_graphed(device, params, cfg: TextConfig) -> bool:
+    """Whether decode steps on ``device`` replay CUDA graphs (``_StepGraph``):
+    on a CUDA device, with no sharded mesh around them (collectives stay
+    eager), outside autograd, and for a MoE decoder only where its expert
+    ids stay on the card (``lm.moe_ids_on_device``).  Elsewhere the step
+    runs eagerly."""
+    device = torch.device(device)
+    return (device.type == "cuda" and is_trivial(ambient_mesh()) and not torch.is_grad_enabled()
+            and (cfg.num_experts <= 1 or lm.moe_ids_on_device(params, cfg, device)))
+
+
+class _StepGraph:
+    """The lockstep decode step of K rows over static buffers (ids (K, 1),
+    lengths (K,), the table (K, max_pages); the logits (K, V)), captured
+    once as CUDA graphs and replayed.
+
+    A dense decoder's step is one graph.  A MoE decoder's capture breaks at
+    each layer's routing (``lm.routing_breaks``): a piece ends with the
+    router's fp32 softmax, ``lm.router_top_k`` (looked up on the module at
+    call time) runs eagerly on it, its weights and ids are copied into
+    static buffers, and the next piece begins with their renormalisation
+    and the experts' indexed launches: layers + 1 graphs a step.  The
+    capture records the pieces back to back and routes nothing, since
+    captured kernels do not run; ``run`` executes the same pieces without a
+    capture, routing between them as ``replay`` does."""
+
+    def __init__(self, paged: "PagedDialogues", K: int):
+        cfg, dev = paged.engine.cfg.text, paged.engine.device
+        self.forward = paged._forward
+        self.ids = torch.zeros((K, 1), dtype=torch.long, device=dev)
+        self.length = torch.zeros((K,), dtype=torch.int32, device=dev)
+        self.table = torch.zeros((K, paged.max_pages), dtype=torch.int32, device=dev)
+        moe = cfg.num_layers if cfg.num_experts > 1 else 0
+        self.k = cfg.num_experts_per_tok
+        self.topw = [torch.zeros((K, self.k), dtype=torch.float32, device=dev)
+                     for _ in range(moe)]
+        self.topi = [torch.zeros((K, self.k), dtype=torch.long, device=dev) for _ in range(moe)]
+        self.probs: list = []     # each MoE layer's router softmax, a piece's output
+        self.graphs: list = []
+        self.logits = None
+        self.counted = None       # what the capture counted, counted again each replay
+        self._keep = None
+
+    def load(self, table, length, ids) -> None:
+        self.table.copy_(table)
+        self.length.copy_(length)
+        self.ids.copy_(ids)
+
+    def _route(self, i: int) -> None:
+        topw, topi = lm.router_top_k(self.probs[i], self.k)
+        self.topw[i].copy_(topw)
+        self.topi[i].copy_(topi)
+
+    def _pieces(self, between) -> torch.Tensor:
+        """The step's forward over the static buffers, ``between(i)`` called
+        where MoE layer i's routing breaks it (the layer then takes the
+        static weights and ids): its (K, V) logits."""
+        def broken(probs, k):
+            self.probs.append(probs)
+            i = len(self.probs) - 1
+            between(i)
+            return self.topw[i], self.topi[i]
+
+        self.probs = []
+        with lm.routing_breaks(broken):
+            return self.forward(self.table, self.length, self.ids)
+
+    def run(self) -> torch.Tensor:
+        """The step piece by piece, without a capture: its (K, V) logits."""
+        return self._pieces(self._route)
+
+    def capture(self, side: torch.cuda.Stream, pool) -> None:
+        """Record the pieces on the side stream into ``pool``; the paged
+        attention's scratch is kept with them (a later, larger K grows a
+        new one)."""
+        def begin():
+            self.graphs.append(torch.cuda.CUDAGraph())
+            self.graphs[-1].capture_begin(pool=pool, capture_error_mode="thread_local")
+
+        def between(i):
+            self.graphs[-1].capture_end()
+            begin()
+
+        self._keep = _paged_attention._scratch.get(self.ids.device)
+        side.wait_stream(torch.cuda.current_stream(self.ids.device))
+        with torch.cuda.stream(side), tracer.recording() as self.counted:
+            begin()
+            try:
+                self.logits = self._pieces(between)
+            finally:
+                self.graphs[-1].capture_end()
+        torch.cuda.current_stream(self.ids.device).wait_stream(side)
+
+    def replay(self) -> torch.Tensor:
+        """One step over the loaded buffers: a fresh tensor of its logits."""
+        self.graphs[0].replay()
+        for i, graph in enumerate(self.graphs[1:]):
+            self._route(i)
+            graph.replay()
+        self.counted.replay()
+        return self.logits.clone()
+
+
+# ---------------------------------------------------------------------------
 # host-side page allocator + per-dialogue state
 # ---------------------------------------------------------------------------
 class PagePoolExhausted(RuntimeError):
@@ -139,6 +251,8 @@ class PagedDialogues:
         self._free: List[int] = list(range(1, num_pages + 1))
         self.tables: dict = {}   # dialogue id -> list of page ids
         self.lengths: dict = {}  # dialogue id -> int
+        self._graphs: dict = {}  # K -> _StepGraph
+        self._side = self._graph_pool = None
 
     # -- allocator ---------------------------------------------------------
     def open(self, did: str) -> None:
@@ -208,13 +322,37 @@ class PagedDialogues:
         last = torch.tensor([max(p.length - 1, 0) for p in plans], device=dev)
         return logits[torch.arange(len(plans), device=dev), last]
 
-    @torch.no_grad()
-    def _decode_step(self, table, length, toks: list) -> torch.Tensor:
-        """One lockstep step: feed K tokens at ``length`` → (K, V) logits."""
-        ids = torch.tensor(toks, dtype=torch.long, device=self.engine.device)[:, None]
+    def _forward(self, table, length, ids) -> torch.Tensor:
+        """The decode forward of K tokens (K, 1) at ``length`` → (K, V) logits."""
         logits, _ = paged_text_forward(self.engine.params["text"], self.engine.cfg.text,
                                        self.pool, table, length, input_ids=ids)
         return logits[:, -1]
+
+    @torch.no_grad()
+    def _decode_step(self, table, length, toks: list) -> torch.Tensor:
+        """One lockstep step: feed K tokens at ``length`` → (K, V) logits.
+        Where ``decode_graphed``, the first step of each K runs eagerly and
+        is then captured (its logits, and its routing, are the eager
+        step's); every later step of that K replays the capture."""
+        ids = torch.tensor(toks, dtype=torch.long, device=self.engine.device)[:, None]
+        if not decode_graphed(ids.device, self.engine.params["text"], self.engine.cfg.text):
+            tracer.count("paged.graph_replays", 0)
+            return self._forward(table, length, ids)
+        step = self._graphs.get(len(toks))
+        if step is None:
+            logits = self._forward(table, length, ids)
+            if self._side is None:
+                self._side = torch.cuda.Stream(ids.device)
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            step = _StepGraph(self, len(toks))
+            step.capture(self._side, self._graph_pool)
+            self._graphs[len(toks)] = step
+            tracer.count("paged.graph_captures")
+            tracer.count("paged.graph_replays", 0)
+            return logits
+        step.load(table, length, ids)
+        tracer.count("paged.graph_replays")
+        return step.replay()
 
     def _decode(self, table, length: list, first: list, limits: list, knobs, generator,
                 stop_ids):

@@ -8,7 +8,10 @@ is also the tracer, and ``tracer`` is the one instance the serving path
 records into: ``tracer.span(name)`` around a layer's work and
 ``tracer.count(name)`` where it counts.  The tracer is on while a
 ``torch.profiler`` records, or after ``tracer.enable()``; while it is off a
-span costs one flag check and a shared no-op ``with``.  Spans are stamped
+span costs one flag check and a shared no-op ``with``.  Inside
+``tracer.recording()`` (the capture of a CUDA graph) counts and the kernel
+wrappers' launches are collected instead, and counted again on each
+replay.  Spans are stamped
 with ``time.time_ns()``, the clock of the profiler's events, and while a
 profiler records each span also opens a ``record_function`` range of its
 name, which the profiler mirrors onto the device's timeline.
@@ -139,16 +142,38 @@ class _Span:
         return False
 
 
-def _kernel_launches() -> Dict[str, int]:
-    """The kernel wrappers' own launch counts, as ``<wrapper>.<counter>``."""
+def _launch_counters() -> Dict[tuple, int]:
+    """The kernel wrappers' own launch counts, by (wrapper, counter)."""
     from ..ops import attention, int4_matvec, int8_matvec, paged_attention, scan
 
     wrappers = (int8_matvec.int8_matvec, int4_matvec.int4_matvec, attention.flash_attention,
                 attention.flash_attention_lse, attention.flash_bwd_dq, attention.flash_bwd_dkv,
                 attention.exact_attention, scan.selective_scan_kernel,
                 paged_attention.paged_decode_attention)
-    return {f"{fn.__name__}.{k}": v for fn in wrappers for k, v in vars(fn).items()
-            if k.endswith("launches")}
+    return {(fn, k): v for fn in wrappers for k, v in vars(fn).items() if k.endswith("launches")}
+
+
+def _kernel_launches() -> Dict[str, int]:
+    """The kernel wrappers' own launch counts, as ``<wrapper>.<counter>``."""
+    return {f"{fn.__name__}.{k}": v for (fn, k), v in _launch_counters().items()}
+
+
+class Recorded:
+    """What a block of the program counted, collected by
+    ``StageProfiler.recording``: the tracer's counts and the kernel
+    wrappers' launches.  ``replay`` counts them once more, as a CUDA graph
+    captured from the block does its work once more on each replay."""
+
+    def __init__(self, tracer: "StageProfiler"):
+        self._tracer = tracer
+        self.counts: Dict[str, int] = {}
+        self.launches: Dict[tuple, int] = {}
+
+    def replay(self) -> None:
+        for name, n in self.counts.items():
+            self._tracer.count(name, n)
+        for (fn, k), n in self.launches.items():
+            setattr(fn, k, getattr(fn, k) + n)
 
 
 class StageProfiler:
@@ -212,9 +237,31 @@ class StageProfiler:
         return _Span(self, name, event, attrs)
 
     def count(self, name: str, n: int = 1) -> None:
+        sink = getattr(self._local, "sink", None)
+        if sink is not None:
+            sink[name] = sink.get(name, 0) + n
+            return
         if self._enabled or _autograd_profiler._is_profiler_enabled:
             with self._lock:
                 self._counters[name] += n
+
+    @contextlib.contextmanager
+    def recording(self) -> Iterator[Recorded]:
+        """Inside the block, this thread's counts and the kernel wrappers'
+        launches are collected into the ``Recorded`` it yields, not
+        counted: the block is the capture of a CUDA graph, whose kernels
+        run only when it replays (``Recorded.replay``)."""
+        rec = Recorded(self)
+        before = _launch_counters()
+        self._local.sink = rec.counts
+        try:
+            yield rec
+        finally:
+            self._local.sink = None
+            for key, n in _launch_counters().items():
+                if n != before.get(key, 0):
+                    rec.launches[key] = n - before.get(key, 0)
+                    setattr(key[0], key[1], before.get(key, 0))
 
     def records(self) -> List[dict]:
         """The spans recorded since the last reset or flush, as they ended."""

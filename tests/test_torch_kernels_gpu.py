@@ -29,6 +29,10 @@ bf16 on their tensor-core instantiation and fp32 on the CUDA-core one;
 ``.tc_launches`` counts the former.  GQA groups that do not divide 128
 (Qwen2-7B's 7) run on the bf16 flash forward and dQ kernels, which pack
 floor(128 / group) whole groups into a block.
+The indexed int4 matvec (a bank and an expert id on the card) must give
+the launch on the expert's slice bitwise, and a paged decode step replayed
+from its CUDA graphs the eager step's logits bitwise: the same kernels on
+the same shapes (the small decoders of tests/test_torch_decode_graph.py).
 """
 import numpy as np
 import pytest
@@ -618,3 +622,98 @@ def test_selective_scan_kernel_at_a_ranks_channels(dev, tp):
     ref_y, ref_h = S.selective_scan_ref(*args, **kw)
     _close(y, ref_y, torch.bfloat16)
     torch.testing.assert_close(h, ref_h, atol=1e-4, rtol=1e-4)
+
+
+# -- Mixtral's expert ids on the card, and the decode step as CUDA graphs ------------------------
+@pytest.mark.parametrize("din,dout", [(4096, 14336), (14336, 4096)])   # gate/up, down
+def test_indexed_int4_is_bitwise_the_slice_launch(dev, din, dout):
+    """The indexed launch over a whole bank of Mixtral's 8 experts, its id
+    read on the card, gives the launch on that expert's slice bitwise, for
+    every id."""
+    rng = np.random.default_rng(60)
+    g = torch.Generator(device=dev).manual_seed(60)
+    bank = torch.randint(-128, 128, (8, dout, din // 2), dtype=torch.int8, device=dev, generator=g)
+    scale = torch.rand((8, dout), device=dev, generator=g) * 0.01
+    x = _r(rng, (1, din), torch.bfloat16)
+    ids = torch.arange(8, device=dev).flip(0).reshape(4, 2)
+    for r in range(4):
+        for j in range(2):
+            e = int(ids[r, j])
+            n0 = int4_matvec.launches
+            got = int4_matvec(x, bank, scale, expert=ids[r, j:j + 1])
+            want = int4_matvec(x, bank[e], scale[e])
+            assert int4_matvec.launches == n0 + 2
+            assert torch.equal(got, want), e
+
+
+def _graph_case(moe: bool):
+    import test_torch_decode_graph as DG
+
+    cfg = DG.decoder_config(moe, small=True)
+    params = DG.decoder_params(cfg, "int4pc" if moe else None, dtype=torch.bfloat16,
+                               device="cuda")
+    return DG, cfg, DG.paged_dialogues(cfg, params, "cuda", torch.bfloat16, num_pages=96,
+                                       page_size=16)
+
+
+def _eager_then_graphed(DG, pd, K, steps):
+    """``steps`` decode steps of K rows, each run eagerly and then through
+    the decode step (captured on its first call, replayed after) at the
+    same inputs: the two logits of each step, and the counters of each
+    graphed step."""
+    from streammind_torch.utils.profiling import tracer
+
+    table, lengths, toks = DG.prefilled(pd, K)
+    out = []
+    tracer.reset()
+    tracer.enable()
+    try:
+        for _ in range(steps):
+            lens = DG.lengths_tensor(pd, lengths)
+            with torch.no_grad():
+                eager = pd._forward(table, lens, torch.tensor(toks, device="cuda")[:, None])
+            before = tracer.counters()
+            graphed = pd._decode_step(table, lens, toks)
+            after = tracer.counters()
+            out.append((eager, graphed, {k: after.get(k, 0) - before.get(k, 0)
+                                         for k in set(after) | set(before)}))
+            toks = graphed.argmax(-1).tolist()
+            lengths = [n + 1 for n in lengths]
+    finally:
+        tracer.disable()
+        tracer.reset()
+    return out
+
+
+@pytest.mark.parametrize("moe,K", [(True, 1), (True, 2), (True, 3), (True, 4),
+                                   (False, 1), (False, 3), (False, 8)])
+def test_replayed_step_is_the_eager_step(dev, moe, K, monkeypatch):
+    """A small int4 Mixtral (K 1-4) and a small bf16 dense decoder (K 1, 3,
+    8): every step's logits through the decode step (the first eager and
+    captured, the rest replayed) are the eager forward's, bitwise.  One
+    capture; a replay counts itself and the int4 launches its capture
+    recorded; a patched router sees ``layers`` calls each step, the capture
+    step's too."""
+    DG, cfg, pd = _graph_case(moe)
+    router = DG.CountingRouter(monkeypatch)
+    calls = []
+    inner = type(pd)._decode_step
+
+    def counted(self, *a):
+        before = router.calls
+        out = inner(self, *a)
+        calls.append(router.calls - before)
+        return out
+
+    monkeypatch.setattr(type(pd), "_decode_step", counted)
+    steps = _eager_then_graphed(DG, pd, K, 4)
+    layers = cfg.num_layers
+    per_step = layers * (2 + 3 * cfg.num_experts_per_tok * K) if moe else 0
+    for i, (eager, graphed, counts) in enumerate(steps):
+        assert torch.equal(graphed, eager), i
+        assert counts.get("paged.graph_captures", 0) == (i == 0)
+        assert counts.get("paged.graph_replays", 0) == (i > 0)
+        assert counts.get("int4_matvec.launches", 0) == per_step
+        assert counts.get("moe.expert_id_reads", 0) == 0
+    assert list(pd._graphs) == [K] and len(pd._graphs[K].graphs) == (layers + 1 if moe else 1)
+    assert calls == [layers if moe else 0] * len(steps)
