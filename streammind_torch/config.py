@@ -96,6 +96,12 @@ class TextConfig:
     num_experts_per_tok: int = 2
     # attention logit soft-capping etc. left off — not in any backbone we match
 
+    # What a hybrid decoder (HybridTextConfig) sets per layer and as fields;
+    # class attributes here, so this dataclass's fields (and its JSON) stay
+    # the JAX package's.
+    use_rope = True          # attention rotates q and k
+    norm_topk_prob = True    # the MoE renormalises its top-k weights (Mixtral)
+
     @property
     def q_dim(self) -> int:
         return self.num_heads * self.head_dim
@@ -103,6 +109,58 @@ class TextConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+    @property
+    def hybrid(self) -> bool:
+        """Whether some layers mix tokens with a Mamba-1 mixer, not attention."""
+        return False
+
+    def is_attention(self, i: int) -> bool:
+        return True
+
+    def is_moe(self, i: int) -> bool:
+        return self.num_experts > 1
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridTextConfig(TextConfig):
+    """A Jamba decoder (HF ``JambaConfig``): layer i mixes tokens by GQA
+    attention without positional encoding where ``i % attn_layer_period ==
+    attn_layer_offset`` and by a Mamba-1 mixer elsewhere (with RMSNorms on
+    its dt, B and C); its MLP is a sparse MoE of ``num_experts`` (top-k
+    weights not renormalised) where ``i % expert_layer_period ==
+    expert_layer_offset`` and dense elsewhere."""
+
+    attn_layer_period: int = 8
+    attn_layer_offset: int = 4
+    expert_layer_period: int = 2
+    expert_layer_offset: int = 1
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    mamba_dt_rank: int = 0   # 0 → ceil(hidden_size / 16)
+    mamba_conv_bias: bool = True
+    mamba_proj_bias: bool = False
+    use_rope: bool = False
+    norm_topk_prob: bool = False
+
+    @property
+    def hybrid(self) -> bool:
+        return any(not self.is_attention(i) for i in range(self.num_layers))
+
+    def is_attention(self, i: int) -> bool:
+        return i % self.attn_layer_period == self.attn_layer_offset
+
+    def is_moe(self, i: int) -> bool:
+        return self.num_experts > 1 and i % self.expert_layer_period == self.expert_layer_offset
+
+    def mamba_config(self) -> MambaConfig:
+        """The sizes of one Mamba mixer; its inner RMSNorms take
+        ``layer_norm_eps``."""
+        return MambaConfig(d_model=self.hidden_size, d_state=self.mamba_d_state,
+                           d_conv=self.mamba_d_conv, expand=self.mamba_expand,
+                           dt_rank=self.mamba_dt_rank, conv_bias=self.mamba_conv_bias,
+                           bias=self.mamba_proj_bias, layer_norm_eps=self.rms_norm_eps)
 
 
 def mistral_7b() -> TextConfig:
@@ -128,10 +186,13 @@ def mixtral_8x7b() -> TextConfig:
 
 def text_config_from_hf(raw: dict) -> TextConfig:
     """A TextConfig from an HF-style config.json dict: mistral, mixtral
-    (num_local_experts > 1) and qwen2 (q/k/v biases)."""
+    (num_local_experts > 1), qwen2 (q/k/v biases) and jamba (a
+    HybridTextConfig)."""
     hidden = raw.get("hidden_size", 4096)
     heads = raw.get("num_attention_heads", 32)
     model_type = raw.get("model_type", "mistral").lower()
+    if model_type == "jamba":
+        return _jamba_config_from_hf(raw)
     return TextConfig(
         vocab_size=raw.get("vocab_size", 32000),
         hidden_size=hidden,
@@ -148,6 +209,36 @@ def text_config_from_hf(raw: dict) -> TextConfig:
         qkv_bias=model_type == "qwen2",
         num_experts=raw.get("num_local_experts", 1),
         num_experts_per_tok=raw.get("num_experts_per_tok", 2),
+    )
+
+
+def _jamba_config_from_hf(raw: dict) -> HybridTextConfig:
+    hidden = raw.get("hidden_size", 4096)
+    heads = raw.get("num_attention_heads", 32)
+    return HybridTextConfig(
+        vocab_size=raw.get("vocab_size", 65536),
+        hidden_size=hidden,
+        intermediate_size=raw.get("intermediate_size", 14336),
+        num_layers=raw.get("num_hidden_layers", 32),
+        num_heads=heads,
+        num_kv_heads=raw.get("num_key_value_heads", heads),
+        head_dim=raw.get("head_dim") or hidden // heads,
+        rms_norm_eps=raw.get("rms_norm_eps", 1e-6),
+        max_position_embeddings=raw.get("max_position_embeddings", 262144),
+        sliding_window=raw.get("sliding_window") or 0,
+        tie_word_embeddings=raw.get("tie_word_embeddings", False),
+        num_experts=raw.get("num_experts", 16),
+        num_experts_per_tok=raw.get("num_experts_per_tok", 2),
+        attn_layer_period=raw.get("attn_layer_period", 8),
+        attn_layer_offset=raw.get("attn_layer_offset", 4),
+        expert_layer_period=raw.get("expert_layer_period", 2),
+        expert_layer_offset=raw.get("expert_layer_offset", 1),
+        mamba_d_state=raw.get("mamba_d_state", 16),
+        mamba_d_conv=raw.get("mamba_d_conv", 4),
+        mamba_expand=raw.get("mamba_expand", 2),
+        mamba_dt_rank=raw.get("mamba_dt_rank") or math.ceil(hidden / 16),
+        mamba_conv_bias=raw.get("mamba_conv_bias", True),
+        mamba_proj_bias=raw.get("mamba_proj_bias", False),
     )
 
 
@@ -205,7 +296,8 @@ class StreamMindConfig:
         return StreamMindConfig(
             vision=VisionConfig(**raw["vision"]),
             mamba=MambaConfig(**raw["mamba"]),
-            text=TextConfig(**raw["text"]),
+            text=(HybridTextConfig if "attn_layer_period" in raw["text"] else TextConfig)(
+                **raw["text"]),
             gate=TextConfig(**raw["gate"]),
             **{k: v for k, v in raw.items() if k not in ("vision", "mamba", "text", "gate")},
         )

@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..config import MambaConfig
-from ..ops.norms import layer_norm
+from ..ops.norms import layer_norm, rms_norm
 from ..ops.scan import (
     causal_conv1d,
     causal_conv1d_update,
@@ -95,9 +95,28 @@ def init_video_mamba_params(g: torch.Generator, cfg: MambaConfig, device="cuda",
     }
 
 
-def _split_dbl(x_dbl, cfg: MambaConfig):
+def _split_dbl(x_dbl, cfg: MambaConfig, bp):
+    """x_proj's product as (dt, B, C); a block with ``dt_norm`` (Jamba's
+    mixer) puts an RMSNorm of eps ``cfg.layer_norm_eps`` on each."""
     r, n = cfg.dt_rank_, cfg.d_state
-    return x_dbl[..., :r], x_dbl[..., r:r + n], x_dbl[..., r + n:]
+    dt, b, c = x_dbl[..., :r], x_dbl[..., r:r + n], x_dbl[..., r + n:]
+    if "dt_norm" not in bp:
+        return dt, b, c
+    eps = cfg.layer_norm_eps
+    return (rms_norm(dt, bp["dt_norm"]["weight"], eps), rms_norm(b, bp["b_norm"]["weight"], eps),
+            rms_norm(c, bp["c_norm"]["weight"], eps))
+
+
+def _window_at(conv_state0, xs_t, lengths, width: int):
+    """Each row's conv window (the last ``width`` inputs) after its first
+    lengths[b] steps of xs_t (B, D, L), continuing conv_state0 (zeros
+    where None)."""
+    b, d, _ = xs_t.shape
+    prev = (xs_t.new_zeros((b, d, width)) if conv_state0 is None
+            else conv_state0.to(xs_t.dtype))
+    full = torch.cat([prev, xs_t], dim=2)
+    cols = lengths.long()[:, None] + torch.arange(width, device=xs_t.device)[None]
+    return full.gather(2, cols[:, None, :].expand(b, d, width))
 
 
 def _local_block(bp, path: str) -> dict:
@@ -145,11 +164,18 @@ def _out_proj(bp, y, path: str):
 
 def _mixer_forward(bp, cfg: MambaConfig, x: torch.Tensor, impl: str = "auto",
                    conv_state0: Optional[torch.Tensor] = None,
-                   ssm_state0: Optional[torch.Tensor] = None, path: str = ""):
+                   ssm_state0: Optional[torch.Tensor] = None, path: str = "",
+                   lengths: Optional[torch.Tensor] = None):
     """Mamba mixer over (B, L, D) → (B, L, D) + final (conv, ssm) state;
     with carried states it continues a stream mid-flight.  ``impl`` picks
     the scan (``ops.scan.selective_scan``); its inputs are the projections'
-    (B, L, D) products seen as (B, D, L), channels contiguous."""
+    (B, L, D) products seen as (B, D, L), channels contiguous.
+
+    ``lengths`` (B,): row b's real tokens are its first lengths[b] of a
+    right-padded block, and the final state is taken there, as if the pads
+    had never been fed: dt is -inf at a pad, so softplus gives a step of 0
+    (dA 1, dB·u 0) and the scan carries the state through unchanged; the
+    conv window is gathered at the row's length."""
     l = x.shape[1]
     xz, conv_w, conv_b, x_proj, dt_w, dt_b, A_log, D = _projections(
         bp, _local_block(bp, path), x)
@@ -158,17 +184,18 @@ def _mixer_forward(bp, cfg: MambaConfig, x: torch.Tensor, impl: str = "auto",
     if conv_state0 is not None:
         ext = torch.cat([conv_state0[:, :, 1:].to(xs_t.dtype), xs_t], dim=2)
         xconv = causal_conv1d(ext, conv_w, conv_b, activation="silu")[:, :, -l:]
-        pad_src = ext
     else:
         xconv = causal_conv1d(xs_t, conv_w, conv_b, activation="silu")
-        pad_src = xs_t
-    # final conv window: the last d_conv inputs (pre-activation), zero-padded
-    pad = torch.nn.functional.pad(pad_src, (max(cfg.d_conv - pad_src.shape[-1], 0), 0))
-    conv_state = pad[:, :, -cfg.d_conv:]
+    # final conv window: the last d_conv inputs (pre-activation) of each row
+    real = lengths if lengths is not None else torch.full((x.shape[0],), l, device=x.device)
+    conv_state = _window_at(conv_state0, xs_t, real, cfg.d_conv)
 
     x_dbl = x_proj(xconv.transpose(1, 2))
-    dt, Bc, Cc = _split_dbl(x_dbl, cfg)
+    dt, Bc, Cc = _split_dbl(x_dbl, cfg, bp)
     dt = dt @ dt_w.T.to(x.dtype)
+    if lengths is not None:
+        pads = torch.arange(l, device=x.device)[None, :] >= lengths.long()[:, None]
+        dt = dt.masked_fill(pads[:, :, None], float("-inf"))
     A = -torch.exp(A_log.float())
     y, last_state = selective_scan(
         xconv, dt.transpose(1, 2), A, Bc.transpose(1, 2), Cc.transpose(1, 2),
@@ -185,7 +212,7 @@ def _mixer_step(bp, cfg: MambaConfig, x: torch.Tensor, conv_state, ssm_state, pa
     xs, z = xz.chunk(2, dim=-1)
     xc, conv_state = causal_conv1d_update(xs, conv_state, conv_w, conv_b)
     x_dbl = x_proj(xc)
-    dt, Bc, Cc = _split_dbl(x_dbl, cfg)
+    dt, Bc, Cc = _split_dbl(x_dbl, cfg, bp)
     dt = dt @ dt_w.T.to(x.dtype)
     A = -torch.exp(A_log.float())
     y, ssm_state = selective_state_update(

@@ -1,5 +1,6 @@
 """Decoder-only transformer: Mistral / Llama, Qwen2 (q/k/v biases) and
-Mixtral (sparse MoE).
+Mixtral (sparse MoE); Jamba's hybrid layers (``models/jamba.py``) reuse
+its attention and MLP pieces on the paged serving path.
 
 Serves the Mistral-7B, Qwen2-7B and Mixtral-8x7B decoders and the 4-layer,
 2-way gate LM.  Layer leaves are stacked on a leading (L,) axis and the
@@ -79,11 +80,21 @@ def init_text_params(g: torch.Generator, cfg: TextConfig, device="cuda", dtype=t
     (a quantizer, say) and is written into stacked leaves allocated from the
     first result, so one layer's full-precision weights live at a time (a
     bf16 Mixtral-8x7B is 93 GB, its int4 tree 24 GB).  The draws come in
-    another order than the stacked ones, so the values differ."""
+    another order than the stacked ones, so the values differ.
+
+    A hybrid decoder (``cfg.hybrid``) gets ``models/jamba.py``'s layout:
+    each kind's leaves stacked over the layers of that kind."""
     d, L = cfg.hidden_size, cfg.num_layers
     kw = dict(device=device, dtype=dtype)
     params = {"embed_tokens": normal_init(g, (cfg.vocab_size, d), **kw)}
-    if layer_fn is None:
+    if cfg.hybrid:
+        if layer_fn is not None:
+            raise ValueError("init_text_params: layer_fn draws identical layers; a hybrid "
+                             "decoder's kinds are stacked apart")
+        from .jamba import init_hybrid_layers
+
+        params["layers"] = init_hybrid_layers(g, cfg, kw)
+    elif layer_fn is None:
         params["layers"] = _init_layers(g, cfg, L, kw)
     else:
         params["layers"] = fill_layers(L, lambda i: layer_fn(_init_layers(g, cfg, 1, kw)))
@@ -211,7 +222,7 @@ def _mlp(x, lp, cfg: TextConfig, moe_dispatch=None, path: str = "text", seq: boo
     row-parallel (the rank's channels), the MoE over the rank's experts;
     ``seq``: x is this rank's S shard (``text_forward(sequence_axis=)``)."""
     mesh = ambient_mesh()
-    if cfg.num_experts > 1:
+    if "router" in lp:
         xin = C.gather(x, mesh, "tp", 1, bwd="slice") if seq else x
         out = _moe_mlp(xin, lp, cfg, moe_dispatch, path)
         return C.scatter(out, mesh, "tp", 1) if seq else out
@@ -315,7 +326,9 @@ def router_top_k(probs: torch.Tensor, k: int):
 
 def _moe_mlp(x, p, cfg: TextConfig, dispatch=None, path: str = "text"):
     """Mixtral's sparse MoE: the router in the working dtype, an fp32
-    softmax, the top k experts renormalized (HF MixtralSparseMoeBlock).
+    softmax, the top k experts renormalized (HF MixtralSparseMoeBlock);
+    where ``cfg.norm_topk_prob`` is False (Jamba's JambaSparseMoeBlock),
+    the top k probabilities weight the experts as they are.
 
     Dispatch, by token count T = B*S and bank kind:
       - T <= _MOE_GATHER_MAX_TOKENS (decode): each token runs its k experts'
@@ -341,7 +354,8 @@ def _moe_mlp(x, p, cfg: TextConfig, dispatch=None, path: str = "text"):
     probs = torch.softmax(router_logits.float(), dim=-1)
     brk = getattr(_routing, "fn", None)
     topw, topi = (router_top_k if brk is None else brk)(probs, cfg.num_experts_per_tok)
-    topw = topw / topw.sum(dim=-1, keepdim=True)
+    if cfg.norm_topk_prob:
+        topw = topw / topw.sum(dim=-1, keepdim=True)
     if not is_trivial(mesh):
         return _moe_mlp_sharded(xt, p, cfg, topi, topw, mesh, dispatch, path).reshape(b, s, d)
     banks = tuple(_wrap_expert_leaf(p["experts"][n]) for n in ("gate", "up", "down"))
@@ -664,6 +678,9 @@ def text_forward(
     size); right-padded prefill blocks pass their real length, so the pad
     rows are overwritten by the next block.
     """
+    if cfg.hybrid:
+        raise ValueError("text_forward runs attention-only decoders; a hybrid decoder's Mamba "
+                         "state lives in the paged pool (streaming/paged.py)")
     mesh = ambient_mesh()
     x = inputs_embeds if inputs_embeds is not None else embed_tokens(params, input_ids, path)
     b, s, _ = x.shape

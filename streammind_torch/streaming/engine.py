@@ -92,6 +92,15 @@ def require_streaming_projector(cfg: StreamMindConfig, what: str) -> None:
                          "only (use api.infer / x_infer)")
 
 
+def require_attention_decoder(cfg: StreamMindConfig, what: str) -> None:
+    """The dense-ring paths hold a KV ring per stream and nothing else;
+    raise ``ValueError`` for a hybrid decoder (Jamba), whose Mamba layers'
+    state only the paged pool keeps (``MultiStreamServer(kv_mode="paged")``)."""
+    if cfg.text.hybrid:
+        raise ValueError(f"{what} keeps a dense KV ring a stream; a hybrid decoder's Mamba "
+                         "state lives in the paged pool (MultiStreamServer(kv_mode='paged'))")
+
+
 def top_stable(values: np.ndarray, n: int) -> np.ndarray:
     """``np.argsort(-values, kind="stable")[:n]`` without sorting every
     value: the n-th largest value bounds the set, and only that set is
@@ -838,6 +847,7 @@ class StreamSession:
         sample_per: float = 0.5,
     ):
         require_streaming_projector(engine.cfg, "StreamSession")
+        require_attention_decoder(engine.cfg, "StreamSession")
         self.engine = engine
         self.tokenizer = tokenizer
         self.max_new_tokens = max_new_tokens

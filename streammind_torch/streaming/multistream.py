@@ -10,7 +10,9 @@ max(len_k) decode steps instead of sum(len_k).
 Two KV modes: "dense" (a static ring per stream; batched turns stack the
 rings and pad K to a power of two) and "paged" (all dialogues share one
 page pool, ``streaming/paged.py``; no K padding, since a padding row would
-alias a live dialogue's pages).
+alias a live dialogue's pages).  A hybrid decoder (Jamba) serves in
+"paged" mode only: its Mamba layers' state lives in the paged pool's state
+slots.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from .engine import (
     ensure_turn_capacity,
     post_turn_pending,
     rebuild_history_pending,
+    require_attention_decoder,
     require_streaming_projector,
     run_cognition_turn,
     split_kv_cache,
@@ -75,8 +78,10 @@ class MultiStreamServer:
         """kv_mode="paged": all dialogues share ONE page pool; num_pages
         defaults to half the dense-equivalent page count, and on pool
         pressure the capacity guard resets dialogues with their recent
-        turns re-carried as text."""
+        turns re-carried as text.  A hybrid decoder needs "paged"."""
         require_streaming_projector(engine.cfg, "MultiStreamServer")
+        if kv_mode == "dense":
+            require_attention_decoder(engine.cfg, "MultiStreamServer(kv_mode='dense')")
         self.engine = engine
         self.capacity = capacity
         self.batch_cognition = batch_cognition
@@ -91,7 +96,7 @@ class MultiStreamServer:
             if num_pages is None:
                 per_seq = -(-engine.kv_capacity // page_size)
                 num_pages = max(capacity * per_seq // 2, per_seq)
-            self.paged = PagedDialogues(engine, num_pages, page_size)
+            self.paged = PagedDialogues(engine, num_pages, page_size, max_dialogues=capacity)
         # dense batched cognition pads the fired count to a power of two
         self._k_buckets = []
         k = 1

@@ -15,6 +15,14 @@ Page 0 is the write sink: never given to a dialogue, it takes zero-padded
 table entries and the writes of finished rows past their table.  Pool
 writes happen in place.
 
+A hybrid decoder (Jamba, ``models/jamba.py``) keeps pages for its
+attention layers only, and beside them a recurrent-state pool: a slot a
+dialogue holding every Mamba layer's conv window and fp32 SSM state
+(``RecurrentState``).  A prefill continues each row from its slot and
+writes back the state at the row's real length; a decode step routes the
+rows that have finished to slot 0, the state sink, as page 0 takes their
+keys, so no lockstep step past a row's end touches its state.
+
 On a CUDA device the lockstep decode step of K rows is captured once as
 CUDA graphs and replayed (``_StepGraph``), so the card, not the host's
 launches, sets its pace.
@@ -27,6 +35,7 @@ import numpy as np
 import torch
 
 from ..config import TextConfig
+from ..models import jamba
 from ..models import mistral as lm
 from ..models.meta import SplicePlan, splice_embeds
 from ..ops.attention import flash_attention
@@ -58,13 +67,45 @@ class PagedKV(NamedTuple):
 
 def init_page_pool(cfg: TextConfig, num_pages: int, page_size: int = 64, dtype=torch.bfloat16,
                    device="cuda") -> PagedKV:
+    """Pages for each attention layer of the decoder (every layer, but a
+    hybrid's Mamba layers)."""
     if page_size % _PAGE_MULTIPLE != 0:
         raise ValueError(f"page_size must be a multiple of {_PAGE_MULTIPLE}, got {page_size}")
     shape = (cfg.num_kv_heads, num_pages, page_size, cfg.head_dim)
+    layers = sum(cfg.is_attention(i) for i in range(cfg.num_layers))
     return PagedKV(
-        k=tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.num_layers)),
-        v=tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.num_layers)),
+        k=tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(layers)),
+        v=tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(layers)),
     )
+
+
+class RecurrentState(NamedTuple):
+    """Mamba layers' states, a row a dialogue (or a slot of the pool):
+    conv (Lm, rows, d_inner, d_conv) in the model's dtype, ssm (Lm, rows,
+    d_inner, d_state) fp32."""
+
+    conv: torch.Tensor
+    ssm: torch.Tensor
+
+    def gather(self, slots: torch.Tensor) -> "RecurrentState":
+        """The rows of these slots (a (K,) long tensor), copied."""
+        return RecurrentState(self.conv.index_select(1, slots), self.ssm.index_select(1, slots))
+
+    def scatter(self, slots: torch.Tensor, rows: "RecurrentState") -> None:
+        """Write K rows back into their slots, in place."""
+        self.conv.index_copy_(1, slots, rows.conv)
+        self.ssm.index_copy_(1, slots, rows.ssm)
+
+
+def init_state_pool(cfg: TextConfig, slots: int, dtype=torch.bfloat16,
+                    device="cuda") -> RecurrentState:
+    """Zeroed states of every Mamba layer of a hybrid decoder, ``slots`` rows."""
+    m = jamba.mamba_sizes(cfg)
+    layers = jamba.layer_counts(cfg)["mamba"]
+    return RecurrentState(
+        conv=torch.zeros((layers, slots, m.d_inner, m.d_conv), dtype=dtype, device=device),
+        ssm=torch.zeros((layers, slots, m.d_inner, m.d_state), dtype=torch.float32,
+                        device=device))
 
 
 def _write_block(pool_k, pool_v, k_new, v_new, table, length, page_size):
@@ -84,31 +125,52 @@ def _write_block(pool_k, pool_v, k_new, v_new, table, length, page_size):
 
 def paged_text_forward(params, cfg: TextConfig, pool: PagedKV, table: torch.Tensor,
                        length: torch.Tensor, input_ids: Optional[torch.Tensor] = None,
-                       inputs_embeds: Optional[torch.Tensor] = None):
+                       inputs_embeds: Optional[torch.Tensor] = None,
+                       state: Optional[RecurrentState] = None,
+                       real_len: Optional[torch.Tensor] = None):
     """The decoder's cached forward over the paged pool: append the block at
     ``length`` (B,), attend to the whole valid prefix, return (fp32 logits,
-    pool).  The pool is written in place; lengths are tracked by the caller."""
+    pool).  The pool is written in place; lengths are tracked by the caller.
+
+    A hybrid decoder's Mamba layers continue ``state`` (the B rows' states)
+    and write their new states into it in place: after one token a row,
+    or, for a block, after each row's first ``real_len`` tokens."""
     x = inputs_embeds if inputs_embeds is not None else lm.embed_tokens(params, input_ids)
     b, s, _ = x.shape
     page_size = pool.page_size
     positions = length[:, None] + torch.arange(s, device=x.device)[None, :]
-    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    if cfg.use_rope:
+        cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    plan = jamba.layer_plan(cfg) if cfg.hybrid else None
+    m = jamba.mamba_sizes(cfg) if plan else None
     for i in range(cfg.num_layers):
-        lp = layer_slice(params["layers"], i)
-        y = rms_norm(x, lp["input_norm"]["weight"], cfg.rms_norm_eps)
-        q, k, v = lm.qkv_proj(y, lp, cfg)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        if s == 1:  # write the token and attend, in one launch
-            o = paged_decode_attention(q, pool.k[i], pool.v[i], table, length, k_new=k[:, 0],
-                                       v_new=v[:, 0])
+        if plan is None:
+            lp, mixer, j = layer_slice(params["layers"], i), "attention", i
         else:
-            pk, pv = _write_block(pool.k[i], pool.v[i], k, v, table, length, page_size)
-            k_seq = gather_seq(pk, table).to(q.dtype)
-            v_seq = gather_seq(pv, table).to(q.dtype)
-            o = flash_attention(q, k_seq, v_seq, causal=True, kv_len=length + s,
-                                q_offset=length)
-        x = x + linear(o.reshape(b, s, cfg.q_dim), lp["o"])
+            lp, (mixer, j) = jamba.layer_view(params["layers"], cfg, i), plan[i][:2]
+        y = rms_norm(x, lp["input_norm"]["weight"], cfg.rms_norm_eps)
+        if mixer == "mamba":
+            if s == 1:
+                x = x + jamba.mamba_mixer_step(lp["mamba"], m, y[:, 0], state.conv[j],
+                                               state.ssm[j])[:, None]
+            else:
+                x = x + jamba.mamba_mixer(lp["mamba"], m, y, state.conv[j], state.ssm[j],
+                                          real_len)
+        else:
+            q, k, v = lm.qkv_proj(y, lp, cfg)
+            if cfg.use_rope:
+                q = apply_rope(q, cos, sin)
+                k = apply_rope(k, cos, sin)
+            if s == 1:  # write the token and attend, in one launch
+                o = paged_decode_attention(q, pool.k[j], pool.v[j], table, length,
+                                           k_new=k[:, 0], v_new=v[:, 0])
+            else:
+                pk, pv = _write_block(pool.k[j], pool.v[j], k, v, table, length, page_size)
+                k_seq = gather_seq(pk, table).to(q.dtype)
+                v_seq = gather_seq(pv, table).to(q.dtype)
+                o = flash_attention(q, k_seq, v_seq, causal=True, kv_len=length + s,
+                                    q_offset=length)
+            x = x + linear(o.reshape(b, s, cfg.q_dim), lp["o"])
         y = rms_norm(x, lp["post_norm"]["weight"], cfg.rms_norm_eps)
         x = x + lm._mlp(y, lp, cfg)
     x = rms_norm(x, params["final_norm"]["weight"], cfg.rms_norm_eps)
@@ -131,26 +193,28 @@ def decode_graphed(device, params, cfg: TextConfig) -> bool:
 
 class _StepGraph:
     """The lockstep decode step of K rows over static buffers (ids (K, 1),
-    lengths (K,), the table (K, max_pages); the logits (K, V)), captured
-    once as CUDA graphs and replayed.
+    lengths (K,), the table (K, max_pages), a hybrid's state-slot ids (K,);
+    the logits (K, V)), captured once as CUDA graphs and replayed.
 
     A dense decoder's step is one graph.  A MoE decoder's capture breaks at
     each layer's routing (``lm.routing_breaks``): a piece ends with the
     router's fp32 softmax, ``lm.router_top_k`` (looked up on the module at
     call time) runs eagerly on it, its weights and ids are copied into
     static buffers, and the next piece begins with their renormalisation
-    and the experts' indexed launches: layers + 1 graphs a step.  The
+    and the experts' indexed launches: MoE layers + 1 graphs a step.  The
     capture records the pieces back to back and routes nothing, since
     captured kernels do not run; ``run`` executes the same pieces without a
     capture, routing between them as ``replay`` does."""
 
     def __init__(self, paged: "PagedDialogues", K: int):
         cfg, dev = paged.engine.cfg.text, paged.engine.device
-        self.forward = paged._forward
+        self.paged = paged
         self.ids = torch.zeros((K, 1), dtype=torch.long, device=dev)
         self.length = torch.zeros((K,), dtype=torch.int32, device=dev)
         self.table = torch.zeros((K, paged.max_pages), dtype=torch.int32, device=dev)
-        moe = cfg.num_layers if cfg.num_experts > 1 else 0
+        self.slots = (torch.zeros((K,), dtype=torch.long, device=dev)
+                      if paged.states is not None else None)
+        moe = sum(cfg.is_moe(i) for i in range(cfg.num_layers))
         self.k = cfg.num_experts_per_tok
         self.topw = [torch.zeros((K, self.k), dtype=torch.float32, device=dev)
                      for _ in range(moe)]
@@ -162,9 +226,12 @@ class _StepGraph:
         self._keep = None
 
     def load(self, table, length, ids) -> None:
+        """The step's inputs, and a hybrid's slot ids (``paged._step_slots``)."""
         self.table.copy_(table)
         self.length.copy_(length)
         self.ids.copy_(ids)
+        if self.slots is not None:
+            self.slots.copy_(self.paged._step_slots)
 
     def _route(self, i: int) -> None:
         topw, topi = lm.router_top_k(self.probs[i], self.k)
@@ -183,7 +250,7 @@ class _StepGraph:
 
         self.probs = []
         with lm.routing_breaks(broken):
-            return self.forward(self.table, self.length, self.ids)
+            return self.paged._forward(self.table, self.length, self.ids, self.slots)
 
     def run(self) -> torch.Tensor:
         """The step piece by piece, without a capture: its (K, V) logits."""
@@ -231,39 +298,64 @@ class PagePoolExhausted(RuntimeError):
 class PagedDialogues:
     """Host allocator and turn programs for N dialogues on one shared pool.
 
-    Each dialogue owns a page table (host list) and a token length.  When
-    the pool runs dry, ensure_capacity raises PagePoolExhausted; the serving
-    layer then resets dialogues (reclaims their pages, re-carries their
-    recent turns as text)."""
+    Each dialogue owns a page table (host list) and a token length, and
+    under a hybrid decoder a slot of the recurrent-state pool.  When the
+    pool runs dry, ensure_capacity raises PagePoolExhausted; the serving
+    layer then resets dialogues (reclaims their pages, zeroes their state,
+    re-carries their recent turns as text).  ``max_dialogues``: how many
+    dialogues a hybrid's state pool holds open at once."""
 
     def __init__(self, engine, num_pages: int, page_size: int = 64,
-                 max_pages_per_seq: Optional[int] = None, dtype=None):
+                 max_pages_per_seq: Optional[int] = None, dtype=None,
+                 max_dialogues: int = 8):
         from .engine import _float_dtype
 
         self.engine = engine
         self.page_size = page_size
         if dtype is None:
             dtype = _float_dtype(engine.params["text"])
+        cfg = engine.cfg.text
         # num_pages allocatable pages plus the physical sink page 0
-        self.pool = init_page_pool(engine.cfg.text, num_pages + 1, page_size, dtype,
-                                   device=engine.device)
+        self.pool = init_page_pool(cfg, num_pages + 1, page_size, dtype, device=engine.device)
         self.max_pages = max_pages_per_seq or min(num_pages, -(-engine.kv_capacity // page_size))
         self._free: List[int] = list(range(1, num_pages + 1))
         self.tables: dict = {}   # dialogue id -> list of page ids
         self.lengths: dict = {}  # dialogue id -> int
         self._graphs: dict = {}  # K -> _StepGraph
         self._side = self._graph_pool = None
+        # a hybrid's states: max_dialogues slots plus the sink slot 0
+        self.states = (init_state_pool(cfg, max_dialogues + 1, dtype, engine.device)
+                       if cfg.hybrid else None)
+        self._free_slots: List[int] = list(range(max_dialogues, 0, -1))
+        self.slots: dict = {}       # dialogue id -> its state slot
+        self._turn_slots = None     # the turn's rows' slots (host ints), set by run_turns
+        self._turn_state = None     # the prefill's rows' states, between gather and write-back
+        self._step_slots = None     # (K,) a decode step's slots on the card, 0 for finished rows
 
     # -- allocator ---------------------------------------------------------
     def open(self, did: str) -> None:
         if did in self.tables:
             raise ValueError(f"dialogue {did!r} already open")
+        if self.states is not None:
+            if not self._free_slots:
+                raise ValueError(f"no free state slot for dialogue {did!r}: "
+                                 f"{len(self.slots)} dialogues open")
+            self.slots[did] = self._free_slots.pop()
+            self._zero_state(did)
         self.tables[did] = []
         self.lengths[did] = 0
 
     def close(self, did: str) -> None:
         self._free.extend(self.tables.pop(did))
         del self.lengths[did]
+        if self.states is not None:
+            self._free_slots.append(self.slots.pop(did))
+
+    def _zero_state(self, did: str) -> None:
+        slot = self.slots[did]
+        self.states.conv[:, slot].zero_()
+        self.states.ssm[:, slot].zero_()
+        tracer.count("paged.state_resets")
 
     def free_pages(self) -> int:
         return len(self._free)
@@ -274,11 +366,13 @@ class PagedDialogues:
         return self.max_pages * self.page_size
 
     def reset(self, did: str) -> None:
-        """Reclaim a dialogue's pages but keep it open (the caller re-carries
-        recent turns as text)."""
+        """Reclaim a dialogue's pages and zero its state but keep it open
+        (the caller re-carries recent turns as text)."""
         self._free.extend(self.tables[did])
         self.tables[did] = []
         self.lengths[did] = 0
+        if self.states is not None:
+            self._zero_state(did)
 
     def pages_needed(self, did: str, n_tokens: int) -> int:
         """How many NEW pages ensure_capacity(did, n_tokens) would allocate."""
@@ -309,7 +403,8 @@ class PagedDialogues:
     @torch.no_grad()
     def _prefill(self, table, length, plans: List[SplicePlan], memory) -> torch.Tensor:
         """Bucketed prefill of K spliced suffixes into the pool; returns the
-        (K, V) logits at each row's last real position."""
+        (K, V) logits at each row's last real position.  A hybrid's rows
+        continue, and leave at their real lengths, ``self._turn_state``."""
         eng, dev = self.engine, self.engine.device
 
         def t(key):
@@ -317,15 +412,26 @@ class PagedDialogues:
 
         embeds = splice_embeds(eng.params["text"], t("token_ids"), t("mem_index"),
                                t("use_mem"), memory)
+        real = (torch.tensor([p.length for p in plans], dtype=torch.int32, device=dev)
+                if self.states is not None else None)
         logits, _ = paged_text_forward(eng.params["text"], eng.cfg.text, self.pool, table,
-                                       length, inputs_embeds=embeds)
+                                       length, inputs_embeds=embeds, state=self._turn_state,
+                                       real_len=real)
         last = torch.tensor([max(p.length - 1, 0) for p in plans], device=dev)
         return logits[torch.arange(len(plans), device=dev), last]
 
-    def _forward(self, table, length, ids) -> torch.Tensor:
-        """The decode forward of K tokens (K, 1) at ``length`` → (K, V) logits."""
+    def _forward(self, table, length, ids, slots=None) -> torch.Tensor:
+        """The decode forward of K tokens (K, 1) at ``length`` → (K, V) logits.
+        A hybrid's rows step the states of their slots (``slots``, else
+        ``self._step_slots``), read from the state pool and written back."""
+        state = None
+        if self.states is not None:
+            slots = self._step_slots if slots is None else slots
+            state = self.states.gather(slots)
         logits, _ = paged_text_forward(self.engine.params["text"], self.engine.cfg.text,
-                                       self.pool, table, length, input_ids=ids)
+                                       self.pool, table, length, input_ids=ids, state=state)
+        if state is not None:
+            self.states.scatter(slots, state)
         return logits[:, -1]
 
     @torch.no_grad()
@@ -358,14 +464,21 @@ class PagedDialogues:
                 stop_ids):
         """The lockstep decode with per-row limits: rows that finish stop
         advancing their length (their writes at the frozen length land in
-        their own slack or the sink).  Returns (buf (K, max_new), lengths)."""
+        their own slack or the sink) and, under a hybrid, step the sink
+        slot's state, not their own.  Returns (buf (K, max_new), lengths)."""
         from .engine import lockstep_decode
 
         length = list(length)
+        dev = self.engine.device
 
         def step(toks, advance):
             with tracer.span("paged.decode_step"):
-                lens = torch.tensor(length, dtype=torch.int32, device=self.engine.device)
+                lens = torch.tensor(length, dtype=torch.int32, device=dev)
+                if self.states is not None:
+                    self._step_slots = torch.tensor(
+                        [s if a else 0 for s, a in zip(self._turn_slots, advance)],
+                        dtype=torch.long, device=dev)
+                    tracer.count("paged.sink_rows", advance.count(0))
                 logits = self._decode_step(table, lens, toks)
             for r, a in enumerate(advance):
                 length[r] += a
@@ -402,8 +515,18 @@ class PagedDialogues:
         for did, lim in zip(dids, limits):
             self.ensure_capacity(did, bucket + lim)
         table = self._table(dids)
+        if self.states is not None:
+            self._turn_slots = [self.slots[d] for d in dids]
+            slots = torch.tensor(self._turn_slots, dtype=torch.long, device=self.engine.device)
+            rows = K * self.states.ssm.shape[0]
+            with tracer.span("paged.state", K=K, rows=rows):
+                self._turn_state = self.states.gather(slots)
         with tracer.span("paged.prefill", K=K, bucket=bucket):
             last = self._prefill(table, self._lengths(dids), plans, torch.cat(memories, dim=0))
+        if self.states is not None:
+            with tracer.span("paged.state", K=K, rows=rows):
+                self.states.scatter(slots, self._turn_state)
+            self._turn_state = None
         for d, p in zip(dids, plans):
             self.lengths[d] += p.length
         knobs = (_knob_rows(temperature, K), _knob_rows(top_k, K), _knob_rows(top_p, K))
