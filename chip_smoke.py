@@ -28,7 +28,10 @@ Phases, each of which raises (exit code != 0) on failure:
      with the decode step's token write folded into its launch, pools and
      output must be bitwise those of the plain write then the write-free
      kernel, twice, at the serving turn's K = 3, K 1 and K 8 with a row that
-     writes the sink page;
+     writes the sink page; the grouped int4 GEMM pair of a MoE prefill
+     (gate + up, then down) at Mixtral's and Jamba's expert widths over R =
+     2 T routed rows, two calls bitwise equal, beside its bound, its plain
+     version and the dense dispatch it replaces;
   4. the full-width StreamMind-7B session (random bf16 weights from a seed):
      ViT-L/14-336 under attn_impl="exact", Mamba d_model 4096, the 4-layer
      gate under quantize_gate="int4", Mistral-7B; 10 frames with two forced
@@ -259,6 +262,9 @@ KERNEL_META = {
     "flash_bwd_dkv": ("streammind_torch/csrc/flash_bwd_dkv.cu", "ops/attention.py:407"),
     "int8_matvec": ("streammind_torch/csrc/int8_matvec.cu", "ops/int8_matvec.py:39"),
     "selective_scan": ("streammind_torch/csrc/selective_scan.cu", "ops/scan.py:150"),
+    # replaces no TPU kernel: the JAX package keeps int4 expert banks dense
+    # (models/mistral.py:204-217) and leaves the product to XLA
+    "int4_grouped_gemm": ("streammind_torch/csrc/int4_grouped_gemm.cu", "none"),
 }
 # wrapper of each kernel, as (module, attribute), for its launch count, which
 # it keeps in .launches (the paged write: the paged attention wrapper's
@@ -274,20 +280,25 @@ WRAPPERS = {
     "flash_bwd_dkv": ("streammind_torch.ops.attention", "flash_bwd_dkv"),
     "int8_matvec": ("streammind_torch.ops.int8_matvec", "int8_matvec"),
     "selective_scan": ("streammind_torch.ops.scan", "selective_scan_kernel"),
+    "int4_grouped_gemm": ("streammind_torch.ops.int4_grouped_gemm", "int4_grouped_gemm"),
 }
 TRAIN_KERNELS = ("flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv")
 COUNTERS = {"paged_write": "write_launches"}
 # CUDA-core kernels that are timed by graph replay too, their kernel / bound
 # in the kernels line
-GRAPH_TIMED = ("paged_attention", "int8_matvec", "int4_matvec", "paged_write", "selective_scan")
+GRAPH_TIMED = ("paged_attention", "int8_matvec", "int4_matvec", "paged_write", "selective_scan",
+               "int4_grouped_gemm")
 FAST_KERNELS = ("int8_matvec", "selective_scan")
+# launched only by a MoE decoder's prefill (per-channel int4 banks in bf16)
+MOE_KERNELS = ("int4_grouped_gemm",)
 # the kernels with a bf16 tensor-core (wgmma) instantiation beside the fp32
 # CUDA-core one; each wrapper counts its bf16 launches again in .tc_launches,
 # read here as "<name>_tc"
 TC_KERNELS = ("flash_attention", "exact_attention", "flash_attention_lse", "flash_bwd_dq",
               "flash_bwd_dkv")
 # the libraries that hold them, each of which must hold HGMMA instructions
-TC_LIBRARIES = ("flash_attention", "exact_attention", "flash_bwd_dq", "flash_bwd_dkv")
+TC_LIBRARIES = ("flash_attention", "exact_attention", "flash_bwd_dq", "flash_bwd_dkv",
+                "int4_grouped_gemm")
 
 
 def log(tag: str, msg: str) -> None:
@@ -523,6 +534,7 @@ def check_kernels(dev):
         dev, g, shapes=INT4_DECODER_UNFUSED, dtypes=(bf16,), batches=(API_BEAMS,)) + int4_cases(
         dev, g, shapes=INT4_QWEN2_GATE, dtypes=(bf16,), batches=(1, 4)) + int4_expert_cases(
         dev, g), INT4_TOL_TEXT)
+    results["int4_grouped_gemm"] = (int4_grouped_cases(dev, g), BF16_TOL_TEXT)
     results.update(check_paged_kernels(dev, randn))
     results.update(check_train_kernels(dev, randn))
     results.update(check_fast_kernels(dev, g))
@@ -1052,6 +1064,126 @@ def int4_expert_cases(dev, g, n_experts=8):
     return rows
 
 
+# the grouped int4 GEMM pair of a MoE prefill: (model, experts, tokens T,
+# route), R = 2 T routed rows (top 2), at the expert widths D 4096, F 14336
+# that Mixtral-8x7B and Jamba2-Mini share.  T = K x bucket of the prefills a
+# traced run of each MoE cell recorded (mixtral.match4: K 1-4 over buckets
+# 128-512, T 128-2048; jamba.ask4: buckets 64-256, T 128-1024); and a
+# skewed route ("half": every row to the first E / 2 experts, the others
+# empty)
+GROUPED_SHAPES = (("mixtral", 8, 128, "uniform"), ("mixtral", 8, 512, "uniform"),
+                  ("mixtral", 8, 1024, "uniform"), ("mixtral", 8, 2048, "uniform"),
+                  ("mixtral", 8, 1024, "half"), ("jamba", 16, 128, "uniform"),
+                  ("jamba", 16, 768, "uniform"), ("jamba", 16, 1024, "uniform"))
+GROUPED_D, GROUPED_F = 4096, 14336
+
+
+def grouped_routes(T: int, E: int, how: str, g, dev):
+    """(topi, topw) of T tokens, top 2 of E: two distinct experts a token
+    drawn uniformly (``how`` "half": among the first E / 2), weights drawn
+    and renormalised, fp32."""
+    pool = E if how == "uniform" else E // 2
+    topi = torch.rand((T, pool), device=dev, generator=g).argsort(dim=-1)[:, :2]
+    topw = torch.rand((T, 2), device=dev, generator=g) + 0.1
+    return topi, topw / topw.sum(dim=-1, keepdim=True)
+
+
+def int4_grouped_cases(dev, g, shapes=GROUPED_SHAPES):
+    """The grouped int4 GEMM pair (``_moe_apply_grouped_int4``'s two
+    launches) against its plain version: h of the gate + up launch against
+    the plain gate + up on the same rows, y of the down launch against the
+    plain down on the kernel's h; a second call bitwise the first.  Timed by
+    CUDA graph replay (each launch reads 235-940 MB of banks, cold), beside
+    the bound (each touched expert's packed bytes and scales read once, the
+    rows read and written once, 2 operations a multiply-add), the plain
+    version, the whole dispatch (sort, gather, the pair, the slot sum) and
+    the parent's dense dispatch (every bank dequantized, then ``F.linear``)."""
+    from types import SimpleNamespace
+
+    from streammind_torch.models import mistral as lm
+    from streammind_torch.ops.int4_grouped_gemm import int4_grouped_gemm, int4_grouped_gemm_ref
+
+    rows, D, F = [], GROUPED_D, GROUPED_F
+    for model, E, T, how in shapes:
+        def bank(n_out, n_in):
+            return {"w_int4pc": torch.randint(-128, 128, (E, n_out, n_in // 2), device=dev,
+                                              dtype=torch.int8, generator=g),
+                    "scale": torch.rand((E, n_out), device=dev, generator=g) * 0.02}
+        banks = (bank(F, D), bank(F, D), bank(D, F))
+        cfg = SimpleNamespace(num_experts=E)
+        xt = torch.empty((T, D), device=dev, dtype=torch.bfloat16).normal_(generator=g)
+        topi, topw = grouped_routes(T, E, how, g, dev)
+        flat = topi.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        offsets = torch.searchsorted(flat[order], torch.arange(E + 1, device=dev),
+                                     out_int32=True)
+        xs = xt.index_select(0, order // 2)
+        rw = topw.reshape(-1)[order]
+        (gw, gs), (uw, us), (dw, ds) = ((b["w_int4pc"], b["scale"]) for b in banks)
+
+        def pair():
+            h = int4_grouped_gemm(xs, offsets, gw, gs, up=(uw, us))
+            return h, int4_grouped_gemm(h, offsets, dw, ds, dst=order, row_weight=rw)
+
+        n0 = int4_grouped_gemm.launches
+        h, y = pair()
+        h2, y2 = pair()
+        launches = int4_grouped_gemm.launches - n0
+        bitwise = torch.equal(h, h2) and torch.equal(y, y2)
+        ref_h = int4_grouped_gemm_ref(xs, offsets, gw, gs, up=(uw, us))
+        ref_y = int4_grouped_gemm_ref(h, offsets, dw, ds, dst=order, row_weight=rw)
+        err_h, over_h = excess(h, ref_h, *BF16_TOL)
+        err_y, over_y = excess(y, ref_y, *BF16_TOL)
+        ms = cuda_ms([pair], iters=10, warmup=2, graph=True)
+        eager = cuda_ms([pair], iters=10, warmup=1)
+        whole = cuda_ms([lambda: lm._moe_apply_grouped_int4(xt, banks, cfg, topi, topw)],
+                        iters=10, warmup=1)
+        plain = cuda_ms([lambda: int4_grouped_gemm_ref(xs, offsets, gw, gs, up=(uw, us))],
+                        iters=2, warmup=1)
+        plain += cuda_ms([lambda: int4_grouped_gemm_ref(h, offsets, dw, ds, dst=order,
+                                                        row_weight=rw)], iters=2, warmup=1)
+        dense = cuda_ms([lambda: lm._moe_apply_dense(xt, banks, cfg, topi, topw)], iters=2,
+                        warmup=1)
+        touched = int((offsets[1:] > offsets[:-1]).sum())
+        R = 2 * T
+        nbytes = (touched * (3 * F * D // 2 + 4 * (2 * F + D))   # banks and scales
+                  + 2 * R * (D + F) * 2 + 4 * R + 8 * R)          # rows in and out, weights, dst
+        b_ms, b_by = bound(nbytes, 2.0 * R * 3 * F * D, BF16_FLOPS)
+        rows.append(dict(shape=f"{model}: E {E}, T {T} ({how}), R {R}, D {D}, F {F}, "
+                               f"{touched} experts touched", max_abs_err=max(err_h, err_y),
+                         errs=dict(h=err_h, y=err_y), ok=over_h <= 0 and over_y <= 0 and bitwise,
+                         bitwise=bitwise, launches=launches, ms=ms, eager_ms=eager,
+                         dispatch_ms=whole, plain_ms=plain, library_ms=dense, bound_ms=b_ms,
+                         bound_by=b_by, ms_over_bound=ms / b_ms))
+        del banks, xt, xs, h, y, h2, y2, ref_h, ref_y
+        torch.cuda.empty_cache()
+    return rows
+
+
+def grouped_main() -> int:
+    """The grouped int4 GEMM alone: its build (ptxas registers and spills,
+    HGMMA count) and ``int4_grouped_cases``, one JSON line a case.
+
+        python3 -c "import sys, chip_smoke as c; sys.exit(c.grouped_main())"
+    """
+    from streammind_torch.ops import _build
+
+    global CARD
+    CARD = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    log("env", f"{CARD}; torch {torch.__version__} cuda {torch.version.cuda}")
+    logs = _build.build_all(["int4_grouped_gemm", "int4_matvec"])
+    for name, info in logs.items():
+        ptx = [l.strip() for l in info["log"].splitlines() if l.strip()]
+        log("build", f"{name}: {info['seconds']:.1f} s; " + " | ".join(ptx))
+    log("build", f"int4_grouped_gemm: {hgmma_count('int4_grouped_gemm')} HGMMA instructions")
+    cases = report_cases({"int4_grouped_gemm": (int4_grouped_cases(
+        "cuda", torch.Generator(device="cuda").manual_seed(4321)), BF16_TOL_TEXT)})
+    for c in cases["int4_grouped_gemm"][0]:
+        print(json.dumps(c), flush=True)
+    return 0
+
+
 # the scan cases (dtype, batch, steps, carried state, u's layout).  u lies as
 # the burst hands it over, the conv output past its 3-step window,
 # contiguous in time ("time"), or as the mixer's (B, L, D) product seen as
@@ -1305,6 +1437,18 @@ def build_engine(dev):
     return engine, g
 
 
+def grouped_per_prefill(engine) -> int:
+    """int4_grouped_gemm launches a prefill: two a MoE layer where the
+    decoder's experts take the grouped int4 kernels (per-channel int4
+    banks, bf16 activations on the card), else none."""
+    from streammind_torch.models import mistral as lm
+
+    cfg = engine.cfg.text
+    if cfg.num_experts <= 1 or not lm.moe_ids_on_device(engine.params["text"], cfg, "cuda"):
+        return 0
+    return 2 * sum(cfg.is_moe(i) for i in range(cfg.num_layers))
+
+
 def full_width_session(engine, g, dev, tag="session", matvec=None):
     """10 frames with forced fires on frames 3 and 7, 16 new tokens a turn.
     ``matvec``: (kernel name, launches a layer of a one-token decode
@@ -1322,7 +1466,8 @@ def full_width_session(engine, g, dev, tag="session", matvec=None):
     n_vit = cfg.vision.num_layers + cfg.vision.select_layer + 1
     expect = {"exact_attention": n_vit * n_frames, "int4_matvec": 5 * cfg.gate.num_layers * n_frames,
               "flash_attention": cfg.text.num_layers * turns, "paged_write": 0,
-              "paged_attention": 0, **{n: 0 for n in TRAIN_KERNELS + FAST_KERNELS}}
+              "paged_attention": 0, **{n: 0 for n in TRAIN_KERNELS + FAST_KERNELS},
+              "int4_grouped_gemm": grouped_per_prefill(engine) * turns}
     if matvec is not None:
         expect[matvec[0]] += cfg.text.num_layers * matvec[1] * dc.n
     expect.update({f"{n}_tc": expect[n] for n in TC_KERNELS})  # bf16: every launch
@@ -1427,7 +1572,8 @@ def serving_phase(engine, g, dev, ticks=SERVE_TICKS, fires=SERVE_FIRES, tag="ser
     expect = {"exact_attention": n_vit * ticks,
               "int4_matvec": 5 * cfg.gate.num_layers * ticks,
               "flash_attention": L * len(pd.decodes), "paged_write": L * steps,
-              "paged_attention": L * steps, **{n: 0 for n in TRAIN_KERNELS + FAST_KERNELS}}
+              "paged_attention": L * steps, **{n: 0 for n in TRAIN_KERNELS + FAST_KERNELS},
+              "int4_grouped_gemm": grouped_per_prefill(engine) * len(pd.decodes)}
     if matvec is not None:
         expect[matvec[0]] += sum(L * matvec[1](d["k"]) * d["steps"] for d in pd.decodes)
     expect.update({f"{n}_tc": expect[n] for n in TC_KERNELS})
@@ -1466,7 +1612,7 @@ def serving_phase(engine, g, dev, ticks=SERVE_TICKS, fires=SERVE_FIRES, tag="ser
         raise RuntimeError(f"expected {ticks} ticks with turns of K {want_k}, got "
                            f"{broker.ticks} ticks and turns {pd.decodes}")
     if counts != expect or not all(counts[n] for n in counts
-                                   if kernel_of(n) not in TRAIN_KERNELS + FAST_KERNELS):
+                                   if kernel_of(n) not in TRAIN_KERNELS + FAST_KERNELS + MOE_KERNELS):
         raise RuntimeError(f"launch counts {counts} differ from the path's {expect}")
     # the token write has no launch of its own: every paged attention launch
     # wrote its step's token, one a layer a step
@@ -3839,7 +3985,10 @@ class ExpertTally:
     """While installed, counts how often each expert is chosen at each layer
     by the gathered MoE dispatch (the decode steps, at most 4 tokens: every
     layer of a forward takes it, so its calls come in layer order), and
-    keeps the inputs of its first call at layer 0."""
+    keeps the inputs of its first call at layer 0.  Steps run eagerly: a
+    paged decode step being captured into a CUDA graph keeps its ids on the
+    card (no copy to the host may run in a capture), and its replays do not
+    call the dispatch."""
 
     def __init__(self, layers: int, experts: int):
         from streammind_torch.models import mistral
@@ -3850,6 +3999,8 @@ class ExpertTally:
 
     def __enter__(self):
         def counted(xt, banks, cfg, topi, topw):
+            if torch.cuda.is_current_stream_capturing():
+                return self.orig(xt, banks, cfg, topi, topw)
             layer = self.calls % self.counts.shape[0]
             self.calls += 1
             self.counts[layer] += torch.bincount(topi.reshape(-1).cpu(),
@@ -3955,13 +4106,17 @@ def mixtral_phase(dev):
     w64 = w64 / w64.sum(dim=-1, keepdim=True)
     dense_ms = cuda_ms([lambda: lm._moe_apply_dense(x64, banks, cfg.text, i64, w64)], iters=5,
                        warmup=1)
+    grouped_ms = cuda_ms([lambda: lm._moe_apply_grouped_int4(x64, banks, cfg.text, i64, w64)],
+                         iters=5, warmup=1)
     log("mixtral", f"[{CARD}] the dense dispatch over the int4 banks at 64 tokens: {dense_ms:.3f} "
                    f"ms a layer ({3 * E} dequantized weights), {dense_ms * L:.1f} ms over "
-                   f"{L} layers of a prefill (the session's first-token times above)")
+                   f"{L} layers of a prefill; the grouped int4 dispatch the prefill takes: "
+                   f"{grouped_ms:.3f} ms a layer, {grouped_ms * L:.1f} ms over {L} layers")
     del engine, tally, xt, banks, gathered, dense, x64
     torch.cuda.empty_cache()
     return dict(session=session, serving=serving, experts_chosen=chosen.tolist(),
                 dispatch_err=err, route_err=err32, dense_dispatch_ms=dense_ms,
+                grouped_dispatch_ms=grouped_ms,
                 launches=add_counts(session["launches"], serving["launches"]))
 
 

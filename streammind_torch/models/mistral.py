@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import TextConfig
 from ..ops.attention import _repeat_kv, attention, decode_attention, flash_attention
+from ..ops import int4_grouped_gemm as grouped_int4
 from ..ops.int4_matvec import int4_matvec
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rope, rope_cos_sin
@@ -335,8 +336,12 @@ def _moe_mlp(x, p, cfg: TextConfig, dispatch=None, path: str = "text"):
         slices through ``linear``, so on the card int8 / per-channel int4
         slices reach the matvec kernels and only k/E of the expert bytes
         are read;
-      - quantized banks: every expert over every token, weighted by its
-        routing weight (zero where unrouted), each through ``linear``;
+      - per-channel int4 banks of every expert, bf16 activations on the
+        card, no gradient asked of x (``_grouped_int4``): rows sorted by
+        expert through the grouped int4 kernel pair
+        (``_moe_apply_grouped_int4``);
+      - other quantized banks: every expert over every token, weighted by
+        its routing weight (zero where unrouted), each through ``linear``;
       - plain banks: rows sorted stably by expert, one matmul per expert's
         contiguous row block (what ``lax.ragged_dot`` computes in the JAX
         package), k/E of the dense products; differentiable.
@@ -361,6 +366,8 @@ def _moe_mlp(x, p, cfg: TextConfig, dispatch=None, path: str = "text"):
     banks = tuple(_wrap_expert_leaf(p["experts"][n]) for n in ("gate", "up", "down"))
     if b * s <= _MOE_GATHER_MAX_TOKENS:
         return _moe_apply_gathered(xt, banks, cfg, topi, topw).reshape(b, s, d)
+    if _grouped_int4(banks, xt, cfg):
+        return _moe_apply_grouped_int4(xt, banks, cfg, topi, topw).reshape(b, s, d)
     mode = _resolve_moe_dispatch(dispatch, cfg)
     plain = all(not isinstance(p["experts"][n], dict) for n in ("gate", "up", "down"))
     if mode == "grouped" and plain:
@@ -431,6 +438,7 @@ def _moe_apply_dense(xt, banks, cfg: TextConfig, topi, topw, lo: int = 0):
     weight (zero where unrouted), summed in expert order.  E/k times the
     products of the grouped form, but each through ``linear``, so quantized
     banks work.  The banks hold experts lo, lo+1, ... (a rank's share)."""
+    tracer.count("moe.dense")
     combine = torch.zeros((xt.shape[0], cfg.num_experts), dtype=topw.dtype,
                           device=xt.device).scatter_add(1, topi, topw)  # (T, E)
     out = torch.zeros_like(xt)
@@ -507,6 +515,47 @@ def _ids_on_device(banks, dtype, device, n_experts: int, lo: int = 0) -> bool:
     return (device.type == "cuda" and dtype == torch.bfloat16 and lo == 0
             and all(set(b) == {"w_int4pc", "scale"} and b["w_int4pc"].shape[0] == n_experts
                     and b["w_int4pc"].shape[-1] % 16 == 0 for b in banks))
+
+
+def _grouped_int4(banks, xt, cfg: TextConfig) -> bool:
+    """Whether a prefill's experts run through the grouped int4 kernel pair:
+    ``_ids_on_device``'s banks, device and dtype, no gradient asked of x,
+    and widths the kernel takes."""
+    if not _ids_on_device(banks, xt.dtype, xt.device, cfg.num_experts) or (
+            torch.is_grad_enabled() and xt.requires_grad):
+        return False
+    f, d = banks[0]["w_int4pc"].shape[1], xt.shape[-1]
+    return grouped_int4.fits(d, f) and grouped_int4.fits(f, d)
+
+
+def _moe_apply_grouped_int4(xt, banks, cfg: TextConfig, topi, topw):
+    """Sort-by-expert dispatch over per-channel int4 banks: the (T*k) rows
+    sorted stably by expert id on the card (offsets by ``searchsorted``, so
+    nothing of the routing reaches the host), one grouped launch for gate
+    and up (h = silu(g) * u, never g and u in device memory) and one for
+    down, whose epilogue weights each row by its routing weight and puts it
+    back at its (token, slot) place; a token's k slots are then added in
+    slot order.
+
+    A divergence by design from ``_moe_apply_dense`` (and the JAX package,
+    which keeps quantized banks dense): products exact and summed in fp32
+    against the integer weights, the per-channel scale and the routing
+    weight in fp32, h and each slot's y rounded to bf16 once; the dense
+    form rounds each dequantized weight to bf16 and adds the experts in
+    expert order with a bf16 rounding each."""
+    tracer.count("moe.grouped_int4")
+    T, d = xt.shape
+    k = topi.shape[1]
+    flat = topi.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    experts = torch.arange(cfg.num_experts + 1, device=flat.device, dtype=flat.dtype)
+    offsets = torch.searchsorted(flat[order], experts, out_int32=True)
+    xs = xt.index_select(0, order // k)
+    (gw, gs), (uw, us), (dw, ds) = ((b["w_int4pc"], b["scale"]) for b in banks)
+    h = grouped_int4.int4_grouped_gemm(xs, offsets, gw, gs, up=(uw, us))
+    y = grouped_int4.int4_grouped_gemm(h, offsets, dw, ds, dst=order,
+                                       row_weight=topw.reshape(-1)[order].float())
+    return y.view(T, k, d).sum(dim=1)
 
 
 def moe_ids_on_device(params, cfg: TextConfig, device) -> bool:

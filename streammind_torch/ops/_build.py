@@ -26,7 +26,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_kernels"
 KERNELS = ("flash_attention", "exact_attention", "int4_matvec", "paged_attention",
-           "flash_bwd_dq", "flash_bwd_dkv", "int8_matvec", "selective_scan")
+           "flash_bwd_dq", "flash_bwd_dkv", "int8_matvec", "selective_scan",
+           "int4_grouped_gemm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -115,6 +116,7 @@ SIGNATURES = {
     "flash_bwd_dkv": ("sm_flash_bwd_dkv", [_P] * 9 + [_I] * 8 + [_L] * 12 + [_F, _P]),
     "int8_matvec": ("sm_int8_matvec", [_P] * 4 + [_I] * 5 + [_P]),
     "selective_scan": ("sm_selective_scan", [_P] * 11 + [_I] * 6 + [_L] * 15 + [_P]),
+    "int4_grouped_gemm": ("sm_int4_grouped_gemm", [_P] * 9 + [_I] * 4 + [_P]),
 }
 
 

@@ -144,12 +144,12 @@ class _Span:
 
 def _launch_counters() -> Dict[tuple, int]:
     """The kernel wrappers' own launch counts, by (wrapper, counter)."""
-    from ..ops import attention, int4_matvec, int8_matvec, paged_attention, scan
+    from ..ops import attention, int4_grouped_gemm, int4_matvec, int8_matvec, paged_attention, scan
 
     wrappers = (int8_matvec.int8_matvec, int4_matvec.int4_matvec, attention.flash_attention,
                 attention.flash_attention_lse, attention.flash_bwd_dq, attention.flash_bwd_dkv,
                 attention.exact_attention, scan.selective_scan_kernel,
-                paged_attention.paged_decode_attention)
+                paged_attention.paged_decode_attention, int4_grouped_gemm.int4_grouped_gemm)
     return {(fn, k): v for fn in wrappers for k, v in vars(fn).items() if k.endswith("launches")}
 
 

@@ -29,6 +29,10 @@ bf16 on their tensor-core instantiation and fp32 on the CUDA-core one;
 ``.tc_launches`` counts the former.  GQA groups that do not divide 128
 (Qwen2-7B's 7) run on the bf16 flash forward and dQ kernels, which pack
 floor(128 / group) whole groups into a block.
+The grouped int4 GEMM pair of a MoE prefill (gate + up, then down) takes
+the bf16 limits against its plain version (fp32 sums in another order, one
+rounding), must give the same bits from two calls, and, inside the whole
+grouped dispatch, must not wait on the host.
 The indexed int4 matvec (a bank and an expert id on the card) must give
 the launch on the expert's slice bitwise, and a paged decode step replayed
 from its CUDA graphs the eager step's logits bitwise: the same kernels on
@@ -41,6 +45,7 @@ import torch
 from streammind_torch.ops import attention as A
 from streammind_torch.ops import paged_attention as PA
 from streammind_torch.ops import scan as S
+from streammind_torch.ops.int4_grouped_gemm import int4_grouped_gemm, int4_grouped_gemm_ref
 from streammind_torch.ops.int4_matvec import int4_matvec, int4_matvec_ref
 from streammind_torch.ops.int8_matvec import int8_matvec, int8_matvec_ref
 from streammind_torch.utils.quantize import quantize_linear_weight, quantize_linear_weight_int4_pc
@@ -717,3 +722,95 @@ def test_replayed_step_is_the_eager_step(dev, moe, K, monkeypatch):
         assert counts.get("moe.expert_id_reads", 0) == 0
     assert list(pd._graphs) == [K] and len(pd._graphs[K].graphs) == (layers + 1 if moe else 1)
     assert calls == [layers if moe else 0] * len(steps)
+
+
+# -- the grouped int4 GEMM of a MoE prefill ---------------------------------------------------
+def _grouped_case(E, R, D, F, experts, seed):
+    """Banks (gate, up, down) of E experts at widths D, F, and R rows with
+    expert ids drawn from ``experts`` (the others get no row), sorted by
+    expert: (banks, xs, offsets, order, row weights)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def bank(n_out, n_in):
+        return (torch.randint(-128, 128, (E, n_out, n_in // 2), dtype=torch.int8, device="cuda",
+                              generator=g),
+                torch.rand((E, n_out), device="cuda", generator=g) * 0.02)
+
+    ids = torch.tensor(experts, device="cuda")[
+        torch.randint(0, len(experts), (R,), device="cuda", generator=g)]
+    order = torch.argsort(ids, stable=True)
+    offsets = torch.searchsorted(ids[order], torch.arange(E + 1, device="cuda"), out_int32=True)
+    xs = torch.empty((R, D), device="cuda", dtype=torch.bfloat16).normal_(generator=g)
+    rw = torch.rand(R, device="cuda", generator=g)
+    return (bank(F, D), bank(F, D), bank(D, F)), xs, offsets, order, rw
+
+
+@pytest.mark.parametrize("E,R,experts", [
+    (8, 5, range(8)), (8, 37, (1, 6)), (8, 200, range(8)), (8, 2048, range(8)),
+    (8, 2048, range(4)), (16, 5, range(16)), (16, 130, range(0, 16, 3)), (16, 2048, range(16))])
+def test_grouped_int4_pair_matches_plain(dev, E, R, experts):
+    """Mixtral's and Jamba's expert widths (D 4096, F 14336): gate + up
+    against the plain version on the same rows, down against the plain
+    version on the kernel's h, at R from 5 to 2048 rows, experts with no
+    row among them; two calls give the same bits; one launch each."""
+    (gate, up, down), xs, offsets, order, rw = _grouped_case(E, R, 4096, 14336, list(experts), R)
+    n0 = int4_grouped_gemm.launches
+    h = int4_grouped_gemm(xs, offsets, *gate, up=up)
+    y = int4_grouped_gemm(h, offsets, *down, dst=order, row_weight=rw)
+    assert int4_grouped_gemm.launches == n0 + 2
+    _close(h, int4_grouped_gemm_ref(xs, offsets, *gate, up=up), torch.bfloat16)
+    _close(y, int4_grouped_gemm_ref(h, offsets, *down, dst=order, row_weight=rw), torch.bfloat16)
+    assert torch.equal(h, int4_grouped_gemm(xs, offsets, *gate, up=up))
+    assert torch.equal(y, int4_grouped_gemm(h, offsets, *down, dst=order, row_weight=rw))
+
+
+def test_grouped_int4_dispatch_reads_nothing_on_the_host(dev):
+    """The whole grouped dispatch (sort, offsets, gather, the pair, the slot
+    sum) under ``set_sync_debug_mode("error")``: no call waits on the card;
+    and it agrees with its plain path (the same function on the CPU)."""
+    from types import SimpleNamespace
+
+    from streammind_torch.models import mistral as lm
+
+    (gate, up, down), _, _, _, _ = _grouped_case(8, 1, 256, 512, [0], 3)
+    banks = tuple({"w_int4pc": w, "scale": sc} for w, sc in (gate, up, down))
+    cfg = SimpleNamespace(num_experts=8)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    xt = torch.empty((48, 256), device="cuda", dtype=torch.bfloat16).normal_(generator=g)
+    topw, topi = lm.router_top_k(torch.rand((48, 8), device="cuda", generator=g), 2)
+    want = lm._moe_apply_grouped_int4(xt, banks, cfg, topi, topw)   # builds and loads the kernel
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = lm._moe_apply_grouped_int4(xt, banks, cfg, topi, topw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want)
+    cpu = tuple({k: v.cpu() for k, v in b.items()} for b in banks)
+    _close(got.cpu(), lm._moe_apply_grouped_int4(xt.cpu(), cpu, cfg, topi.cpu(), topw.cpu()),
+           torch.bfloat16)
+
+
+def test_grouped_int4_refuses_what_the_kernel_does_not_take(dev):
+    (gate, up, down), xs, offsets, order, rw = _grouped_case(8, 16, 256, 512, list(range(8)), 5)
+    with pytest.raises(ValueError, match="bf16"):
+        int4_grouped_gemm(xs.float(), offsets, *gate, up=up)
+    with pytest.raises(ValueError, match="either up"):
+        int4_grouped_gemm(xs, offsets, *gate, up=up, dst=order, row_weight=rw)
+    with pytest.raises(ValueError, match="either up"):
+        int4_grouped_gemm(xs, offsets, *gate)
+    with pytest.raises(ValueError, match="int32"):
+        int4_grouped_gemm(xs, offsets.long(), *gate, up=up)
+    with pytest.raises(ValueError, match="do not agree"):
+        int4_grouped_gemm(xs[:, :128], offsets, *gate, up=up)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        w, sc = gate
+        int4_grouped_gemm(xs[:, :192].contiguous(), offsets, w[:, :, :96].contiguous(), sc,
+                          up=(w[:, :, :96].contiguous(), sc))
+    with pytest.raises(ValueError, match="contiguous"):
+        int4_grouped_gemm(xs.t().contiguous().t(), offsets, *gate, up=up)
+    with pytest.raises(ValueError, match="device"):
+        int4_grouped_gemm(xs, offsets.cpu(), *gate, up=up)
+    with pytest.raises(ValueError, match="dst int64"):
+        int4_grouped_gemm(xs[:, :256].contiguous(), offsets, down[0][:, :, :128].contiguous(),
+                          down[1], dst=order.int(), row_weight=rw)
