@@ -238,6 +238,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from streammind_torch.tools.real_weights_smoke import tf32_matmuls
+
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOPS = 989e12           # dense tensor-core bf16
 FP32_FLOPS = 67e12            # fp32 outside the tensor cores
@@ -1658,24 +1660,22 @@ def parity(dev):
     # control: the limits must catch matmuls that lose fp32 precision)
     for run, where, tf32 in (("cpu", "cpu", False), ("card", dev, False),
                              ("card_tf32", dev, True)):
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        torch.backends.cudnn.allow_tf32 = tf32
-        t0 = time.perf_counter()
-        eng = Engine(params, cfg, attn_impl="exact", quantize_gate="int4", kv_capacity=1024,
-                     device=where)
-        reset_launches()
-        session, _, _ = run_session(eng, [f.to(where) for f in frames], fire, max_new=8)
-        counts = read_launches()
-        out[run] = dict(probs=torch.stack(eng.probs), memory=session.state.memory[0, :4].cpu(),
-                        logits=torch.cat(eng.prefill_logits), tokens=eng.decoded)
-        log("parity", f"{run}: {time.perf_counter() - t0:.1f} s, tokens {eng.decoded}")
-        if where != "cpu":
-            fp32_only(counts, "parity")
-            if not (counts["exact_attention"] and counts["flash_attention"]):
-                raise RuntimeError(f"the card's session missed the exact or flash kernel: {counts}")
-        del eng, session
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+        with tf32_matmuls(tf32):
+            t0 = time.perf_counter()
+            eng = Engine(params, cfg, attn_impl="exact", quantize_gate="int4", kv_capacity=1024,
+                         device=where)
+            reset_launches()
+            session, _, _ = run_session(eng, [f.to(where) for f in frames], fire, max_new=8)
+            counts = read_launches()
+            out[run] = dict(probs=torch.stack(eng.probs), memory=session.state.memory[0, :4].cpu(),
+                            logits=torch.cat(eng.prefill_logits), tokens=eng.decoded)
+            log("parity", f"{run}: {time.perf_counter() - t0:.1f} s, tokens {eng.decoded}")
+            if where != "cpu":
+                fp32_only(counts, "parity")
+                if not (counts["exact_attention"] and counts["flash_attention"]):
+                    raise RuntimeError(f"the card's session missed the exact or flash kernel: "
+                                       f"{counts}")
+            del eng, session
     # about ten times the errors measured on an H100 with TF32 off
     # (probs 1.94e-6, memory 1.46e-6, logits 1.69e-5)
     tol = {"probs": 2e-5, "memory": 2e-5, "logits": 2e-4}
@@ -1942,42 +1942,39 @@ def fast_parity(dev):
     out = {}
     for run, where, tf32 in (("cpu", "cpu", False), ("card", dev, False),
                              ("card_tf32", dev, True)):
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        torch.backends.cudnn.allow_tf32 = tf32
-        t0 = time.perf_counter()
-        eng = Engine(params, cfg, quantize_gate="int8", fast_vision=True, kv_capacity=1024,
-                     device=where)
-        fs = [f.to(where) for f in frames]
-        reset_launches()
-        session, _, _ = run_session(eng, fs[:4], (1, 3), max_new=8)
-        n_probs = len(eng.probs)
-        state = session.state
-        burst_probs, bs = eng.perceive_burst(torch.cat(fs[4:]), clone_state(state))
-        counts = read_launches()
-        out[run] = dict(probs=torch.stack(eng.probs[:n_probs]),
-                        memory=session.state.memory[0, :4].cpu(),
-                        logits=torch.cat(eng.prefill_logits), tokens=eng.decoded,
-                        burst_probs=burst_probs.float().cpu(),
-                        burst_memory=bs.memory[0, 4:4 + PARITY_BURST].cpu(),
-                        burst_ssm=bs.mamba.ssm.cpu())
-        if where != "cpu":
-            steps = clone_state(state)
-            for f in fs[4:]:
-                step_probs, steps = eng.perceive_step(f, steps)
-            out[run]["vs_steps"] = {
-                "burst_probs": float((step_probs.float().cpu() - out[run]["burst_probs"])
-                                     .abs().max()),
-                "burst_memory": float((steps.memory[0, 4:4 + PARITY_BURST].cpu()
-                                       - out[run]["burst_memory"]).abs().max()),
-                "burst_ssm": float((steps.mamba.ssm.cpu() - out[run]["burst_ssm"]).abs().max())}
-            if not (counts["int8_matvec"] and counts["selective_scan"] == cfg.mamba.n_layers):
-                raise RuntimeError(f"the card's run missed the fast tier's kernels: {counts}")
-            fp32_only(counts, "fast-parity")
-        log("fast-parity", f"{run}: {time.perf_counter() - t0:.1f} s, tokens {eng.decoded}, "
-                           f"launches {counts}")
-        del eng, session, state, bs, fs
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+        with tf32_matmuls(tf32):
+            t0 = time.perf_counter()
+            eng = Engine(params, cfg, quantize_gate="int8", fast_vision=True, kv_capacity=1024,
+                         device=where)
+            fs = [f.to(where) for f in frames]
+            reset_launches()
+            session, _, _ = run_session(eng, fs[:4], (1, 3), max_new=8)
+            n_probs = len(eng.probs)
+            state = session.state
+            burst_probs, bs = eng.perceive_burst(torch.cat(fs[4:]), clone_state(state))
+            counts = read_launches()
+            out[run] = dict(probs=torch.stack(eng.probs[:n_probs]),
+                            memory=session.state.memory[0, :4].cpu(),
+                            logits=torch.cat(eng.prefill_logits), tokens=eng.decoded,
+                            burst_probs=burst_probs.float().cpu(),
+                            burst_memory=bs.memory[0, 4:4 + PARITY_BURST].cpu(),
+                            burst_ssm=bs.mamba.ssm.cpu())
+            if where != "cpu":
+                steps = clone_state(state)
+                for f in fs[4:]:
+                    step_probs, steps = eng.perceive_step(f, steps)
+                out[run]["vs_steps"] = {
+                    "burst_probs": float((step_probs.float().cpu() - out[run]["burst_probs"])
+                                         .abs().max()),
+                    "burst_memory": float((steps.memory[0, 4:4 + PARITY_BURST].cpu()
+                                           - out[run]["burst_memory"]).abs().max()),
+                    "burst_ssm": float((steps.mamba.ssm.cpu() - out[run]["burst_ssm"]).abs().max())}
+                if not (counts["int8_matvec"] and counts["selective_scan"] == cfg.mamba.n_layers):
+                    raise RuntimeError(f"the card's run missed the fast tier's kernels: {counts}")
+                fp32_only(counts, "fast-parity")
+            log("fast-parity", f"{run}: {time.perf_counter() - t0:.1f} s, tokens {eng.decoded}, "
+                               f"launches {counts}")
+            del eng, session, state, bs, fs
     tol = FAST_PARITY_TOL
     c = out["cpu"]
     errs, control = ({k: float((c[k] - out[run][k]).abs().max()) for k in tol}
@@ -2232,36 +2229,33 @@ def training_parity(dev, params):
     out = {}
     for run, where, tf32 in (("cpu", "cpu", False), ("card", dev, False),
                              ("card_tf32", dev, True)):
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        torch.backends.cudnn.allow_tf32 = tf32
-        t0 = time.perf_counter()
-        p = tree_map(lambda t: t.to(where, copy=True), params)
-        mask = trainable_mask(p, "adapter")
-        opt = make_optimizer(cosine_schedule(1e-4, 2))
-        state = init_train_state(p, opt, mask)
-        _, batch = make_microbatch([sample], cfg, p["vision"], "adapter", pad_to=1)
-        reset_launches()
-        loss, grads = make_grad_step(loss_fn, mask)(p, batch)
-        step = make_train_step(loss_fn, opt, mask)
-        for _ in range(2):
-            state, _ = step(state, batch)
-        counts = read_launches()
-        out[run] = dict(loss=float(loss), gnorm=float(global_norm(grads.values())),
-                        grads={k: g.cpu() for k, g in grads.items()},
-                        params={k: t.detach().cpu() for k, t in named_leaves(p, mask).items()})
-        log("train-parity", f"{run}: loss {out[run]['loss']:.7f}, grad norm "
-                            f"{out[run]['gnorm']:.7f}, {time.perf_counter() - t0:.1f} s, "
-                            f"launches {counts}")
-        if where != "cpu" and not all(counts[n] == 3 * 2 * cfg.text.num_layers
-                                      if n == "flash_attention_lse" else
-                                      counts[n] == 3 * cfg.text.num_layers
-                                      for n in TRAIN_KERNELS):
-            raise RuntimeError(f"the card's run missed the training kernels: {counts}")
-        if where != "cpu":
-            fp32_only(counts, "train-parity")
-        del p, state, grads, batch
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+        with tf32_matmuls(tf32):
+            t0 = time.perf_counter()
+            p = tree_map(lambda t: t.to(where, copy=True), params)
+            mask = trainable_mask(p, "adapter")
+            opt = make_optimizer(cosine_schedule(1e-4, 2))
+            state = init_train_state(p, opt, mask)
+            _, batch = make_microbatch([sample], cfg, p["vision"], "adapter", pad_to=1)
+            reset_launches()
+            loss, grads = make_grad_step(loss_fn, mask)(p, batch)
+            step = make_train_step(loss_fn, opt, mask)
+            for _ in range(2):
+                state, _ = step(state, batch)
+            counts = read_launches()
+            out[run] = dict(loss=float(loss), gnorm=float(global_norm(grads.values())),
+                            grads={k: g.cpu() for k, g in grads.items()},
+                            params={k: t.detach().cpu() for k, t in named_leaves(p, mask).items()})
+            log("train-parity", f"{run}: loss {out[run]['loss']:.7f}, grad norm "
+                                f"{out[run]['gnorm']:.7f}, {time.perf_counter() - t0:.1f} s, "
+                                f"launches {counts}")
+            if where != "cpu" and not all(counts[n] == 3 * 2 * cfg.text.num_layers
+                                          if n == "flash_attention_lse" else
+                                          counts[n] == 3 * cfg.text.num_layers
+                                          for n in TRAIN_KERNELS):
+                raise RuntimeError(f"the card's run missed the training kernels: {counts}")
+            if where != "cpu":
+                fp32_only(counts, "train-parity")
+            del p, state, grads, batch
 
     def errs(o):
         # params: Adam steps each element by about lr * sign(grad) whatever
@@ -2579,37 +2573,34 @@ def qlora_parity(dev, base):
     out = {}
     for name, where, tf32 in (("cpu", "cpu", False), ("card", dev, False),
                               ("card_tf32", dev, True)):
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        torch.backends.cudnn.allow_tf32 = tf32
-        t0 = time.perf_counter()
-        p = tree_map(lambda t: t.to(where, copy=True), params)
-        mask = trainable_mask({k: v for k, v in p.items() if k != "lora"}, "adapter")
-        mask["lora"] = tree_map(lambda _: True, p["lora"])
-        opt = make_optimizer(cosine_schedule(1e-4, 2))
-        state = init_train_state(p, opt, mask)
-        _, batch = make_microbatch([sample], cfg, p["vision"], "llm", pad_to=1)
-        reset_launches()
-        loss, grads = make_grad_step(loss_fn, mask)(p, batch)
-        step = make_train_step(loss_fn, opt, mask)
-        for _ in range(2):
-            state, _ = step(state, batch)
-        counts = read_launches()
-        out[name] = dict(loss=float(loss), gnorm=float(global_norm(grads.values())),
-                         grads={k: v.cpu() for k, v in grads.items()},
-                         params={k: t.detach().cpu() for k, t in named_leaves(p, mask).items()})
-        log("qlora-parity", f"{name}: loss {out[name]['loss']:.7f}, grad norm "
-                            f"{out[name]['gnorm']:.7f}, {time.perf_counter() - t0:.1f} s, "
-                            f"launches {counts}")
-        if where != "cpu":
-            if counts != {n: 3 * c for n, c in
-                          train_launch_expect(counts, cfg.text.num_layers).items()
-                          } | {f"{n}_tc": 0 for n in TRAIN_KERNELS}:
-                raise RuntimeError(f"the card's run did not take the training kernels alone: "
-                                   f"{counts}")
-            fp32_only(counts, "qlora-parity")
-        del p, state, grads, batch
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+        with tf32_matmuls(tf32):
+            t0 = time.perf_counter()
+            p = tree_map(lambda t: t.to(where, copy=True), params)
+            mask = trainable_mask({k: v for k, v in p.items() if k != "lora"}, "adapter")
+            mask["lora"] = tree_map(lambda _: True, p["lora"])
+            opt = make_optimizer(cosine_schedule(1e-4, 2))
+            state = init_train_state(p, opt, mask)
+            _, batch = make_microbatch([sample], cfg, p["vision"], "llm", pad_to=1)
+            reset_launches()
+            loss, grads = make_grad_step(loss_fn, mask)(p, batch)
+            step = make_train_step(loss_fn, opt, mask)
+            for _ in range(2):
+                state, _ = step(state, batch)
+            counts = read_launches()
+            out[name] = dict(loss=float(loss), gnorm=float(global_norm(grads.values())),
+                             grads={k: v.cpu() for k, v in grads.items()},
+                             params={k: t.detach().cpu() for k, t in named_leaves(p, mask).items()})
+            log("qlora-parity", f"{name}: loss {out[name]['loss']:.7f}, grad norm "
+                                f"{out[name]['gnorm']:.7f}, {time.perf_counter() - t0:.1f} s, "
+                                f"launches {counts}")
+            if where != "cpu":
+                if counts != {n: 3 * c for n, c in
+                              train_launch_expect(counts, cfg.text.num_layers).items()
+                              } | {f"{n}_tc": 0 for n in TRAIN_KERNELS}:
+                    raise RuntimeError(f"the card's run did not take the training kernels alone: "
+                                       f"{counts}")
+                fp32_only(counts, "qlora-parity")
+            del p, state, grads, batch
 
     def errs(o):
         # as training_parity's: params compared where |grad| >= 1e-3 of the
@@ -3253,31 +3244,28 @@ def api_parity(dev):
     out = {}
     for run, where, tf32 in (("cpu", "cpu", False), ("card", dev, False),
                              ("card_tf32", dev, True)):
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        torch.backends.cudnn.allow_tf32 = tf32
-        t0 = time.perf_counter()
-        model, _, _, _ = api.model_init(params=params, cfg=cfg, tokenizer=tok,
-                                        dtype=torch.float32, device=where)
-        eng = model.engine
-        reset_launches()
-        text = api.infer(model, video, QUESTION, tok, max_new_tokens=8)
-        plan, mem_buf = api._prepare_cognition_inputs(model, video, QUESTION, tok, "llama_2")
-        last, cache = eng.prefill(plan, mem_buf, eng.new_kv_cache(capacity=256))
-        tokens, _ = eng.generate_from_prefill(last, cache, 8)
-        beams = eng.beam_generate(plan, mem_buf, num_beams=3, max_new_tokens=6)
-        counts = read_launches()
-        out[run] = dict(memory=mem_buf[0, :video.shape[0]].cpu(), logits=last.cpu(),
-                        beam_scores=torch.tensor([s for _, s in beams], dtype=torch.float64),
-                        tokens=tokens, text=text, beams=[b for b, _ in beams])
-        log("api-parity", f"{run}: {time.perf_counter() - t0:.1f} s, tokens {tokens}, beams "
-                          f"{out[run]['beams']}, launches {counts}")
-        if where != "cpu":
-            fp32_only(counts, "api-parity")
-            if not (counts["flash_attention"] and counts["selective_scan"]):
-                raise RuntimeError(f"the card's run missed the flash or scan kernel: {counts}")
-        del model, eng, cache
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+        with tf32_matmuls(tf32):
+            t0 = time.perf_counter()
+            model, _, _, _ = api.model_init(params=params, cfg=cfg, tokenizer=tok,
+                                            dtype=torch.float32, device=where)
+            eng = model.engine
+            reset_launches()
+            text = api.infer(model, video, QUESTION, tok, max_new_tokens=8)
+            plan, mem_buf = api._prepare_cognition_inputs(model, video, QUESTION, tok, "llama_2")
+            last, cache = eng.prefill(plan, mem_buf, eng.new_kv_cache(capacity=256))
+            tokens, _ = eng.generate_from_prefill(last, cache, 8)
+            beams = eng.beam_generate(plan, mem_buf, num_beams=3, max_new_tokens=6)
+            counts = read_launches()
+            out[run] = dict(memory=mem_buf[0, :video.shape[0]].cpu(), logits=last.cpu(),
+                            beam_scores=torch.tensor([s for _, s in beams], dtype=torch.float64),
+                            tokens=tokens, text=text, beams=[b for b, _ in beams])
+            log("api-parity", f"{run}: {time.perf_counter() - t0:.1f} s, tokens {tokens}, beams "
+                              f"{out[run]['beams']}, launches {counts}")
+            if where != "cpu":
+                fp32_only(counts, "api-parity")
+                if not (counts["flash_attention"] and counts["selective_scan"]):
+                    raise RuntimeError(f"the card's run missed the flash or scan kernel: {counts}")
+            del model, eng, cache
     tol = API_PARITY_TOL
     c = out["cpu"]
     errs, control = ({k: float((c[k] - out[run][k]).abs().max()) for k in tol}
@@ -3746,40 +3734,37 @@ def eval_parity(dev):
         out, threshold = {}, None
         for run, where, tf32 in (("card", dev, False), ("cpu", "cpu", False),
                                  ("card_tf32", dev, True)):
-            torch.backends.cuda.matmul.allow_tf32 = tf32
-            torch.backends.cudnn.allow_tf32 = tf32
-            t0 = time.perf_counter()
-            model, _, _, _ = api.model_init(params=params, cfg=cfg, tokenizer=tok,
-                                            dtype=torch.float32, vit_attn="exact",
-                                            quantize_gate="int4", device=where)
+            with tf32_matmuls(tf32):
+                t0 = time.perf_counter()
+                model, _, _, _ = api.model_init(params=params, cfg=cfg, tokenizer=tok,
+                                                dtype=torch.float32, vit_attn="exact",
+                                                quantize_gate="int4", device=where)
 
-            def loader(path, cur_fps, where=where):
-                return [(i / cur_fps, f[None].to(where)) for i, f in enumerate(frames[path])]
+                def loader(path, cur_fps, where=where):
+                    return [(i / cur_fps, f[None].to(where)) for i, f in enumerate(frames[path])]
 
-            if threshold is None:
-                threshold, _ = gate_threshold(model, videos, loader, 3)
-            reset_launches()
-            summary, per_video = evaluate_gate_stream(
-                model, tok, videos, frame_loader=loader,
-                session_kw=dict(gate_threshold=threshold, max_new_tokens=4))
-            ds = Ego4dNarrationDataset(str(root), str(anno), tok,
-                                       frame_loader=lambda p, s, e, where=where: clip.to(where))
-            logits, labels = run_ego4d_stream.llm_sample_logits(model, ds[0])
-            llm = run_ego4d_stream.eval_llm_sample(logits, labels, tok)
-            counts = read_launches()
-            out[run] = dict(summary=summary, fires=[r["fires"] for r in per_video],
-                            lm_ppl=llm["lm_ppl"], logits=torch.from_numpy(logits))
-            log("eval-parity", f"{run}: {time.perf_counter() - t0:.1f} s, fires "
-                               f"{out[run]['fires']}, lm_ppl {llm['lm_ppl']!r}")
-            if where != "cpu":
-                fp32_only(counts, "eval-parity")
-                if not all(counts[n] for n in ("exact_attention", "int4_matvec",
-                                                "flash_attention", "selective_scan")):
-                    raise RuntimeError(f"the card's eval run missed a kernel: {counts}")
-            del model
+                if threshold is None:
+                    threshold, _ = gate_threshold(model, videos, loader, 3)
+                reset_launches()
+                summary, per_video = evaluate_gate_stream(
+                    model, tok, videos, frame_loader=loader,
+                    session_kw=dict(gate_threshold=threshold, max_new_tokens=4))
+                ds = Ego4dNarrationDataset(str(root), str(anno), tok,
+                                           frame_loader=lambda p, s, e, where=where: clip.to(where))
+                logits, labels = run_ego4d_stream.llm_sample_logits(model, ds[0])
+                llm = run_ego4d_stream.eval_llm_sample(logits, labels, tok)
+                counts = read_launches()
+                out[run] = dict(summary=summary, fires=[r["fires"] for r in per_video],
+                                lm_ppl=llm["lm_ppl"], logits=torch.from_numpy(logits))
+                log("eval-parity", f"{run}: {time.perf_counter() - t0:.1f} s, fires "
+                                   f"{out[run]['fires']}, lm_ppl {llm['lm_ppl']!r}")
+                if where != "cpu":
+                    fp32_only(counts, "eval-parity")
+                    if not all(counts[n] for n in ("exact_attention", "int4_matvec",
+                                                    "flash_attention", "selective_scan")):
+                        raise RuntimeError(f"the card's eval run missed a kernel: {counts}")
+                del model
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
         shutil.rmtree(root, ignore_errors=True)
     c, tol = out["cpu"], EVAL_PARITY_TOL
     errs, control = ({"lm_ppl": abs(out[r]["lm_ppl"] - c["lm_ppl"]) / c["lm_ppl"],
@@ -3998,16 +3983,16 @@ class ExpertTally:
         self.calls, self.sample = 0, None
 
     def __enter__(self):
-        def counted(xt, banks, cfg, topi, topw):
+        def counted(xt, banks, cfg, topi, topw, **kw):
             if torch.cuda.is_current_stream_capturing():
-                return self.orig(xt, banks, cfg, topi, topw)
+                return self.orig(xt, banks, cfg, topi, topw, **kw)
             layer = self.calls % self.counts.shape[0]
             self.calls += 1
             self.counts[layer] += torch.bincount(topi.reshape(-1).cpu(),
                                                  minlength=self.counts.shape[1])
             if self.sample is None and layer == 0:
                 self.sample = (xt.clone(), banks, topi.clone(), topw.clone())
-            return self.orig(xt, banks, cfg, topi, topw)
+            return self.orig(xt, banks, cfg, topi, topw, **kw)
 
         self.mod._moe_apply_gathered = counted
         return self
@@ -4181,27 +4166,25 @@ def decoders_parity(dev):
         out = {}
         for run, where, tf32 in (("cpu", "cpu", False), ("card", dev, False),
                                  ("card_tf32", dev, True)):
-            torch.backends.cuda.matmul.allow_tf32 = tf32
-            torch.backends.cudnn.allow_tf32 = tf32
-            eng = Engine(params, cfg, attn_impl="exact", quantize_gate="int4", kv_capacity=1024,
-                         device=where)
-            reset_launches()
-            session, _, _ = run_session(eng, [f.to(where) for f in frames], fire, max_new=8)
-            counts = read_launches()
-            out[run] = dict(probs=torch.stack(eng.probs), memory=session.state.memory[0, :4].cpu(),
-                            logits=torch.cat(eng.prefill_logits), tokens=eng.decoded,
-                            turns=len(session.turns))
-            if where != "cpu":
-                fp32_only(counts, f"{name}_parity")
-                if not all(counts[n] for n in ("exact_attention", "flash_attention",
-                                               "int4_matvec")):
-                    raise RuntimeError(f"{name}: the card's session missed a kernel: {counts}")
-                if run == "card" and name == "mixtral":
-                    dispatch = moe_dispatch_parity(eng.params["text"], cfg.text, where)
-            del eng, session
-            torch.cuda.empty_cache()
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+            with tf32_matmuls(tf32):
+                eng = Engine(params, cfg, attn_impl="exact", quantize_gate="int4", kv_capacity=1024,
+                             device=where)
+                reset_launches()
+                session, _, _ = run_session(eng, [f.to(where) for f in frames], fire, max_new=8)
+                counts = read_launches()
+                out[run] = dict(probs=torch.stack(eng.probs),
+                                memory=session.state.memory[0, :4].cpu(),
+                                logits=torch.cat(eng.prefill_logits), tokens=eng.decoded,
+                                turns=len(session.turns))
+                if where != "cpu":
+                    fp32_only(counts, f"{name}_parity")
+                    if not all(counts[n] for n in ("exact_attention", "flash_attention",
+                                                   "int4_matvec")):
+                        raise RuntimeError(f"{name}: the card's session missed a kernel: {counts}")
+                    if run == "card" and name == "mixtral":
+                        dispatch = moe_dispatch_parity(eng.params["text"], cfg.text, where)
+                del eng, session
+                torch.cuda.empty_cache()
         c = out["cpu"]
         tol = DECODERS_PARITY_TOL
         errs[name], controls[name] = ({k: float((c[k] - out[run][k]).abs().max()) for k in tol}
@@ -4596,11 +4579,8 @@ def projectors_parity(dev):
             card = tree_map(lambda t: t.to(dev), params)
             out = {}
             for run, tf32 in (("card", False), ("card_tf32", True)):
-                torch.backends.cuda.matmul.allow_tf32 = tf32
-                torch.backends.cudnn.allow_tf32 = tf32
-                out[run] = fn(card, dev)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+                with tf32_matmuls(tf32):
+                    out[run] = fn(card, dev)
         errs[name] = excess(out["card"], ref, *PROJ_PARITY_TOL)
         controls[name] = excess(out["card_tf32"], ref, *PROJ_PARITY_TOL)
         if not torch.isfinite(ref).all() or ref.shape != out["card"].shape:
@@ -4820,20 +4800,17 @@ def mesh_parity(dev, mesh):
     out = {}
     for run, where, tf32 in (("cpu", "cpu", False), ("card", dev, False),
                              ("card_tf32", dev, True)):
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        torch.backends.cudnn.allow_tf32 = tf32
-        eng = Engine(params, cfg, attn_impl="exact", quantize_gate="int4", kv_capacity=1024,
-                     device=where, mesh=LocalMesh("cpu") if where == "cpu" else mesh)
-        reset_launches()
-        session, _, _ = run_session(eng, [f.to(where) for f in frames], (1, 3), max_new=8)
-        counts = read_launches()
-        out[run] = dict(probs=torch.stack(eng.probs), memory=session.state.memory[0, :4].cpu(),
-                        logits=torch.cat(eng.prefill_logits), tokens=eng.decoded)
-        if where != "cpu":
-            fp32_only(counts, "parallel parity")
-        del eng, session
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+        with tf32_matmuls(tf32):
+            eng = Engine(params, cfg, attn_impl="exact", quantize_gate="int4", kv_capacity=1024,
+                         device=where, mesh=LocalMesh("cpu") if where == "cpu" else mesh)
+            reset_launches()
+            session, _, _ = run_session(eng, [f.to(where) for f in frames], (1, 3), max_new=8)
+            counts = read_launches()
+            out[run] = dict(probs=torch.stack(eng.probs), memory=session.state.memory[0, :4].cpu(),
+                            logits=torch.cat(eng.prefill_logits), tokens=eng.decoded)
+            if where != "cpu":
+                fp32_only(counts, "parallel parity")
+            del eng, session
     tol = {"probs": 2e-5, "memory": 2e-5, "logits": 2e-4}  # parity()'s
     c = out["cpu"]
     errs, control = ({k: float((c[k] - out[run][k]).abs().max()) for k in tol}

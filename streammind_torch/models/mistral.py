@@ -1,13 +1,13 @@
-"""Decoder-only transformer: Mistral / Llama, Qwen2 (q/k/v biases) and
-Mixtral (sparse MoE); Jamba's hybrid layers (``models/jamba.py``) reuse
-its attention and MLP pieces on the paged serving path.
+"""Decoder-only transformer: Mistral / Llama, Qwen2 (q/k/v biases),
+Mixtral (sparse MoE) and Jamba's Mamba and attention hybrid (``jamba.py``).
 
-Serves the Mistral-7B, Qwen2-7B and Mixtral-8x7B decoders and the 4-layer,
-2-way gate LM.  Layer leaves are stacked on a leading (L,) axis and the
-forward loops over the layers in Python.  The KV cache has a static
-capacity with length masking; new K/V rows are written into it IN PLACE
-(the JAX package builds a new cache with dynamic_update_slice on a donated
-buffer), so the cache a caller passes in is updated by the call.  Cached prefill attends through
+Layer leaves are stacked on a leading (L,) axis, and ``decoder_forward``,
+the one loop over the layers, runs every decoder over a store: the dense
+ring (``KVCache``), the page pool (``streaming/paged.py``), or none
+(training, the gate LM).  The ring has a static capacity with length
+masking; new K/V rows are written into it IN PLACE (the JAX package builds
+a new cache with dynamic_update_slice on a donated buffer), so the cache a
+caller passes in is updated by the call.  Cached prefill attends through
 the hand-written flash kernel (``ops/attention.py::flash_attention``);
 training (no cache, ``attn_impl="flash"``) through the differentiable
 ``flash_mha``, each layer rematerialized in the backward under
@@ -42,10 +42,12 @@ from ..parallel.mesh import ambient_mesh, axis_index, axis_size, is_trivial
 from ..parallel.partitioning import row_linear, spec_for, use_leaf, use_linear
 from ..utils.params import fill_layers, linear, normal_init, ones, unstack_layers, zeros
 from ..utils.profiling import tracer
+from . import jamba
 
 
 class KVCache(NamedTuple):
-    """Static-capacity KV cache.
+    """Static-capacity KV cache: the dense ring, one of the decoder's stores
+    (``decoder_forward``).
 
     k, v: (n_layers, B, capacity, n_kv_heads, head_dim)
     length: (B,) int32 — valid prefix length (shared across layers).
@@ -58,6 +60,23 @@ class KVCache(NamedTuple):
     @property
     def capacity(self) -> int:
         return self.k.shape[2]
+
+    def attend(self, j: int, q, k, v):
+        """Layer j's (B, S, Hkv, D) K/V written in place at ``length``, clamped
+        so the block fits (as in the JAX package), then q over the valid
+        prefix: ``decode_attention`` for a token, the flash kernel for a block."""
+        b, s = k.shape[:2]
+        start = torch.clamp(self.length.long(), max=self.capacity - s)
+        pos = start[:, None] + torch.arange(s, device=k.device)[None, :]
+        rows = torch.arange(b, device=k.device)[:, None].expand(b, s)
+        cache_k, cache_v = self.k[j], self.v[j]
+        cache_k[rows, pos] = k.to(cache_k.dtype)
+        cache_v[rows, pos] = v.to(cache_v.dtype)
+        total_len = self.length + s
+        if s == 1:
+            return decode_attention(q, cache_k, cache_v, total_len)
+        return flash_attention(q, cache_k.to(q.dtype), cache_v.to(q.dtype), causal=True,
+                               kv_len=total_len, q_offset=self.length)
 
 
 def init_kv_cache(cfg: TextConfig, batch: int, capacity: int, dtype=torch.bfloat16,
@@ -92,9 +111,7 @@ def init_text_params(g: torch.Generator, cfg: TextConfig, device="cuda", dtype=t
         if layer_fn is not None:
             raise ValueError("init_text_params: layer_fn draws identical layers; a hybrid "
                              "decoder's kinds are stacked apart")
-        from .jamba import init_hybrid_layers
-
-        params["layers"] = init_hybrid_layers(g, cfg, kw)
+        params["layers"] = jamba.init_hybrid_layers(g, cfg, kw)
     elif layer_fn is None:
         params["layers"] = _init_layers(g, cfg, L, kw)
     else:
@@ -218,14 +235,14 @@ def qkv_proj(x, lp, cfg: TextConfig, path: str = "text"):
     )
 
 
-def _mlp(x, lp, cfg: TextConfig, moe_dispatch=None, path: str = "text", seq: bool = False):
+def _mlp(x, lp, cfg: TextConfig, path: str = "text", seq: bool = False):
     """The MLP, or Mixtral's MoE.  Under a mesh gate/up are column- and down
     row-parallel (the rank's channels), the MoE over the rank's experts;
     ``seq``: x is this rank's S shard (``text_forward(sequence_axis=)``)."""
     mesh = ambient_mesh()
     if "router" in lp:
         xin = C.gather(x, mesh, "tp", 1, bwd="slice") if seq else x
-        out = _moe_mlp(xin, lp, cfg, moe_dispatch, path)
+        out = _moe_mlp(xin, lp, cfg, path)
         return C.scatter(out, mesh, "tp", 1) if seq else out
     mlp, L = lp["mlp"], f"{path}.layers.mlp"
     x = _tp_enter(x, mesh, seq)
@@ -325,35 +342,34 @@ def router_top_k(probs: torch.Tensor, k: int):
     return vals[:, :k], idx[:, :k]
 
 
-def _moe_mlp(x, p, cfg: TextConfig, dispatch=None, path: str = "text"):
+def _moe_mlp(x, p, cfg: TextConfig, path: str = "text"):
     """Mixtral's sparse MoE: the router in the working dtype, an fp32
     softmax, the top k experts renormalized (HF MixtralSparseMoeBlock);
     where ``cfg.norm_topk_prob`` is False (Jamba's JambaSparseMoeBlock),
     the top k probabilities weight the experts as they are.
 
-    Dispatch, by token count T = B*S and bank kind:
+    The form, from T = B*S, the banks, device, dtype, autograd and mesh:
       - T <= _MOE_GATHER_MAX_TOKENS (decode): each token runs its k experts'
         slices through ``linear``, so on the card int8 / per-channel int4
         slices reach the matvec kernels and only k/E of the expert bytes
-        are read;
-      - per-channel int4 banks of every expert, bf16 activations on the
-        card, no gradient asked of x (``_grouped_int4``): rows sorted by
-        expert through the grouped int4 kernel pair
-        (``_moe_apply_grouped_int4``);
-      - other quantized banks: every expert over every token, weighted by
-        its routing weight (zero where unrouted), each through ``linear``;
-      - plain banks: rows sorted stably by expert, one matmul per expert's
-        contiguous row block (what ``lax.ragged_dot`` computes in the JAX
-        package), k/E of the dense products; differentiable.
-    ``dispatch``: None (the ambient mesh decides), "dense", "grouped" or a
-    mesh (``_resolve_moe_dispatch``).  Under a mesh each rank holds E/tp
-    experts (expert parallel), runs the chosen form over them alone, and
-    the ranks' outputs are summed over tp."""
+        are read; the gather skips other ranks' experts, so under a mesh
+        with autograd on (every rank's backward must run the same
+        collectives) a few tokens take the forms below;
+      - plain banks, where ``_resolve_moe_dispatch`` allows: rows sorted
+        stably by expert, one matmul per expert's row block (JAX's
+        ``lax.ragged_dot``), k/E of the dense products; differentiable;
+      - off a mesh, ``_grouped_int4`` (per-channel int4 banks, bf16 on the
+        card, no gradient asked of x): the grouped int4 kernel pair;
+      - else every expert over every token, weighted by its routing weight
+        (zero where unrouted), each through ``linear``.
+    Under a mesh each rank holds E/tp experts (expert parallel), runs the
+    chosen form over them alone, and the ranks' outputs are summed over tp."""
     b, s, d = x.shape
-    mesh = _dispatch_mesh(dispatch)
+    mesh = ambient_mesh()
     xt = x.reshape(b * s, d)
     router = p["router"]["weight"]
-    if not is_trivial(mesh):
+    one = is_trivial(mesh)
+    if not one:
         router = use_leaf(router, f"{path}.layers.router.weight", 1, mesh)
     router_logits = xt @ router.T.to(xt.dtype)  # (T, E)
     probs = torch.softmax(router_logits.float(), dim=-1)
@@ -361,39 +377,37 @@ def _moe_mlp(x, p, cfg: TextConfig, dispatch=None, path: str = "text"):
     topw, topi = (router_top_k if brk is None else brk)(probs, cfg.num_experts_per_tok)
     if cfg.norm_topk_prob:
         topw = topw / topw.sum(dim=-1, keepdim=True)
-    if not is_trivial(mesh):
-        return _moe_mlp_sharded(xt, p, cfg, topi, topw, mesh, dispatch, path).reshape(b, s, d)
-    banks = tuple(_wrap_expert_leaf(p["experts"][n]) for n in ("gate", "up", "down"))
-    if b * s <= _MOE_GATHER_MAX_TOKENS:
-        return _moe_apply_gathered(xt, banks, cfg, topi, topw).reshape(b, s, d)
-    if _grouped_int4(banks, xt, cfg):
-        return _moe_apply_grouped_int4(xt, banks, cfg, topi, topw).reshape(b, s, d)
-    mode = _resolve_moe_dispatch(dispatch, cfg)
-    plain = all(not isinstance(p["experts"][n], dict) for n in ("gate", "up", "down"))
-    if mode == "grouped" and plain:
-        out = _moe_apply_grouped(xt, p["experts"], cfg, topi, topw)
+    tp = axis_size(mesh, "tp")
+    if cfg.num_experts % tp:
+        raise ValueError(f"tp={tp} does not split {cfg.num_experts} experts")
+    few = b * s <= _MOE_GATHER_MAX_TOKENS and (one or not torch.is_grad_enabled())
+    experts = p["experts"]
+    plain = all(not isinstance(experts[n], dict) for n in ("gate", "up", "down"))
+    if plain and not few and _resolve_moe_dispatch(mesh, cfg) != "dense":
+        return _moe_apply_grouped_sharded(xt, experts, cfg, topi, topw, mesh,
+                                          f"{path}.layers.experts").reshape(b, s, d)
+    banks = tuple(_wrap_expert_leaf(experts[n]) for n in ("gate", "up", "down"))
+    if not one:  # this rank's E/tp experts, the fsdp dims gathered at use
+        banks = tuple({k: use_leaf(t, f"{path}.layers.experts.{n}" + f".{k}" * (k != "weight"),
+                                   1, mesh, tp_dim=0) for k, t in leaf.items()}
+                      for n, leaf in zip(("gate", "up", "down"), banks))
+    lo = axis_index(mesh, "tp") * (cfg.num_experts // tp)
+    xt, topw = C.copy_to_tp(xt, mesh), C.copy_to_tp(topw, mesh)
+    if few:
+        out = _moe_apply_gathered(xt, banks, cfg, topi, topw, lo=lo)
+    elif one and _grouped_int4(banks, xt, cfg):
+        out = _moe_apply_grouped_int4(xt, banks, cfg, topi, topw)
     else:
-        out = _moe_apply_dense(xt, banks, cfg, topi, topw)
-    return out.reshape(b, s, d)
+        out = _moe_apply_dense(xt, banks, cfg, topi, topw, lo=lo)
+    return C.reduce_from_tp(out, mesh).reshape(b, s, d)
 
 
-def _dispatch_mesh(dispatch):
-    """The mesh a dispatch names, else the ambient one."""
-    if dispatch is None or isinstance(dispatch, str):
-        return ambient_mesh()
-    return dispatch
-
-
-def _resolve_moe_dispatch(dispatch, cfg: TextConfig):
-    """Normalize a requested or ambient MoE dispatch to "dense" | "grouped" |
-    ("sharded_grouped", mesh), with the JAX package's guards: tp 1 takes
-    the grouped form; E % tp == 0 and E/tp > k the expert-parallel grouped
-    form; anything else the dense one."""
-    if dispatch in ("dense", "grouped"):
-        return dispatch
-    if isinstance(dispatch, str):
-        raise ValueError(f"MoE dispatch {dispatch!r}: pass None, 'dense', 'grouped' or a mesh")
-    mesh = _dispatch_mesh(dispatch)
+def _resolve_moe_dispatch(mesh, cfg: TextConfig):
+    """The MoE form plain banks may take under ``mesh`` (None: the ambient
+    one): "grouped" | ("sharded_grouped", mesh) | "dense", with the JAX
+    package's guards: tp 1 takes the grouped form; E % tp == 0 and E/tp > k
+    the expert-parallel grouped form; anything else the dense one."""
+    mesh = mesh if mesh is not None else ambient_mesh()
     tp = axis_size(mesh, "tp")
     if tp == 1:
         return "grouped"
@@ -401,36 +415,6 @@ def _resolve_moe_dispatch(dispatch, cfg: TextConfig):
     if rem == 0 and e_loc > cfg.num_experts_per_tok:
         return ("sharded_grouped", mesh)
     return "dense"
-
-
-def _moe_mlp_sharded(xt, p, cfg: TextConfig, topi, topw, mesh, dispatch, path: str):
-    """The MoE over this rank's E/tp experts (its shards, the fsdp dims
-    gathered at use), summed over tp."""
-    tp = axis_size(mesh, "tp")
-    if cfg.num_experts % tp:
-        raise ValueError(f"tp={tp} does not split {cfg.num_experts} experts")
-    plain = all(not isinstance(p["experts"][n], dict) for n in ("gate", "up", "down"))
-    # the per-token gather skips other ranks' experts, so under autograd (where
-    # every rank's backward must run the same collectives) a few tokens too
-    # take a form that uses every bank
-    big = xt.shape[0] > _MOE_GATHER_MAX_TOKENS or torch.is_grad_enabled()
-    if big and plain and _resolve_moe_dispatch(dispatch if dispatch is not None else mesh,
-                                               cfg) != "dense":
-        return _moe_apply_grouped_sharded(xt, p["experts"], cfg, topi, topw, mesh,
-                                          path=f"{path}.layers.experts")
-    banks = []
-    for n in ("gate", "up", "down"):
-        leaf = _wrap_expert_leaf(p["experts"][n])
-        base = f"{path}.layers.experts.{n}"
-        banks.append({k: use_leaf(t, base if k == "weight" else f"{base}.{k}", 1, mesh,
-                                  tp_dim=0) for k, t in leaf.items()})
-    lo = axis_index(mesh, "tp") * (cfg.num_experts // tp)
-    xin, w = C.copy_to_tp(xt, mesh), C.copy_to_tp(topw, mesh)
-    if big:
-        out = _moe_apply_dense(xin, banks, cfg, topi, w, lo=lo)
-    else:
-        out = _moe_apply_gathered(xin, banks, cfg, topi, w, lo=lo)
-    return C.reduce_from_tp(out, mesh)
 
 
 def _moe_apply_dense(xt, banks, cfg: TextConfig, topi, topw, lo: int = 0):
@@ -618,69 +602,119 @@ def _moe_apply_gathered(xt, banks, cfg: TextConfig, topi, topw, lo: int = 0):
     return torch.stack(out)
 
 
-def _write_cache(cache_l: torch.Tensor, new: torch.Tensor, start: torch.Tensor) -> None:
-    """In-place write of new (B, S, Hkv, D) rows at per-row ``start`` into one
-    layer's cache (B, C, Hkv, D).  The start is clamped so the block fits,
-    as dynamic_update_slice clamps it in the JAX package."""
-    b, s = new.shape[:2]
-    start = torch.clamp(start.long(), max=cache_l.shape[1] - s)
-    pos = start[:, None] + torch.arange(s, device=new.device)[None, :]
-    rows = torch.arange(b, device=new.device)[:, None].expand(b, s)
-    cache_l[rows, pos] = new.to(cache_l.dtype)
+class _Forward(NamedTuple):
+    """What every layer of one ``decoder_forward`` shares."""
+
+    cfg: TextConfig
+    store: object              # ``decoder_forward``'s store, or None
+    rope: Optional[tuple]      # (cos, sin), or None where no layer reads them
+    v_only: bool               # one token, no store, no mask: attention is v
+    attn_mask: Optional[torch.Tensor]
+    attn_impl: str
+    state: object              # a hybrid's RecurrentState rows
+    real_len: Optional[torch.Tensor]
+    path: str
+    seq: bool                  # x is this rank's S shard (sequence parallel)
 
 
-def _attn_block(x, lp, cfg: TextConfig, positions, kv_mask, cache_k, cache_v, cache_len,
-                attn_impl, path: str = "text", seq: bool = False):
-    """One attention sub-block over this rank's heads (every head with no
-    mesh; o row-parallel under one).  With a cache (one layer's (B, C, Hkv,
-    D) k and v), the new K/V are written at cache_len and attention runs
-    over the cache; else causal self-attention over the block."""
+def _attn_block(x, lp, j: int, f: _Forward):
+    """Attention layer j over this rank's heads (every head with no mesh; o
+    row-parallel under one): the new K/V handed to the store, which writes
+    them and attends; with no store, causal self-attention over the
+    block."""
+    cfg = f.cfg
     mesh = ambient_mesh()
     h, hkv, kv_head = _tp_heads(cfg, mesh)
-    hd, L = cfg.head_dim, f"{path}.layers"
-    x = _tp_enter(x, mesh, seq)
+    hd, L = cfg.head_dim, f"{f.path}.layers"
+    x = _tp_enter(x, mesh, f.seq)
     b, s, _ = x.shape
-    if cache_k is None and s == 1 and kv_mask is None and "v" in lp:
+    if f.v_only:
         # Single-token self-attention (the streaming gate LM's shape): the
         # softmax over one logit is exactly 1, so the output is v itself —
         # the q/k projections and rope drop out and are never read.
         v = _kv_proj(x, lp, "v", L, cfg, mesh, kv_head).reshape(b, s, hkv, hd)
         o = _repeat_kv(v, h // hkv)
         return row_linear(o.reshape(b, s, h * hd), lp["o"], f"{L}.o", 1)
-    q, k, v = qkv_proj(x, lp, cfg, path)
-    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    if cache_k is not None:
-        _write_cache(cache_k, k, cache_len)
-        _write_cache(cache_v, v, cache_len)
-        total_len = cache_len + s
-        if s == 1:
-            o = decode_attention(q, cache_k, cache_v, total_len)
-        else:
-            # prefill: causal inside the block, the whole prefix visible,
-            # nothing past total_len — the kernel reads the cache in place
-            o = flash_attention(q, cache_k.to(q.dtype), cache_v.to(q.dtype), causal=True,
-                                kv_len=total_len, q_offset=cache_len)
+    q, k, v = qkv_proj(x, lp, cfg, f.path)
+    if f.rope is not None:
+        q = apply_rope(q, *f.rope)
+        k = apply_rope(k, *f.rope)
+    if f.store is not None:
+        o = f.store.attend(j, q, k, v)
     else:
-        o = attention(q, k, v, causal=True, kv_mask=kv_mask, impl=attn_impl)
+        o = attention(q, k, v, causal=True, kv_mask=f.attn_mask, impl=f.attn_impl)
     return row_linear(o.reshape(b, s, h * hd), lp["o"], f"{L}.o", 1,
-                      sequence_dim=1 if seq else None)
+                      sequence_dim=1 if f.seq else None)
 
 
-def _layer(x, lp, cfg: TextConfig, positions, attn_mask, attn_impl, moe_dispatch=None,
-           path: str = "text", seq: bool = False, cache_k=None, cache_v=None, cache_len=None):
-    """One decoder layer; under sequence parallelism (``seq``) x is this
-    rank's S shard."""
+def _layer(x, lp, kind: str, j: int, f: _Forward):
+    """One decoder layer: attention layer j, or Mamba layer j, whose rows of
+    ``f.state`` advance in place (by one token a row, or by a block's first
+    ``f.real_len``); then the MLP or MoE."""
     def norm(t, name):  # on S shards, each rank's weight gradient is a part
         w = lp[name]["weight"]
-        return rms_norm(t, C.copy_to_tp(w, ambient_mesh()) if seq else w, cfg.rms_norm_eps)
+        return rms_norm(t, C.copy_to_tp(w, ambient_mesh()) if f.seq else w, f.cfg.rms_norm_eps)
 
     y = norm(x, "input_norm")
-    x = x + _attn_block(y, lp, cfg, positions, attn_mask, cache_k, cache_v, cache_len,
-                        attn_impl, path, seq)
-    y = norm(x, "post_norm")
-    return x + _mlp(y, lp, cfg, moe_dispatch, path, seq)
+    if kind == "attention":
+        x = x + _attn_block(y, lp, j, f)
+    elif y.shape[1] == 1:
+        x = x + jamba.mamba_mixer_step(lp["mamba"], jamba.mamba_sizes(f.cfg), y[:, 0],
+                                       f.state.conv[j], f.state.ssm[j])[:, None]
+    else:
+        x = x + jamba.mamba_mixer(lp["mamba"], jamba.mamba_sizes(f.cfg), y, f.state.conv[j],
+                                  f.state.ssm[j], f.real_len)
+    return x + _mlp(norm(x, "post_norm"), lp, f.cfg, f.path, f.seq)
+
+
+def decoder_forward(params, cfg: TextConfig, store=None, input_ids=None, inputs_embeds=None,
+                    positions=None, attn_mask=None, attn_impl="auto", remat=False,
+                    sequence_axis=None, state=None, real_len=None, return_hidden=False,
+                    path="text"):
+    """The decoder over a token block, the one loop over its layers: fp32
+    logits, or with ``return_hidden`` the final norm's output.
+
+    ``store``: where attention layers keep the block's K/V, with ``length``
+    (B,), where the block starts, and ``attend(j, q, k, v)``, which writes
+    attention layer j's K/V and attends over the valid prefix (the ring's
+    ``KVCache``, the page pool's store in ``streaming/paged.py``); None:
+    causal self-attention over the block (the other options as
+    ``text_forward`` says).  A hybrid's layer kinds come from
+    ``jamba.layer_plan``; its Mamba layers continue ``state`` (the rows'
+    ``RecurrentState``) in place.  The rotary tables are computed once, and
+    not where no layer reads them: ``cfg.use_rope`` off, or the gate LM's
+    one-token tick."""
+    mesh = ambient_mesh()
+    x = inputs_embeds if inputs_embeds is not None else embed_tokens(params, input_ids, path)
+    b, s, _ = x.shape
+    if positions is None:
+        base = store.length[:, None] if store is not None else torch.zeros(
+            (b, 1), dtype=torch.int32, device=x.device)
+        positions = base + torch.arange(s, device=x.device)[None, :]
+    seq = sequence_axis is not None and store is None and not is_trivial(mesh)
+    if seq:
+        if sequence_axis != "tp":
+            raise ValueError(f"sequence_axis {sequence_axis!r}: the S shards ride tp")
+        x = C.scatter(x, mesh, "tp", 1)
+    v_only = store is None and s == 1 and attn_mask is None and "v" in params["layers"]
+    rope = (rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+            if cfg.use_rope and not v_only else None)
+    f = _Forward(cfg, store, rope, v_only, attn_mask, attn_impl, state, real_len, path, seq)
+    plan = jamba.layer_plan(cfg) if cfg.hybrid else None
+    layers = unstack_layers(params["layers"], cfg.num_layers) if plan is None else None
+    for i in range(cfg.num_layers):
+        if plan is None:
+            lp, kind, j = layers[i], "attention", i
+        else:
+            lp, (kind, j) = jamba.layer_view(params["layers"], cfg, i), plan[i][:2]
+        if remat and store is None:
+            x = checkpoint(_layer, x, lp, kind, j, f, use_reentrant=False)
+        else:
+            x = _layer(x, lp, kind, j, f)
+    if seq:
+        x = C.gather(x, mesh, "tp", 1, bwd="slice")
+    x = rms_norm(x, params["final_norm"]["weight"], cfg.rms_norm_eps)
+    return x if return_hidden else lm_head(params, cfg, x, path)
 
 
 def text_forward(
@@ -695,14 +729,11 @@ def text_forward(
     attn_impl: str = "auto",
     return_hidden: bool = False,
     remat: bool = False,
-    moe_dispatch=None,
     sequence_axis: Optional[str] = None,
     path: str = "text",
 ):
-    """Forward over a token block.
-
-    ``moe_dispatch`` (Mixtral): None (the ambient mesh decides), "dense",
-    "grouped" or a mesh (``_moe_mlp``).
+    """Forward over a token block, over the dense ring or no cache
+    (``decoder_forward``).
 
     ``path``: the tree path of ``params`` ("text", or "projector.cls_net"
     for the gate LM), which the partitioning rules read under a mesh.
@@ -730,34 +761,13 @@ def text_forward(
     if cfg.hybrid:
         raise ValueError("text_forward runs attention-only decoders; a hybrid decoder's Mamba "
                          "state lives in the paged pool (streaming/paged.py)")
-    mesh = ambient_mesh()
-    x = inputs_embeds if inputs_embeds is not None else embed_tokens(params, input_ids, path)
-    b, s, _ = x.shape
-    if positions is None:
-        base = cache.length[:, None] if cache is not None else torch.zeros(
-            (b, 1), dtype=torch.int32, device=x.device)
-        positions = base + torch.arange(s, device=x.device)[None, :]
-    seq = sequence_axis is not None and cache is None and not is_trivial(mesh)
-    if seq:
-        if sequence_axis != "tp":
-            raise ValueError(f"sequence_axis {sequence_axis!r}: the S shards ride tp")
-        x = C.scatter(x, mesh, "tp", 1)
-    for i, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
-        args = (x, lp, cfg, positions, attn_mask, attn_impl, moe_dispatch, path, seq)
-        if cache is not None:
-            x = _layer(*args, cache.k[i], cache.v[i], cache.length)
-        else:
-            x = checkpoint(_layer, *args, use_reentrant=False) if remat else _layer(*args)
-    if seq:
-        x = C.gather(x, mesh, "tp", 1, bwd="slice")
-    new_cache = None
-    if cache is not None:
-        advance = cache_advance if cache_advance is not None else s
-        new_cache = KVCache(k=cache.k, v=cache.v, length=cache.length + advance)
-    x = rms_norm(x, params["final_norm"]["weight"], cfg.rms_norm_eps)
-    if return_hidden:
-        return x, new_cache
-    return lm_head(params, cfg, x, path), new_cache
+    out = decoder_forward(params, cfg, cache, input_ids, inputs_embeds, positions=positions,
+                          attn_mask=attn_mask, attn_impl=attn_impl, remat=remat,
+                          sequence_axis=sequence_axis, return_hidden=return_hidden, path=path)
+    if cache is None:
+        return out, None
+    advance = cache_advance if cache_advance is not None else out.shape[1]
+    return out, KVCache(k=cache.k, v=cache.v, length=cache.length + advance)
 
 
 def lm_head(params, cfg: TextConfig, hidden: torch.Tensor, path: str = "text") -> torch.Tensor:

@@ -3,9 +3,10 @@
 In place of a static ring per dialogue (capacity 8192 ≈ 1.07 GB at 7B
 bf16), one SHARED pool of fixed-size pages plus a page table per dialogue,
 so resident memory tracks the sum of the dialogues' actual lengths.  The
-decode hot path runs one hand-written kernel a layer
-(``ops/paged_attention.py``): the one-token pool write and the one-token
-attention over page tables, in one launch.
+decoder's layers run in ``models/mistral.py::decoder_forward`` over the
+pool's store (``_PoolStore``).  The decode hot path runs one hand-written
+kernel a layer (``ops/paged_attention.py``): the one-token pool write and
+the one-token attention over page tables, in one launch.
 
 Layout, per layer:
   pool.k/v: tuples of (Hkv, num_pages, page_size, D)
@@ -40,11 +41,8 @@ from ..models import mistral as lm
 from ..models.meta import SplicePlan, splice_embeds
 from ..ops.attention import flash_attention
 from ..ops import paged_attention as _paged_attention
-from ..ops.norms import rms_norm
 from ..ops.paged_attention import gather_seq, paged_decode_attention
-from ..ops.rotary import apply_rope, rope_cos_sin
 from ..parallel.mesh import ambient_mesh, is_trivial
-from ..utils.params import layer_slice, linear
 from ..utils.profiling import tracer
 
 _PAGE_MULTIPLE = 8  # the JAX package's pool takes page sizes in whole 8-row tiles
@@ -120,7 +118,28 @@ def _write_block(pool_k, pool_v, k_new, v_new, table, length, page_size):
     offset = pos % page_size
     pool_k[:, page_slot, offset] = k_new.permute(2, 0, 1, 3).to(pool_k.dtype)
     pool_v[:, page_slot, offset] = v_new.permute(2, 0, 1, 3).to(pool_v.dtype)
-    return pool_k, pool_v
+
+
+class _PoolStore(NamedTuple):
+    """The pool as the decoder's store (``lm.decoder_forward``): the rows'
+    page tables and the lengths their blocks start at."""
+
+    pool: PagedKV
+    table: torch.Tensor
+    length: torch.Tensor
+
+    def attend(self, j: int, q, k, v):
+        """Attention layer j: the block's K/V written into the pool, then q
+        over each row's valid prefix through its table."""
+        pool_k, pool_v, table, length = self.pool.k[j], self.pool.v[j], self.table, self.length
+        s = q.shape[1]
+        if s == 1:  # write the token and attend, in one launch
+            return paged_decode_attention(q, pool_k, pool_v, table, length,
+                                          k_new=k[:, 0], v_new=v[:, 0])
+        _write_block(pool_k, pool_v, k, v, table, length, self.pool.page_size)
+        k_seq = gather_seq(pool_k, table).to(q.dtype)
+        v_seq = gather_seq(pool_v, table).to(q.dtype)
+        return flash_attention(q, k_seq, v_seq, causal=True, kv_len=length + s, q_offset=length)
 
 
 def paged_text_forward(params, cfg: TextConfig, pool: PagedKV, table: torch.Tensor,
@@ -135,46 +154,9 @@ def paged_text_forward(params, cfg: TextConfig, pool: PagedKV, table: torch.Tens
     A hybrid decoder's Mamba layers continue ``state`` (the B rows' states)
     and write their new states into it in place: after one token a row,
     or, for a block, after each row's first ``real_len`` tokens."""
-    x = inputs_embeds if inputs_embeds is not None else lm.embed_tokens(params, input_ids)
-    b, s, _ = x.shape
-    page_size = pool.page_size
-    positions = length[:, None] + torch.arange(s, device=x.device)[None, :]
-    if cfg.use_rope:
-        cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-    plan = jamba.layer_plan(cfg) if cfg.hybrid else None
-    m = jamba.mamba_sizes(cfg) if plan else None
-    for i in range(cfg.num_layers):
-        if plan is None:
-            lp, mixer, j = layer_slice(params["layers"], i), "attention", i
-        else:
-            lp, (mixer, j) = jamba.layer_view(params["layers"], cfg, i), plan[i][:2]
-        y = rms_norm(x, lp["input_norm"]["weight"], cfg.rms_norm_eps)
-        if mixer == "mamba":
-            if s == 1:
-                x = x + jamba.mamba_mixer_step(lp["mamba"], m, y[:, 0], state.conv[j],
-                                               state.ssm[j])[:, None]
-            else:
-                x = x + jamba.mamba_mixer(lp["mamba"], m, y, state.conv[j], state.ssm[j],
-                                          real_len)
-        else:
-            q, k, v = lm.qkv_proj(y, lp, cfg)
-            if cfg.use_rope:
-                q = apply_rope(q, cos, sin)
-                k = apply_rope(k, cos, sin)
-            if s == 1:  # write the token and attend, in one launch
-                o = paged_decode_attention(q, pool.k[j], pool.v[j], table, length,
-                                           k_new=k[:, 0], v_new=v[:, 0])
-            else:
-                pk, pv = _write_block(pool.k[j], pool.v[j], k, v, table, length, page_size)
-                k_seq = gather_seq(pk, table).to(q.dtype)
-                v_seq = gather_seq(pv, table).to(q.dtype)
-                o = flash_attention(q, k_seq, v_seq, causal=True, kv_len=length + s,
-                                    q_offset=length)
-            x = x + linear(o.reshape(b, s, cfg.q_dim), lp["o"])
-        y = rms_norm(x, lp["post_norm"]["weight"], cfg.rms_norm_eps)
-        x = x + lm._mlp(y, lp, cfg)
-    x = rms_norm(x, params["final_norm"]["weight"], cfg.rms_norm_eps)
-    return lm.lm_head(params, cfg, x), pool
+    logits = lm.decoder_forward(params, cfg, _PoolStore(pool, table, length), input_ids,
+                                inputs_embeds, state=state, real_len=real_len)
+    return logits, pool
 
 
 # ---------------------------------------------------------------------------

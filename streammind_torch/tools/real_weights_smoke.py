@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import sys
 import time
@@ -58,15 +59,18 @@ def _load_sd(model_path: str, base_path=None) -> dict:
 
 
 @contextlib.contextmanager
-def fp32_matmuls():
-    """TF32 off for matmuls and cuDNN inside the block; the settings restored
-    after."""
+def tf32_matmuls(on: bool):
+    """TF32 on or off for matmuls and cuDNN inside the block; the settings
+    restored after."""
     saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = on
     try:
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+fp32_matmuls = functools.partial(tf32_matmuls, False)   # TF32 off inside the block
 
 
 def load_model(model_path: str, model_base=None, device="cuda", tokenizer=None):

@@ -348,7 +348,7 @@ def test_moe_router_renormalises_for_mixtral_only(kind):
                       for n, w in zip(("gate", "up", "down"), one)}}
     x = torch.randn((1, 6, d), generator=g)
     with torch.no_grad():
-        got = tlm._moe_mlp(x, lp, cfg, dispatch="dense")
+        got = tlm._moe_mlp(x, lp, cfg)
         h = torch.nn.functional.silu(x @ one[0].T) * (x @ one[1].T) @ one[2].T
         probs = torch.softmax((x[0] @ lp["router"]["weight"].T).float(), dim=-1)
         top2 = probs.sort(dim=-1, descending=True).values[:, :2].sum(-1)

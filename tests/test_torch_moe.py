@@ -85,6 +85,16 @@ def _x(shape, seed):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
 
 
+def _dense(x, lt, cfg):
+    """The layer's MoE through the dense form over the port's routing."""
+    xt = x.reshape(-1, x.shape[-1])
+    probs = torch.softmax(xt @ lt["router"]["weight"].T, dim=-1)
+    topw, topi = tlm.router_top_k(probs, cfg.num_experts_per_tok)
+    banks = tuple({"weight": lt["experts"][n]} for n in BANKS)
+    out = tlm._moe_apply_dense(xt, banks, cfg, topi, topw / topw.sum(-1, keepdim=True))
+    return out.reshape(x.shape)
+
+
 def _routing(lp_j, xt, cfg):
     """The JAX package's routing of ``xt`` through layer ``lp_j``'s router."""
     probs = jax.nn.softmax(jnp.asarray(xt) @ lp_j["router"]["weight"].T, axis=-1)
@@ -123,7 +133,7 @@ def test_gather_dispatch_matches_dense(moe):
     jcfg, tcfg, jp, tp = moe
     lj, lt = _layer0(jp, tp)
     x = _x((2, 16, jcfg.hidden_size), 1)
-    dense = tlm._mlp(torch.from_numpy(x), lt, tcfg, moe_dispatch="dense")
+    dense = _dense(torch.from_numpy(x), lt, tcfg)
     for t in (1, 2, 4):
         small = tlm._mlp(torch.from_numpy(x[:1, :t]), lt, tcfg)
         np.testing.assert_allclose(small.numpy(), dense[:1, :t].numpy(), **FP32)
@@ -404,21 +414,17 @@ def test_router_ties_through_the_moe_layer(moe):
     lt = dict(lt, router={"weight": torch.from_numpy(w)})
     x = _x((1, 8, jcfg.hidden_size), 6)
     want = np.asarray(jlm._mlp(jnp.asarray(x), lj, jcfg))
-    for dispatch in (None, "dense"):
-        got = tlm._mlp(torch.from_numpy(x), lt, tcfg, moe_dispatch=dispatch)
+    for got in (tlm._mlp(torch.from_numpy(x), lt, tcfg), _dense(torch.from_numpy(x), lt, tcfg)):
         np.testing.assert_allclose(got.numpy(), want, **FP32)
     np.testing.assert_allclose(tlm._mlp(torch.from_numpy(x[:, :2]), lt, tcfg).numpy(),
                                want[:, :2], **FP32)
 
 
 def test_mesh_dispatch_is_refused(moe):
-    """A dispatch that is neither None, "dense", "grouped" nor a mesh is
-    refused (a mesh is taken: the sharded cases below); the resolver's
-    guards are JAX's."""
-    _, tcfg, _, tp = moe
-    x = torch.from_numpy(_x((1, 8, tcfg.hidden_size), 7))
-    with pytest.raises(ValueError, match="sharded_grouped"):
-        tlm._mlp(x, layer_slice(tp["layers"], 0), tcfg, moe_dispatch="sharded_grouped")
+    """The resolver's guards are JAX's: with no mesh, or a mesh of one
+    device, plain banks take the grouped form (the sharded cases below take
+    a mesh)."""
+    _, tcfg, _, _ = moe
     assert tlm._resolve_moe_dispatch(None, tcfg) == "grouped"
     assert tlm._resolve_moe_dispatch(tmesh.make_mesh(1, 1, 1), tcfg) == "grouped"
 

@@ -29,6 +29,7 @@ from streammind_tpu.utils.quantize import quantize_text_params as j_quantize
 from streammind_torch import config as tconfig
 from streammind_torch.models import mistral as tlm
 from streammind_torch.ops.int4_grouped_gemm import int4_grouped_gemm, int4_grouped_gemm_ref
+from streammind_torch.parallel.mesh import set_mesh
 from streammind_torch.utils.from_jax import params_from_numpy
 from streammind_torch.utils.params import layer_slice
 from streammind_torch.utils.profiling import tracer
@@ -236,7 +237,8 @@ def test_a_ranks_share_of_the_banks_keeps_the_dense_form(mixtral, on_card, monke
     shares = []
     for r in (0, 1):
         rank["index"] = r
-        out, counts = _counted(lambda: tlm._moe_mlp(x, lt, tcfg, dispatch=mesh))
+        with set_mesh(mesh):
+            out, counts = _counted(lambda: tlm._moe_mlp(x, lt, tcfg))
         assert counts == {"moe.grouped_int4": 0, "moe.dense": 1}
         shares.append(out)
     monkeypatch.undo()
